@@ -1,0 +1,109 @@
+"""Command line of the port:
+
+    python -m consistent__style_transfer_torch <command> [--flags]
+
+Commands of this slice:
+  serve   stdin->stdout batch transfer with the current best G
+  infer   transfer train+test splits to .tsf with the current best G
+          (optimize --mode=test)
+
+Every other command of the JAX package (vocab, w2v, pretrain, warmup,
+optimize, eval-prepare, eval, run, ablate, bench) is not ported yet and exits
+with status 2; ROADMAP.md has the order. Commands run on ``--device cuda``
+(the default) unless given ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from .config import Config, config_from_args
+
+NOT_PORTED = ("vocab", "w2v", "pretrain", "warmup", "optimize", "eval-prepare",
+              "eval", "run", "ablate", "bench")
+
+
+def cmd_infer(cfg: Config) -> None:
+    from .train.optimize import run_test
+
+    cfg.mode = "test"
+    print("wrote:", run_test(cfg))
+
+
+def cmd_serve(cfg: Config) -> None:
+    """Read ``<style>\\t<text>`` lines (or bare text, style 0) from stdin,
+    print each transferred text. Uses the newest optimize checkpoint, else the
+    warmup G. Every batch is padded to ``batch_size`` rows, as the JAX package
+    pads to its compiled shape, so each batch decodes at one shape."""
+    import numpy as np
+    import torch
+
+    from .data.noise import align
+    from .train.common import build_generator, get_device, get_tokenizer
+    from .train.infer import make_transfer_step
+    from .train.optimize import load_generator_params
+
+    cfg.mode = "test"
+    device = get_device(cfg)
+    tokenizer = get_tokenizer(cfg)
+    model = build_generator(cfg, len(tokenizer), device)
+    load_generator_params(cfg, model)
+    step = make_transfer_step(model)
+
+    def flush(styles, texts):
+        if not texts:
+            return
+        enc = [tokenizer.encode(t)[: cfg.max_len] for t in texts]
+        n = len(enc)
+        styles = list(styles)
+        while len(enc) < cfg.batch_size:  # pad to the fixed batch shape
+            enc.append([])
+            styles.append(0)
+        x, _ = align(enc, 0, cfg.max_len)
+        ids = step(torch.from_numpy(x).to(device),
+                   torch.tensor(styles, dtype=torch.int32, device=device)).cpu().numpy()
+        for i in range(n):
+            print(tokenizer.decode(ids[i].tolist()), flush=True)
+
+    styles, texts = [], []
+    for line in sys.stdin:
+        line = line.rstrip("\n")
+        if not line:
+            continue
+        if "\t" in line:
+            s, text = line.split("\t", 1)
+            styles.append(int(s))
+        else:
+            styles.append(0)
+            text = line
+        texts.append(text)
+        if len(texts) == cfg.batch_size:
+            flush(styles, texts)
+            styles, texts = [], []
+    flush(styles, texts)
+
+
+COMMANDS = {
+    "infer": cmd_infer,
+    "serve": cmd_serve,
+}
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        return
+    command = argv[0]
+    if command in NOT_PORTED:
+        print(f"command {command!r} is not ported to PyTorch yet; see ROADMAP.md "
+              f"(ported: {sorted(COMMANDS)})", file=sys.stderr)
+        raise SystemExit(2)
+    if command not in COMMANDS:
+        print(f"unknown command {command!r}; one of {sorted(COMMANDS)}", file=sys.stderr)
+        raise SystemExit(2)
+    COMMANDS[command](config_from_args(argv[1:]))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,79 @@
+"""Host-side batch prefetcher: overlaps batch assembly and the host->device
+copy with device compute.
+
+A background thread walks a :class:`~.pipeline.BatchIterator` and moves each
+batch's arrays to the device: on CUDA through pinned host memory with
+``non_blocking=True``, so the copy is queued on the stream and the thread
+goes on to the next batch. The copies are queued on the current stream, the
+one the consumer's decode runs on, so stream order puts each copy before the
+compute that reads it.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from .pipeline import Batch
+
+
+def to_device(arrays: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
+    """numpy arrays -> tensors on ``device`` (pinned, asynchronous on CUDA)."""
+    out = {}
+    for k, a in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+class DevicePrefetcher:
+    """Iterate ``(Batch, device_tensors)`` with ``depth`` batches in flight."""
+
+    def __init__(self, iterator, device: torch.device, depth: int = 2):
+        self.iterator = iterator
+        self.device = torch.device(device)
+        self.depth = depth
+
+    def __iter__(self) -> Iterator[tuple[Batch, dict[str, torch.Tensor]]]:
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        sentinel = object()
+        errors: list[BaseException] = []
+        stop = threading.Event()
+
+        def producer():
+            try:
+                for batch in self.iterator:
+                    if stop.is_set():
+                        return
+                    q.put((batch, to_device(batch.arrays, self.device)))
+            except BaseException as e:  # surfaced in the consumer
+                errors.append(e)
+            finally:
+                q.put(sentinel)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                yield item
+        finally:
+            # a consumer that stops early must not leave the producer blocked
+            # on a full queue
+            stop.set()
+            while t.is_alive():
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            t.join()
+        if errors:
+            raise errors[0]

@@ -1,0 +1,42 @@
+"""Initializers with the distributions of the JAX package's
+``models/initializers.py`` (the torch defaults the reference trains under),
+drawn from an explicit ``torch.Generator`` so fresh weights are a function
+of a seed:
+
+- ``torch.nn.Linear``: U(±1/sqrt(fan_in)) for the weight and the bias;
+- ``torch.nn.Embedding``: N(0, 1);
+- ``torch.nn.LSTM``: U(±1/sqrt(hidden)) for every weight and bias.
+
+Each fills a tensor in place, in a weight's torch layout ((out, in) for a
+linear weight). The scorer towers' inits (conv, RelGAN, xavier) come with
+those models.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+@torch.no_grad()
+def linear_kernel_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(weight.shape[1])  # torch layout (out, in)
+    return weight.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def linear_bias_(bias: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(fan_in)
+    return bias.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def embedding_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    return weight.normal_(0.0, 1.0, generator=generator)
+
+
+@torch.no_grad()
+def lstm_(param: torch.Tensor, hidden: int, generator: torch.Generator) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(hidden)
+    return param.uniform_(-bound, bound, generator=generator)

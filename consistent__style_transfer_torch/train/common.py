@@ -1,0 +1,58 @@
+"""Shared stage plumbing: device and dtype resolution, tokenizer and corpus
+loading, generator construction."""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ..config import Config
+from ..data.corpus import StyleCorpus
+from ..models.generator import DenoiseSeq2Seq
+from ..text.bpe import BPETokenizer
+
+
+def get_device(cfg: Config) -> torch.device:
+    """The device an entry point runs on: ``cfg.device`` (``cuda`` unless
+    the caller asked for the CPU). Raises when CUDA is asked for and absent;
+    it never falls back to the CPU."""
+    device = torch.device(cfg.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu (Config.device='cpu') "
+                           "to run on the CPU")
+    return device
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    if cfg.dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"dtype must be bfloat16 or float32, got {cfg.dtype!r}")
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def get_tokenizer(cfg: Config) -> BPETokenizer:
+    """Load the dataset tokenizer, training it first if the dump is missing
+    (reference ``src/vocab.py:50-65`` CLI behaviour)."""
+    vocab_path, merges_path = cfg.vocab_paths
+    if not (os.path.exists(vocab_path) and os.path.exists(merges_path)):
+        BPETokenizer.train(cfg.train_files(), cfg.vocab_size).save(cfg.ds_dump_dir, cfg.dataset)
+    return BPETokenizer.load(vocab_path, merges_path)
+
+
+def get_corpus(cfg: Config, split: str, tokenizer) -> StyleCorpus:
+    return StyleCorpus.from_files(cfg.split_files(split), tokenizer, cfg.max_len)
+
+
+def build_generator(cfg: Config, n_vocab: int, device: torch.device) -> DenoiseSeq2Seq:
+    """The LSTM generator on ``device`` in the compute dtype, in eval mode,
+    with fresh weights from ``cfg.seed`` (a checkpoint load replaces them)."""
+    model = DenoiseSeq2Seq(n_vocab=n_vocab, n_class=cfg.n_class, max_len=cfg.max_len,
+                           rep_penalty=cfg.rep_penalty, seed=cfg.seed)
+    return model.to(device=device, dtype=compute_dtype(cfg)).eval()
+
+
+def generator_call(model, inp, label_i, x, label, mode: str = "sched"):
+    """Generator invocation with the reference call semantics (inp,
+    input-style, teacher x, output-style, decode mode). The transformer
+    backbone, which the JAX package dispatches here, is not ported yet."""
+    return model(inp, label_i, x, label, mode=mode)

@@ -1,0 +1,111 @@
+"""The port stands alone: it imports and decodes with jax, flax, optax, orbax
+and the JAX package blocked, names none of them in its sources or in
+chip_smoke.py, and its entry points refuse to carry on without CUDA unless
+asked for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "consistent__style_transfer_torch")
+BLOCKED = ("jax", "flax", "optax", "orbax", "consistent__style_transfer_tpu")
+
+_BLOCKED_RUN = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = %r
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+sys.argv = ["consistent__style_transfer_torch", "--help"]  # for __main__
+
+import torch
+import consistent__style_transfer_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+
+from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq, greedy_transfer
+model = DenoiseSeq2Seq(n_vocab=40, n_class=2, max_len=5, seed=0).eval()
+g = torch.Generator().manual_seed(0)
+ids = greedy_transfer(model, torch.randint(0, 40, (3, 6), generator=g), torch.tensor([0, 1, 0]))
+assert ids.shape == (3, 5) and ids.dtype == torch.int32, ids
+assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
+print("DECODED", ids.tolist())
+"""
+
+
+def test_port_imports_and_decodes_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN % (BLOCKED,)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "DECODED" in proc.stdout
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_jax_import_in_sources():
+    """Static check of every port module and chip_smoke.py."""
+    sources = list(_sources())
+    assert len(sources) > 10 and os.path.exists(sources[-1])
+    for path in sources:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in BLOCKED, f"{path}:{node.lineno} imports {name}"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """No device given and no CUDA: raise, never carry on on the CPU."""
+    from consistent__style_transfer_torch import cli
+    from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.train.common import get_device
+    from consistent__style_transfer_torch.train.optimize import run_test
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = make_config("yelp", dump_dir=str(tmp_path), out_dir=str(tmp_path))
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_device(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_test(cfg)
+    for command in ("serve", "infer"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([command, "--dump_dir", str(tmp_path), "--out_dir", str(tmp_path)])
+    assert get_device(make_config("yelp", device="cpu")) == torch.device("cpu")
+
+
+def test_unported_commands_exit_2(capsys):
+    from consistent__style_transfer_torch import cli
+
+    for command in cli.NOT_PORTED:
+        with pytest.raises(SystemExit) as e:
+            cli.main([command])
+        assert e.value.code == 2
+        assert "ROADMAP.md" in capsys.readouterr().err
