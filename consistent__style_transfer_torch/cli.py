@@ -2,15 +2,18 @@
 
     python -m consistent__style_transfer_torch <command> [--flags]
 
-Commands of this slice:
-  serve   stdin->stdout batch transfer with the current best G
-  infer   transfer train+test splits to .tsf with the current best G
-          (optimize --mode=test)
+Commands of the ported slices:
+  vocab     train/load the BPE tokenizer dump
+  w2v       train/load the WMD word2vec dump
+  pretrain  stage 1: the three scorers (classifier, matcher, LM denoiser)
+  serve     stdin->stdout batch transfer with the current best G
+  infer     transfer train+test splits to .tsf with the current best G
+            (optimize --mode=test)
 
-Every other command of the JAX package (vocab, w2v, pretrain, warmup,
-optimize, eval-prepare, eval, run, ablate, bench) is not ported yet and exits
-with status 2; ROADMAP.md has the order. Commands run on ``--device cuda``
-(the default) unless given ``--device cpu``.
+Every other command of the JAX package (warmup, optimize, eval-prepare, eval,
+run, ablate, bench) is not ported yet and exits with status 2; ROADMAP.md has
+the order. Commands that compute run on ``--device cuda`` (the default)
+unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,27 @@ import sys
 
 from .config import Config, config_from_args
 
-NOT_PORTED = ("vocab", "w2v", "pretrain", "warmup", "optimize", "eval-prepare",
-              "eval", "run", "ablate", "bench")
+NOT_PORTED = ("warmup", "optimize", "eval-prepare", "eval", "run", "ablate", "bench")
+
+
+def cmd_vocab(cfg: Config) -> None:
+    from .train.common import get_tokenizer
+
+    tok = get_tokenizer(cfg)
+    print(f"vocab size: {len(tok)} -> {cfg.vocab_paths[0]}")
+
+
+def cmd_w2v(cfg: Config) -> None:
+    from .train.common import get_tokenizer, get_w2v
+
+    w2v = get_w2v(cfg, get_tokenizer(cfg))
+    print(f"w2v vocab: {len(w2v.vocab)} -> {cfg.w2v_path}")
+
+
+def cmd_pretrain(cfg: Config) -> None:
+    from .train.pretrain import run_pretrain
+
+    print("pretrain artifacts:", run_pretrain(cfg))
 
 
 def cmd_infer(cfg: Config) -> None:
@@ -84,6 +106,9 @@ def cmd_serve(cfg: Config) -> None:
 
 
 COMMANDS = {
+    "vocab": cmd_vocab,
+    "w2v": cmd_w2v,
+    "pretrain": cmd_pretrain,
     "infer": cmd_infer,
     "serve": cmd_serve,
 }

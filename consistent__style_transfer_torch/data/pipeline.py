@@ -1,10 +1,16 @@
 """Batch pipeline: ragged host data -> fixed-shape numpy batches.
 
-The port's copy of the JAX package's ``data/pipeline.py`` for the optimize
-layout (x, labels), which is what inference reads. Every batch has the same
-shape (B, max_len); the last partial batch is padded up to B by repeating
-index 0 at the END, with a ``valid`` count so inference discards the padding
-on the host. The warmup and pretrain collates come with their slices.
+The port's copy of the JAX package's ``data/pipeline.py``. Every batch has
+the same shape (B, max_len); the last partial batch is padded up to B by
+repeating index 0 at the END, with a ``valid`` count so evaluation and
+inference discard the padding; training iterators drop it instead.
+
+Stage batch layouts (the reference's collates, ``src/loader.py:46-90``):
+- optimize: (x, labels), which is what inference reads;
+- pretrain: (x, noise1, noise2, perm-noise, labels, wmd) with two independent
+  transfer_noise(p=0.15) draws, one rand_perm(0.15) and the WMD label between
+  the two noised variants.
+The warmup collate comes with its slice.
 """
 
 from __future__ import annotations
@@ -14,7 +20,9 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from .. import PAD_ID
 from .corpus import StyleCorpus
+from .noise import rand_perm_arrays, transfer_noise_arrays
 
 
 @dataclass
@@ -92,10 +100,62 @@ def collate_optimize(max_len: int):
     return fn
 
 
+def collate_pretrain(max_len: int, wmd_labeler, p: float = 0.15, need_matcher=None):
+    """``wmd_labeler.label_pairs(ids1, lens1, ids2, lens2)`` gives the (B,)
+    float32 labels: a tensor on the labeler's device (Sinkhorn), which stays
+    there, or a numpy array (exact host OT). Noised rows can exceed max_len
+    (insertions), so like the reference they keep their own width
+    ``noise_len = max_len + max(4, max_len // 2)``.
+
+    ``need_matcher`` (nullary callable, default always true) gates the
+    matcher-only work: once pretrain freezes the matcher, the two
+    transfer_noise variants and the WMD label are not computed, and zeros of
+    the same shape take their place. The two skipped draws then no longer
+    consume the host generator, so later rand_perm noise differs from an
+    ungated run at the same seed, as in the JAX package."""
+    noise_len = max_len + max(4, max_len // 2)
+
+    def fn(ids, lens, labels, rng):
+        if need_matcher is None or need_matcher():
+            nx1, nl1 = transfer_noise_arrays(ids, lens, p=p, rng=rng,
+                                             out_len=noise_len, pad_id=PAD_ID)
+            nx2, nl2 = transfer_noise_arrays(ids, lens, p=p, rng=rng,
+                                             out_len=noise_len, pad_id=PAD_ID)
+            wmd = wmd_labeler.label_pairs(nx1, nl1, nx2, nl2)
+        else:
+            B = len(ids)
+            # two arrays, not one aliased twice: an in-place consumer of
+            # one must not change the other
+            nx1 = np.zeros((B, noise_len), dtype=ids.dtype)
+            nx2 = np.zeros((B, noise_len), dtype=ids.dtype)
+            wmd = np.zeros(B, np.float32)
+        nx3 = rand_perm_arrays(ids, lens, p=p, rng=rng)
+        return {
+            "x": ids, "nx1": nx1, "nx2": nx2, "nx3": nx3,
+            "labels": labels.astype(np.int32), "wmd": wmd, "lengths": lens,
+        }
+    return fn
+
+
+def eval_arrays(batch: Batch) -> dict:
+    """Batch arrays + a (B,) float32 ``row_mask`` marking the real rows (the
+    first ``batch.valid``), so val means leave out the padded duplicates."""
+    arrays = dict(batch.arrays)
+    B = len(arrays["labels"])
+    arrays["row_mask"] = (np.arange(B) < batch.valid).astype(np.float32)
+    return arrays
+
+
 def make_batches(corpus: StyleCorpus, batch_size: int, max_len: int, stage: str,
-                 shuffle: bool, seed: int = 0) -> BatchIterator:
-    if stage != "optimize":
+                 shuffle: bool, seed: int = 0, wmd_labeler=None,
+                 need_matcher=None) -> BatchIterator:
+    if stage == "optimize":
+        collate = collate_optimize(max_len)
+    elif stage == "pretrain":
+        if wmd_labeler is None:
+            raise ValueError("pretrain batches need a wmd_labeler")
+        collate = collate_pretrain(max_len, wmd_labeler, need_matcher=need_matcher)
+    else:
         raise NotImplementedError(
             f"stage {stage!r} batches come with a later slice of the port (ROADMAP.md)")
-    return BatchIterator(corpus, batch_size, max_len, collate_optimize(max_len),
-                         shuffle=shuffle, seed=seed)
+    return BatchIterator(corpus, batch_size, max_len, collate, shuffle=shuffle, seed=seed)

@@ -4,9 +4,15 @@ copy with device compute.
 A background thread walks a :class:`~.pipeline.BatchIterator` and moves each
 batch's arrays to the device: on CUDA through pinned host memory with
 ``non_blocking=True``, so the copy is queued on the stream and the thread
-goes on to the next batch. The copies are queued on the current stream, the
-one the consumer's decode runs on, so stream order puts each copy before the
-compute that reads it.
+goes on to the next batch.
+
+Work that the collate itself queues on the card (the pretrain WMD labels:
+histogram copies, the ground-cost tensor and the Sinkhorn kernel) arrives as
+tensors already on the device and passes through unchanged. The producer
+thread makes the consumer's current stream its own before it walks the
+iterator, so the copies and the labeler's kernels are queued on the stream
+the consumer computes on, and stream order puts each of them before the
+compute that reads it: no event is needed.
 """
 
 from __future__ import annotations
@@ -21,10 +27,14 @@ import torch
 from .pipeline import Batch
 
 
-def to_device(arrays: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    """numpy arrays -> tensors on ``device`` (pinned, asynchronous on CUDA)."""
+def to_device(arrays: dict, device: torch.device) -> dict[str, torch.Tensor]:
+    """numpy arrays -> tensors on ``device`` (pinned, asynchronous on CUDA);
+    tensors already on ``device`` pass through unchanged."""
     out = {}
     for k, a in arrays.items():
+        if isinstance(a, torch.Tensor):
+            out[k] = a.to(device)  # the tensor itself when it is there already
+            continue
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
@@ -45,13 +55,17 @@ class DevicePrefetcher:
         sentinel = object()
         errors: list[BaseException] = []
         stop = threading.Event()
+        # the consumer's stream, made the producer's own (see the module note)
+        stream = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
+                  else None)
 
         def producer():
             try:
-                for batch in self.iterator:
-                    if stop.is_set():
-                        return
-                    q.put((batch, to_device(batch.arrays, self.device)))
+                with torch.cuda.stream(stream):  # a no-op for None
+                    for batch in self.iterator:
+                        if stop.is_set():
+                            return
+                        q.put((batch, to_device(batch.arrays, self.device)))
             except BaseException as e:  # surfaced in the consumer
                 errors.append(e)
             finally:

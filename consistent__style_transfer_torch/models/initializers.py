@@ -4,12 +4,15 @@ drawn from an explicit ``torch.Generator`` so fresh weights are a function
 of a seed:
 
 - ``torch.nn.Linear``: U(±1/sqrt(fan_in)) for the weight and the bias;
+- ``torch.nn.Conv2d``: U(±1/sqrt(fan_in)), fan_in = in_ch * kh * kw;
 - ``torch.nn.Embedding``: N(0, 1);
-- ``torch.nn.LSTM``: U(±1/sqrt(hidden)) for every weight and bias.
+- ``torch.nn.LSTM``: U(±1/sqrt(hidden)) for every weight and bias;
+- xavier uniform, U(±sqrt(6 / (fan_in + fan_out))), for the attention input
+  projection and the LM's position table.
 
 Each fills a tensor in place, in a weight's torch layout ((out, in) for a
-linear weight). The scorer towers' inits (conv, RelGAN, xavier) come with
-those models.
+linear weight, (out, in, kh, kw) for a convolution). The RelGAN init comes
+with the discriminator.
 """
 
 from __future__ import annotations
@@ -40,3 +43,16 @@ def embedding_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor
 def lstm_(param: torch.Tensor, hidden: int, generator: torch.Generator) -> torch.Tensor:
     bound = 1.0 / math.sqrt(hidden)
     return param.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def conv_kernel_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(weight[0].numel())  # torch layout (out, in, kh, kw)
+    return weight.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def xavier_uniform_(weight: torch.Tensor, fan_in: int, fan_out: int,
+                    generator: torch.Generator) -> torch.Tensor:
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    return weight.uniform_(-bound, bound, generator=generator)

@@ -165,6 +165,9 @@ class BPETokenizer:
             ids.extend(cached)
         return ids
 
+    def ids_to_tokens(self, ids: Sequence[int]) -> list[str]:
+        return [self.inv_vocab.get(int(i), UNK) for i in ids]
+
     # ----------------------------------------------------------------- decode
     def decode(self, ids: Sequence[int], skip_special: bool = True) -> str:
         special = set(SPECIAL_TOKENS) if skip_special else {PAD}

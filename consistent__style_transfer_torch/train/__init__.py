@@ -1,1 +1,1 @@
-"""Stage entry points of the port. This slice carries test-mode inference."""
+"""Stage entry points of the port: pretrain, and test-mode inference."""

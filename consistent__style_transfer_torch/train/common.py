@@ -1,5 +1,5 @@
-"""Shared stage plumbing: device and dtype resolution, tokenizer and corpus
-loading, generator construction."""
+"""Shared stage plumbing: device and dtype resolution, tokenizer, word2vec
+and corpus loading, model construction."""
 
 from __future__ import annotations
 
@@ -9,8 +9,9 @@ import torch
 
 from ..config import Config
 from ..data.corpus import StyleCorpus
-from ..models.generator import DenoiseSeq2Seq
+from ..models import DenoiseSeq2Seq, PairMatcher, TextCNN, TransformerLM
 from ..text.bpe import BPETokenizer
+from ..text.word2vec import Word2Vec, train_token_w2v
 
 
 def get_device(cfg: Config) -> torch.device:
@@ -39,6 +40,17 @@ def get_tokenizer(cfg: Config) -> BPETokenizer:
     return BPETokenizer.load(vocab_path, merges_path)
 
 
+def get_w2v(cfg: Config, tokenizer) -> Word2Vec:
+    """Load the WMD word2vec, training it first (numpy trainer, 10 epochs)
+    and saving it if the dump is missing (reference ``src/wmd.py:58-75``);
+    vectors normalised as ``init_sims(replace=True)``."""
+    if not os.path.exists(cfg.w2v_path):
+        train_token_w2v(cfg.train_files(), tokenizer, epochs=10, seed=cfg.seed).save(cfg.w2v_path)
+    w2v = Word2Vec.load(cfg.w2v_path)
+    w2v.init_sims()
+    return w2v
+
+
 def get_corpus(cfg: Config, split: str, tokenizer) -> StyleCorpus:
     return StyleCorpus.from_files(cfg.split_files(split), tokenizer, cfg.max_len)
 
@@ -49,6 +61,34 @@ def build_generator(cfg: Config, n_vocab: int, device: torch.device) -> DenoiseS
     model = DenoiseSeq2Seq(n_vocab=n_vocab, n_class=cfg.n_class, max_len=cfg.max_len,
                            rep_penalty=cfg.rep_penalty, seed=cfg.seed)
     return model.to(device=device, dtype=compute_dtype(cfg)).eval()
+
+
+def _scorer_size_kw(cfg: Config) -> dict:
+    """Matcher/LM size overrides (``Config.scorer_*``); an empty dict keeps
+    the reference dims of the model defaults."""
+    kw = {}
+    if cfg.scorer_layers is not None:
+        kw["n_layers"] = cfg.scorer_layers
+    if cfg.scorer_d_model is not None:
+        kw["d_model"] = cfg.scorer_d_model
+    if cfg.scorer_heads is not None:
+        kw["n_heads"] = cfg.scorer_heads
+    return kw
+
+
+# The scorers keep float32 parameters on ``device``; a bfloat16 compute dtype
+# is applied by autocast in the stage that runs them (flax's Dense(dtype=bf16)
+# over float32 params), never by casting the parameters.
+def build_classifier(cfg: Config, n_vocab: int, device: torch.device) -> TextCNN:
+    return TextCNN(n_vocab=n_vocab, n_class=cfg.n_class, seed=cfg.seed).to(device)
+
+
+def build_matcher(cfg: Config, n_vocab: int, device: torch.device) -> PairMatcher:
+    return PairMatcher(n_vocab=n_vocab, seed=cfg.seed + 1, **_scorer_size_kw(cfg)).to(device)
+
+
+def build_lm(cfg: Config, n_vocab: int, device: torch.device) -> TransformerLM:
+    return TransformerLM(n_vocab=n_vocab, seed=cfg.seed + 2, **_scorer_size_kw(cfg)).to(device)
 
 
 def generator_call(model, inp, label_i, x, label, mode: str = "sched"):

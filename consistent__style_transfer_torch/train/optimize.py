@@ -7,12 +7,10 @@ from __future__ import annotations
 
 import os
 
-import torch
-
 from ..config import Config
 from .common import build_generator, get_device, get_tokenizer
 from .infer import run_inference
-from .state import newest_checkpoint
+from .state import load_state_dict, newest_checkpoint
 
 
 def load_generator_params(cfg: Config, model) -> str:
@@ -29,7 +27,7 @@ def load_generator_params(cfg: Config, model) -> str:
             raise FileNotFoundError(
                 f"no generator checkpoint: neither {cfg.ds_dump_dir}/optimize-{cfg.ver}/"
                 f"G_epoch_*.pth nor {path}")
-    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True), strict=True)
+    model.load_state_dict(load_state_dict(path), strict=True)
     return path
 
 

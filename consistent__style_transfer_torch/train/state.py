@@ -1,11 +1,130 @@
-"""Checkpoint resolution. The port's checkpoints are the reference's own
-format: ``.pth`` state dicts (``G.pth``, ``G_epoch_<n>.pth``), which the JAX
-package writes through ``utils/torch_interop.py::save_pth``."""
+"""Optimizer and checkpoint runtime: the port of the JAX package's
+``train/state.py``.
+
+The port's checkpoints are the reference's own format: ``.pth`` state dicts
+(per-task ``{cls,mat,dn}.pth`` of pretrain, ``G.pth``, ``G_epoch_<n>.pth``),
+the files the JAX package writes through ``utils/torch_interop.py::save_pth``.
+"""
 
 from __future__ import annotations
 
 import glob
 import os
+import queue
+import threading
+
+import torch
+
+
+class AdamWithClip:
+    """``optax.chain(clip_by_global_norm(clip), adam(lr, 0.9, 0.999, 1e-8))``,
+    the optimizer of every reference stage, over ``params``.
+
+    The clip is optax's: when the global norm of all gradients is at least
+    ``clip``, every gradient becomes ``(g / norm) * clip``; below it they stay
+    as they are (``clip_grad_norm_`` would add 1e-6 to the norm). It runs on
+    the device, with no host sync. Then ``torch.optim.Adam``.
+
+    Every parameter holds a gradient from the start and :meth:`zero_grad`
+    zeroes it in place, never to None, so a tower whose loss is off still
+    takes an Adam step on zero gradients, moving on its decaying moments, and
+    every parameter's step count is the global one, as under optax."""
+
+    def __init__(self, params, lr: float, clip: float):
+        self.params = list(params)
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.clip = clip
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=False)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad for p in self.params]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        clipped = norm >= self.clip
+        torch._foreach_div_(grads, torch.where(clipped, norm, 1.0))
+        torch._foreach_mul_(grads, torch.where(clipped, self.clip, 1.0).to(norm))
+        self.adam.step()
+
+
+def save_state_dict(state_dict: dict, path: str) -> None:
+    """Write a state dict as a ``.pth`` file (CPU tensors), atomically."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, tmp)
+    os.replace(tmp, path)
+
+
+def load_state_dict(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def params_exist(path: str) -> bool:
+    return os.path.exists(path)
+
+
+class AsyncSaver:
+    """Best-weight saves off the epoch-end critical path: one FIFO worker
+    thread does the device->host copy and the disk write, so writes to one
+    path keep submission order.
+
+    Torch parameters change in place (JAX arrays do not, which the JAX
+    package's saver relies on), so :meth:`submit` snapshots the state dict
+    when it is called: a copy on the device, queued on the current stream
+    before the next step's update, with an event the worker waits for before
+    it copies to the host.
+
+    :meth:`wait` drains the queue and re-raises the first worker error; call
+    it before anything reads the saved files."""
+
+    def __init__(self):
+        self._q: queue.Queue = queue.Queue()
+        self._err: BaseException | None = None
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self) -> None:
+        while True:
+            fn = self._q.get()
+            try:
+                if fn is not None:
+                    fn()
+            except BaseException as e:  # surfaced on wait()
+                if self._err is None:
+                    self._err = e
+            finally:
+                self._q.task_done()
+            if fn is None:
+                return
+
+    def submit(self, module: torch.nn.Module, path: str) -> None:
+        snapshot = {k: v.detach().clone() for k, v in module.state_dict().items()}
+        ready = None
+        if any(v.is_cuda for v in snapshot.values()):
+            ready = torch.cuda.Event()
+            ready.record()
+
+        def work():
+            if ready is not None:
+                ready.synchronize()
+            save_state_dict(snapshot, path)
+
+        self._q.put(work)
+
+    def wait(self) -> None:
+        self._q.join()
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def close(self) -> None:
+        self._q.put(None)
+        self.wait()
+        self._t.join()
 
 
 def newest_checkpoint(dump_dir: str, pattern: str = "G_epoch_*.pth") -> str | None:

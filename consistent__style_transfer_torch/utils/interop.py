@@ -1,13 +1,16 @@
 """Weight bridge from the JAX package's flax params to the port's state dicts.
 
-The port's own copy of the generator mapping in
-``consistent__style_transfer_tpu/utils/torch_interop.py`` (``_t``, ``_lstm``
-and ``generator_to_state_dict``): flax ``Dense.kernel`` is (in, out) and a
-torch ``Linear.weight`` (out, in); the LSTM gate order (i, f, g, o) is the
-same in both, so an LSTM kernel only transposes. The keys are the reference's
-state-dict keys, which are the port's attribute names, so the result loads
-into :class:`~..models.generator.DenoiseSeq2Seq` with ``strict=True``.
-Takes nested dicts of numpy arrays; imports no JAX.
+The port's own copy of the mappings in
+``consistent__style_transfer_tpu/utils/torch_interop.py`` (``_t``,
+``_conv``, ``_lstm``, ``_transformer_out`` and the ``*_to_state_dict``
+exporters of the generator and the three scorers): flax ``Dense.kernel`` is
+(in, out) and a torch ``Linear.weight`` (out, in); a flax ``Conv.kernel``
+(k, in, out) is a torch ``Conv2d.weight`` (out, 1, k, in); the LSTM gate
+order (i, f, g, o) is the same in both, so an LSTM kernel only transposes;
+a flax ``LayerNorm`` ``scale`` is the torch ``weight``. The keys are the
+reference's state-dict keys, which are the port's attribute names, so each
+result loads into the port's module with ``strict=True``. Takes nested dicts
+of numpy arrays; imports no JAX.
 """
 
 from __future__ import annotations
@@ -18,6 +21,10 @@ import torch
 
 def _t(x) -> np.ndarray:  # flax kernel (in, out) -> torch linear weight (out, in)
     return np.asarray(x).T
+
+
+def _conv(x) -> np.ndarray:  # flax (k, in, out) -> torch (out, 1, k, in)
+    return np.asarray(x).transpose(2, 0, 1)[:, None, :, :]
 
 
 def _lstm(prefix: str, cell: dict, suffix: str = "") -> dict:
@@ -46,4 +53,73 @@ def generator_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     sd.update(_lstm("encoder", p["encoder_fwd"]["cell"]))
     sd.update(_lstm("encoder", p["encoder_bwd"]["cell"], "_reverse"))
     sd.update(_lstm("decoder", p["decoder"]["cell"]))
-    return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
+    return _tensors(sd)
+
+
+def _tensors(sd: dict) -> dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32) for k, v in sd.items()}
+
+
+def _transformer(p: dict, prefix: str) -> dict:
+    """Encoder ``layer_{i}`` subtrees -> ``<prefix>.layers.{i}.*``; the layer
+    count is read from the tree."""
+    out = {}
+    n_layers = sum(1 for k in p if k.startswith("layer_"))
+    for i in range(n_layers):
+        L = p[f"layer_{i}"]
+        pre = f"{prefix}.layers.{i}"
+        out[f"{pre}.self_attn.in_proj_weight"] = _t(L["self_attn"]["in_proj"]["kernel"])
+        out[f"{pre}.self_attn.in_proj_bias"] = np.asarray(L["self_attn"]["in_proj"]["bias"])
+        out[f"{pre}.self_attn.out_proj.weight"] = _t(L["self_attn"]["out_proj"]["kernel"])
+        out[f"{pre}.self_attn.out_proj.bias"] = np.asarray(L["self_attn"]["out_proj"]["bias"])
+        for lin in ("linear1", "linear2"):
+            out[f"{pre}.{lin}.weight"] = _t(L[lin]["kernel"])
+            out[f"{pre}.{lin}.bias"] = np.asarray(L[lin]["bias"])
+        for norm in ("norm1", "norm2"):
+            out[f"{pre}.{norm}.weight"] = np.asarray(L[norm]["scale"])
+            out[f"{pre}.{norm}.bias"] = np.asarray(L[norm]["bias"])
+    return out
+
+
+def classifier_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax ``TextCNN`` variables -> the port's :class:`~..models.TextCNN`
+    state dict."""
+    p = params["params"]
+    sd = {
+        "embedding.weight": np.asarray(p["embedding"]["embedding"]),
+        "out.weight": _t(p["out"]["kernel"]),
+        "out.bias": np.asarray(p["out"]["bias"]),
+    }
+    for i, k in enumerate((3, 4, 5)):
+        sd[f"convs.{i}.weight"] = _conv(p[f"conv_{k}"]["kernel"])
+        sd[f"convs.{i}.bias"] = np.asarray(p[f"conv_{k}"]["bias"])
+    return _tensors(sd)
+
+
+def matcher_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax ``PairMatcher`` variables -> the port's
+    :class:`~..models.PairMatcher` state dict."""
+    p = params["params"]
+    sd = {
+        "token_embedding.weight": np.asarray(p["token_embedding"]["embedding"]),
+        "posit_embedding.weight": np.asarray(p["posit_embedding"]["embedding"]),
+        "segment_embedding.weight": np.asarray(p["segment_embedding"]["embedding"]),
+        "hidden2logits.weight": _t(p["hidden2logits"]["kernel"]),
+        "hidden2logits.bias": np.asarray(p["hidden2logits"]["bias"]),
+    }
+    sd.update(_transformer(p["matcher"], "matcher"))
+    return _tensors(sd)
+
+
+def lm_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax ``TransformerLM`` variables -> the port's
+    :class:`~..models.TransformerLM` state dict."""
+    p = params["params"]
+    sd = {
+        "token_embedding.weight": np.asarray(p["token_embedding"]["embedding"]),
+        "posit_embedding.weight": np.asarray(p["posit_embedding"]["embedding"]),
+        "fwd.weight": _t(p["fwd"]["kernel"]),
+        "fwd.bias": np.asarray(p["fwd"]["bias"]),
+    }
+    sd.update(_transformer(p["lm"], "lm"))
+    return _tensors(sd)

@@ -1,0 +1,36 @@
+"""Metrics logging: the port of the JAX package's ``utils/io.py::RunLogger``
+(the reference's TensorBoard/TestTube loggers and hparams snapshots, as a
+jsonl event stream plus a json hparams file per run, in the same layout:
+``<log_dir>/<stage>[-<ver>]/{events.jsonl,hparams.json}``)."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+
+class RunLogger:
+    """Append-only jsonl metrics stream + hparams snapshot."""
+
+    def __init__(self, log_dir: str, stage: str, ver: str | None = None, config=None):
+        name = stage if ver is None else f"{stage}-{ver}"
+        self.dir = os.path.join(log_dir, name)
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, "events.jsonl")
+        self._f = open(self.path, "a", encoding="utf-8")
+        if config is not None:
+            snap = dataclasses.asdict(config) if dataclasses.is_dataclass(config) else dict(config)
+            with open(os.path.join(self.dir, "hparams.json"), "w") as f:
+                json.dump(snap, f, indent=2, default=str)
+
+    def log(self, step: int, **metrics) -> None:
+        """One event; tensor metrics are read to the host here."""
+        rec = {"t": time.time(), "step": step}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()

@@ -1,7 +1,7 @@
-"""The port stands alone: it imports and decodes with jax, flax, optax, orbax
-and the JAX package blocked, names none of them in its sources or in
-chip_smoke.py, and its entry points refuse to carry on without CUDA unless
-asked for the CPU."""
+"""The port stands alone: it imports, decodes and runs a tiny pretrain with
+jax, flax, optax, orbax and the JAX package blocked, names none of them in
+its sources or in chip_smoke.py, and its entry points refuse to carry on
+without CUDA unless asked for the CPU."""
 
 import ast
 import os
@@ -48,11 +48,43 @@ print("DECODED", ids.tolist())
 """
 
 
-def test_port_imports_and_decodes_with_jax_blocked():
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN % (BLOCKED,)], cwd=ROOT,
+_BLOCKED_PRETRAIN = r"""
+import os
+from consistent__style_transfer_torch.config import make_config
+from consistent__style_transfer_torch.train.pretrain import run_pretrain
+
+root = %r
+os.makedirs(os.path.join(root, "data", "tiny"))
+for split in ("train", "dev"):
+    for label, words in ((0, "bad awful cold slow rude"), (1, "good great warm quick kind")):
+        with open(os.path.join(root, "data", "tiny", f"style.{split}.{label}"), "w") as f:
+            for i in range(8):
+                w = words.split()
+                print(f"the food was {w[i %% 5]} and {w[(i + 2) %% 5]} .", file=f)
+cfg = make_config("tiny", data_dir=os.path.join(root, "data"), dump_dir=os.path.join(root, "dump"),
+                  log_dir=os.path.join(root, "log"), device="cpu", dtype="float32", max_len=8,
+                  batch_size=4, vocab_size=60, epochs=1, scorer_layers=1, scorer_d_model=16,
+                  scorer_heads=2)
+paths = run_pretrain(cfg, progress=False)
+assert all(os.path.exists(p) for p in paths.values()), paths
+assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
+print("PRETRAINED", sorted(paths))
+"""
+
+
+def _run_blocked(body: str) -> str:
+    proc = subprocess.run([sys.executable, "-c", (_BLOCKED_RUN % (BLOCKED,)) + body], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "DECODED" in proc.stdout
+    return proc.stdout
+
+
+def test_port_imports_and_decodes_with_jax_blocked():
+    assert "DECODED" in _run_blocked("")
+
+
+def test_port_runs_a_tiny_pretrain_with_jax_blocked(tmp_path):
+    assert "PRETRAINED ['cls', 'dn', 'mat']" in _run_blocked(_BLOCKED_PRETRAIN % str(tmp_path))
 
 
 def _sources():
@@ -95,7 +127,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         get_device(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_test(cfg)
-    for command in ("serve", "infer"):
+    for command in ("serve", "infer", "pretrain"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main([command, "--dump_dir", str(tmp_path), "--out_dir", str(tmp_path)])
     assert get_device(make_config("yelp", device="cpu")) == torch.device("cpu")
