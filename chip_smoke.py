@@ -7,11 +7,16 @@ on one NVIDIA GPU (written for the H100).
 Phases, in order; any failure exits non-zero before the last line:
 1. the card's name and power limit (nvidia-smi), and the build of every
    kernel from the checkout's sources (``build/torch_kernels/``), one nvcc
-   per source, all started together;
+   per source, all started together, with ptxas's registers, shared memory
+   and spills per kernel and, where cuobjdump is installed, the count of
+   HGMMA (wgmma) instructions in each library;
 2. every kernel against its plain PyTorch version on the card, at the shapes
-   its path gives it, with times (CUDA events) and the bound: the decode head
-   at the serving shapes, the Sinkhorn through both of its names at the yelp
-   and book WMD-label shapes, a ragged shape, all-zero pairs and B=1;
+   its path gives it, with times and the bound: the decode head at the
+   serving shapes (timed as CUDA graphs of 50 calls, so that a call of a few
+   microseconds is not paced by the host, beside the eager back-to-back time,
+   with its device operations per call from the profiler), the Sinkhorn
+   through both of its names at the yelp and book WMD-label shapes, a ragged
+   shape, all-zero pairs and B=1;
 3. ``serve`` and ``infer`` through the port's CLI on the committed yelp test
    split (BPE trained on the yelp train split, fresh seeded weights saved as a
    checkpoint), with the decode head's launch count read around each; and
@@ -75,8 +80,64 @@ def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 50, replays: int = 10) -> float:
+    """Mean device time of one fn() call: ``calls`` calls captured in a CUDA
+    graph, its replays timed with CUDA events. The host issues one replay,
+    not fn's Python and launches, so calls of a few microseconds are timed
+    by the card."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graphs asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def sass_count(library: str, opcode: str):
+    """Instructions of ``opcode`` in a built library's SASS, or None where the
+    toolkit has no cuobjdump."""
+    from consistent__style_transfer_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(os.path.realpath(_build.nvcc_path())), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed on {library}: {out.stderr[:500]}")
+    return sum(1 for line in out.stdout.splitlines() if opcode in line)
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Per kernel (mangled name): ptxas's registers / shared memory line and
+    its spill line."""
+    report, name = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            report[name] = []
+        elif name and ("Used" in line or "spill" in line):
+            report[name].append(line.split(":", 1)[-1].strip())
+    return {n: "; ".join(v) for n, v in report.items()}
+
+
 # ------------------------------------------------------------------ phase 1
-def phase_card_and_build() -> str:
+def phase_card_and_build() -> tuple[str, dict]:
     from consistent__style_transfer_torch.kernels import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,14 +162,17 @@ def phase_card_and_build() -> str:
         t.join()
     wall = time.perf_counter() - t0
     check(not errors, f"kernel build failed: {errors}")
-    print(json.dumps({"build": {name: {"library": os.path.relpath(path, ROOT),
-                                       "seconds": round(sec, 3)}
-                                for name, (path, sec) in built.items()},
-                      "build_wall_s": round(wall, 3)}), flush=True)
-    for name, (path, _) in built.items():
+    report = {}
+    for name, (path, sec) in built.items():
         with open(path[: -len(".so")] + ".log") as f:
-            log(f"nvcc report, {name}:\n" + f.read())
-    return card
+            text = f.read()
+        log(f"nvcc report, {name}:\n" + text)
+        report[name] = {"library": os.path.relpath(path, ROOT), "seconds": round(sec, 3),
+                        "sass_hgmma": sass_count(path, "HGMMA"), "ptxas": ptxas_report(text)}
+    hgmma = report["decode_step"]["sass_hgmma"]
+    check(hgmma is None or hgmma > 0, "the decode head's library has no HGMMA instruction")
+    print(json.dumps({"build": report, "build_wall_s": round(wall, 3)}), flush=True)
+    return card, report
 
 
 # ------------------------------------------------------------------ phase 2
@@ -135,6 +199,57 @@ def head_bound(B: int, V: int, dtype_name: str) -> tuple[float, str]:
     ops = 2 * B * DIN * HID + 2 * B * HID * V
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def head_times(x, w1, b1, w2, dtype_name: str, seed: int) -> dict:
+    """The kernel, its plain version and the library call (PyTorch's addmm,
+    leaky_relu, matmul and argmax) on the same inputs, each timed three ways:
+    graph-timed with the inputs rotated through enough copies (seeded like
+    the first) to exceed the 50 MB L2, so that every call reads its weights
+    from device memory as the bound assumes ("ms"); graph-timed on the one
+    set, L2-warm ("warm_ms"); and eagerly, back to back ("eager_ms"). Device
+    operations per call come from the profiler."""
+    import torch
+    import torch.nn.functional as F
+
+    from consistent__style_transfer_torch.kernels.decode_step import (
+        decode_head_reference,
+        fused_decode_logits,
+    )
+
+    B, V = x.shape[0], w2.shape[0]
+    set_bytes = sum(t.numel() * t.element_size() for t in (x, w1, b1, w2))
+    sets = [(x, w1, b1, w2)] + [head_inputs(B, V, x.dtype, seed + 100 * i)
+                                for i in range(1, -(-60_000_000 // set_bytes) + 1)]
+
+    def library(x, w1, b1, w2):
+        return torch.matmul(F.leaky_relu(torch.addmm(b1, x, w1.t()), 0.1), w2.t()).argmax(-1)
+
+    def rotating(fn):
+        state = {"i": 0}
+
+        def call():
+            fn(*sets[state["i"] % len(sets)])
+            state["i"] += 1
+        return call
+
+    bound_ms, bound_by = head_bound(B, V, dtype_name)
+    out = {"B": B, "V": V, "Din": DIN, "H": HID, "dtype": dtype_name, "l2_cold_sets": len(sets),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    for key, fn in (("kernel", fused_decode_logits), ("plain", decode_head_reference),
+                    ("library", library)):
+        out[f"{key}_ms"] = graph_ms(rotating(fn), calls=len(sets) * max(1, 50 // len(sets)))
+        out[f"{key}_warm_ms"] = graph_ms(lambda: fn(x, w1, b1, w2))
+        out[f"{key}_eager_ms"] = time_ms(lambda: fn(x, w1, b1, w2))
+        for _ in range(3):  # the tracer now and then returns no device events
+            prof = profile_breakdown(lambda: fn(x, w1, b1, w2), batches=10)
+            if "kernels_per_batch" in prof:
+                break
+        out[f"{key}_device_ops_per_call"] = prof.get("kernels_per_batch", "not measured")
+        if key == "kernel":
+            out["kernel_profile"] = prof.get("top", "not measured")
+    out["bound_share"] = bound_ms / out["kernel_ms"]
+    return out
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -182,22 +297,15 @@ def phase_kernel_vs_plain() -> dict:
                     row["max_logit_gap"] = gap
                     check(gap <= 1e-2, f"bf16 id off the f32 max by {gap}")
             checks.append(row)
-            if B == YELP_B and V == YELP_V:
-                bound_ms, bound_by = head_bound(B, V, dtype_name)
-
-                def library():
-                    h_lib = F.leaky_relu(torch.addmm(b1, x, w1.t()), 0.1)
-                    return torch.matmul(h_lib, w2.t()).argmax(-1)
-
-                timed[dtype_name] = {
-                    "kernel_ms": time_ms(lambda: fused_decode_logits(x, w1, b1, w2)),
-                    "plain_ms": time_ms(lambda: decode_head_reference(x, w1, b1, w2)),
-                    "library_ms": time_ms(library),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "max_abs_err_h": err_h, "ids_mismatch": int(mismatch.numel()),
-                }
+            if B == YELP_B and V in (YELP_V, 5317):
+                timed[f"{dtype_name}_V{V}"] = head_times(x, w1, b1, w2, dtype_name, seed)
+                timed[f"{dtype_name}_V{V}"].update(max_abs_err_h=err_h,
+                                                    ids_mismatch=int(mismatch.numel()))
     print(json.dumps({"kernel_checks": checks}), flush=True)
-    print(json.dumps({"decode_head_times_yelp": timed}), flush=True)
+    print(json.dumps({"decode_head_times": timed}), flush=True)
+    for name, t in timed.items():
+        check(t["kernel_device_ops_per_call"] == 2,
+              f"decode head {name}: {t['kernel_device_ops_per_call']} device operations per call")
     return timed
 
 
@@ -472,10 +580,13 @@ def phase_full_width(card: str) -> dict:
     check(ids.shape == (YELP_B, YELP_L) and ids.dtype == torch.int32, "ids shape/dtype")
     check(bool(((ids >= 0) & (ids < YELP_V)).all()), "ids out of range")
 
-    breakdown = profile_breakdown(lambda: step(x, labels))
+    breakdown = profile_breakdown(lambda: step(x, labels), watch=("ffn_", "vocab_argmax"))
+    device_ms = breakdown.get("device_ms_per_batch")
+    idle = (1 - device_ms / ms) if isinstance(device_ms, float) else "not measured"
     result = {"card": card, "dtype": "bfloat16", "V": YELP_V, "L": YELP_L, "B": YELP_B,
               "ms_per_batch": ms, "sent_per_s": YELP_B * 1e3 / ms,
-              "launches_per_batch": launches / n, "profile": breakdown}
+              "launches_per_batch": launches / n, "device_idle_share": idle,
+              "profile": breakdown}
     print(json.dumps({"full_width": result}), flush=True)
     return result
 
@@ -651,7 +762,7 @@ def main() -> int:
     import consistent__style_transfer_torch  # noqa: F401  (fails outside a checkout)
 
     t_start = time.perf_counter()
-    card = phase_card_and_build()
+    card, build = phase_card_and_build()
     timed = phase_kernel_vs_plain()
     sinkhorn = phase_sinkhorn_vs_plain()
     with tempfile.TemporaryDirectory() as work:
@@ -659,7 +770,7 @@ def main() -> int:
         full = phase_full_width(card)
         pre = phase_pretrain(work, card)
 
-    yelp = timed["bfloat16"]
+    yelp = timed[f"bfloat16_V{YELP_V}"]
     real = pre["sinkhorn_label_batch"]
     sinkhorn_rows = [{
         "name": name,
@@ -692,14 +803,25 @@ def main() -> int:
         "max_abs_err": yelp["max_abs_err_h"],
         "max_abs_err_h": yelp["max_abs_err_h"],
         "ids_mismatch": yelp["ids_mismatch"],
+        # graph-timed, weights read from device memory (head_times)
         "ms": yelp["kernel_ms"],
         "kernel_ms": yelp["kernel_ms"],
         "plain_ms": yelp["plain_ms"],
         "bound_ms": yelp["bound_ms"],
         "bound_by": yelp["bound_by"],
+        "bound_share": yelp["bound_share"],
         "library_ms": yelp["library_ms"],
+        # the eager back-to-back timing, and the L2-warm graph timing
+        "eager_ms": yelp["kernel_eager_ms"],
+        "plain_eager_ms": yelp["plain_eager_ms"],
+        "library_eager_ms": yelp["library_eager_ms"],
+        "warm_ms": yelp["kernel_warm_ms"],
+        "library_warm_ms": yelp["library_warm_ms"],
+        "device_ops_per_call": yelp["kernel_device_ops_per_call"],
+        "library_device_ops_per_call": yelp["library_device_ops_per_call"],
+        "sass_hgmma": build["decode_step"]["sass_hgmma"],
         "shape": {"B": YELP_B, "Din": DIN, "H": HID, "V": YELP_V, "dtype": "bfloat16"},
-        "float32": timed["float32"],
+        "other_shapes": {k: v for k, v in timed.items() if k != f"bfloat16_V{YELP_V}"},
     }, *sinkhorn_rows]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,10 @@ with x = [o_t; a_t] (B, 1024), W1 = ``fn_1.weight`` (512, 1024) and W2 =
 ``kernels/decode_step.py::fused_decode_logits``) never writes the (B, V)
 logits. On a CUDA tensor :func:`fused_decode_logits` launches that kernel or
 raises; on a CPU tensor it runs :func:`decode_head_reference`, the plain
-version. ``fused_decode_logits.launches`` counts kernel launches.
+version. ``fused_decode_logits.launches`` counts kernel launches: one per
+call, which is two device kernels (the FFN, then the vocab product with the
+argmax in its epilogue) and nothing else on the stream. bfloat16 runs on the
+tensor cores (wgmma on TMA-fed tiles), float32 on the CUDA cores without TF32.
 """
 
 from __future__ import annotations
@@ -37,11 +40,19 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
         fn.restype = i32
     lib.decode_step_error_string.argtypes = [i32]
     lib.decode_step_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _workspace_bytes(B: int, H: int, dtype) -> int:
+    """Bytes of the kernel's workspace (``Workspace`` in csrc/decode_step.cu):
+    B argmax keys of 8 bytes, then for bf16 h rounded to bf16 (B, H) from the
+    next 256-byte boundary."""
+    keys = 8 * B
+    return -(-keys // 256) * 256 + 2 * B * H if dtype == torch.bfloat16 else keys
 
 
 def _check(x, w1, b1, w2) -> None:
@@ -52,6 +63,8 @@ def _check(x, w1, b1, w2) -> None:
             raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
         if t.dim() != ndim or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {ndim}-d tensor, got {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (TMA and 16-byte loads)")
     if x.dtype not in _ENTRY:
         raise TypeError(f"decode head kernel takes float32 or bfloat16, got {x.dtype}")
     (B, Din), (H, Din_w), (V, H_w) = x.shape, w1.shape, w2.shape
@@ -77,19 +90,21 @@ def fused_decode_logits(x, w1, b1, w2):
     _check(x, w1, b1, w2)
     B, Din = x.shape
     H, V = w1.shape[0], w2.shape[0]
-    ids = torch.empty(B, dtype=torch.int32, device=x.device)
     h = torch.empty(B, H, dtype=torch.float32, device=x.device)
-    keys = torch.empty(B, dtype=torch.int64, device=x.device)  # packed (max, col) per row
+    workspace = torch.empty(_workspace_bytes(B, H, x.dtype), dtype=torch.uint8, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, _ENTRY[x.dtype])(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), h.data_ptr(),
-            keys.data_ptr(), ids.data_ptr(), B, Din, H, V, stream)
+            workspace.data_ptr(), B, Din, H, V, stream)
     if err != 0:
         msg = lib.decode_step_error_string(err).decode()
         raise RuntimeError(f"decode head kernel launch failed: CUDA error {err} ({msg})")
     fused_decode_logits.launches += 1
+    # each row's argmax key holds its column in its low word (little-endian):
+    # the ids are an int32 view of the workspace, one per key
+    ids = workspace[: 8 * B].view(torch.int32)[::2]
     return ids, h
 
 
