@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero before the last line:
    microseconds is not paced by the host, beside the eager back-to-back time,
    with its device operations per call from the profiler), the Sinkhorn
    through both of its names at the yelp and book WMD-label shapes, a ragged
-   shape, all-zero pairs and B=1;
+   shape, all-zero pairs, B=1, masks with interior zeros, the 64 x 64 cap
+   and B=257, then graph-timed and eager at the yelp and book shapes with its
+   device operations per call, the bound (bytes, FMA work, special
+   functions) and its share;
 3. ``serve`` and ``infer`` through the port's CLI on the committed yelp test
    split (BPE trained on the yelp train split, fresh seeded weights saved as a
    checkpoint), with the decode head's launch count read around each; and
@@ -27,8 +30,10 @@ Phases, in order; any failure exits non-zero before the last line:
    (the three scorers at 6 layers / 8 heads / d=512, B=256, L=18, bf16
    autocast) on the committed yelp corpus, after a one-epoch word2vec: the
    checkpoints load strictly, every logged loss is finite, and the Sinkhorn
-   kernel launched once per labeled batch; then ms per step, sentences/s,
-   the Sinkhorn on a real label batch, and a profiler breakdown.
+   kernel launched once per labeled batch; then the Sinkhorn on a real label
+   batch (checked and timed as in phase 2, with the labeler's host
+   times and its device time split into the Sinkhorn, the copies and the
+   rest), ms per step, sentences/s, and a profiler breakdown.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -51,6 +56,10 @@ YELP_V, YELP_L, YELP_B, DIN, HID = 10000, 18, 256, 1024, 512
 # outside the tensor cores, which is what a float32 product without TF32 gets)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+# special-function units (exp2, log2): 16 results per SM per clock (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0), 132 SMs at the H100 SXM's 1.98 GHz boost clock
+PEAK_SFU_S = 16 * 132 * 1.98e9
 KERNEL_SOURCES = ("decode_step", "sinkhorn")
 SINKHORN_EPS, SINKHORN_ITERS = 0.05, 100
 
@@ -309,10 +318,11 @@ def phase_kernel_vs_plain() -> dict:
     return timed
 
 
-def sinkhorn_inputs(B: int, N: int, M: int, seed: int, lengths=None):
+def sinkhorn_inputs(B: int, N: int, M: int, seed: int, lengths=None, scatter: bool = False):
     """p, q with zero tails (row b keeps n_b, m_b atoms: ``lengths`` or drawn
-    from [N//4, N], [M//4, M]) and D between unit vectors of dimension 100,
-    built as the WMD labeler builds it; made on the CPU from a seed."""
+    from [N//4, N], [M//4, M]), or with the zeros anywhere (``scatter``), and
+    D between unit vectors of dimension 100, built as the WMD labeler builds
+    it; made on the CPU from a seed."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -325,6 +335,10 @@ def sinkhorn_inputs(B: int, N: int, M: int, seed: int, lengths=None):
     q = (torch.rand(B, M, generator=g) + 0.05) * (torch.arange(M) < m_on[:, None])
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-9)
     q = q / q.sum(-1, keepdim=True).clamp_min(1e-9)
+    if scatter:  # each row's atoms in a random order: interior zeros
+        rows = torch.arange(B)[:, None]
+        p = p[rows, torch.argsort(torch.rand(B, N, generator=g), dim=1)]
+        q = q[rows, torch.argsort(torch.rand(B, M, generator=g), dim=1)]
     x = torch.nn.functional.normalize(torch.randn(B, N, 100, generator=g), dim=-1)
     y = torch.nn.functional.normalize(torch.randn(B, M, 100, generator=g), dim=-1)
     diff = x[:, :, None, :] - y[:, None, :, :]
@@ -332,24 +346,103 @@ def sinkhorn_inputs(B: int, N: int, M: int, seed: int, lengths=None):
     return [t.cuda().contiguous() for t in (p, q, D)]
 
 
-def sinkhorn_bound(p, q) -> tuple[float, str]:
-    """Least time for one Sinkhorn call on these inputs: p, q, D read once
-    and the costs written once, against the work these masks need: 5 f32
-    operations (add, max, subtract, exp, add) per valid (i, j) term of each
-    of the 2 * n_iters masked logsumexps, at the f32 peak."""
+def sinkhorn_bound(p, q) -> dict:
+    """Least time for one Sinkhorn call on these inputs, for the least work
+    the function needs (the kernel's product form: each logsumexp as a sum
+    of E_ij * 2^(v_j - ref), E = 2^K): the largest of
+    - bytes: p, q, D read once and the costs written once, at the HBM rate;
+    - FMA work: one multiply-add (2 flop) per valid (i, j) term of each of
+      the 2 * n_iters half-iterations, at the f32 peak;
+    - special functions: one exp and one log per valid atom of each
+      half-iteration, plus one exp per valid term for E and one for the
+      plan and one log per valid atom for the masses, at the
+      special-function rate.
+    Only pairs whose masks leave some (i, j) count: the rest cost 0 without a
+    loop. ``bound_by`` is "bytes" or "operations"; ``bound_term`` names the
+    term."""
     B, N = p.shape
     M = q.shape[1]
+    n, m = (p > 0).sum(-1), (q > 0).sum(-1)
+    valid = int((n * m).sum())
+    atoms = int(((n + m) * (n * m > 0)).sum())
     nbytes = (B * N + B * M + B * N * M + B) * 4
-    valid = ((p > 0).sum(-1) * (q > 0).sum(-1)).sum().item()
-    ops = 5 * 2 * SINKHORN_ITERS * valid
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S["float32"]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    fma = 2 * 2 * SINKHORN_ITERS * valid
+    sfu = 2 * SINKHORN_ITERS * atoms + 2 * valid + atoms
+    ms = {"bytes": nbytes / PEAK_BYTES_S * 1e3, "fma": fma / PEAK_OPS_S["float32"] * 1e3,
+          "special_function": sfu / PEAK_SFU_S * 1e3}
+    term = max(ms, key=ms.get)
+    return {"bound_ms": ms[term], "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "valid_terms_per_iter": valid, "live_atoms": atoms,
+            "bytes": nbytes, "fma_flop": fma, "special_function_ops": sfu,
+            **{f"{k}_ms": v for k, v in ms.items()}}
+
+
+def device_ops_per_call(fn, calls: int = 10):
+    """Device operations per fn() call as the profiler counts them, or "not
+    measured" (the tracer now and then returns no device events). It can
+    also drop some: on a real yelp label batch it kept 7 of 10 Sinkhorn
+    launches, try after try, so graph_nodes_per_call is the exact count."""
+    for _ in range(3):
+        prof = profile_breakdown(fn, batches=calls)
+        if "kernels_per_batch" in prof:
+            return prof["kernels_per_batch"]
+    return "not measured"
+
+
+def graph_nodes_per_call(fn) -> int:
+    """Device operations one fn() call launches, exactly: the nodes (kernels,
+    copies, memsets) of a CUDA graph that captures one call, counted by
+    libcuda's cuGraphGetNodes."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    check(err == 0, f"cuGraphGetNodes failed: CUresult {err}")
+    return count.value
+
+
+def sinkhorn_times(p, q, D) -> dict:
+    """Both names graph-timed (``graph_ms``: 50 calls a graph, so that the
+    host does not set the pace) and eager back to back, their device
+    operations per call (graph nodes, checked: 1; and the profiler's
+    count), the plain version (eager, 5 calls: some 600 launches each), the
+    bound and its share."""
+    from consistent__style_transfer_torch.kernels.sinkhorn import (
+        sinkhorn_pallas,
+        sinkhorn_pallas_cr,
+    )
+    from consistent__style_transfer_torch.ops.emd import sinkhorn_ot_cost
+
+    out = {"B": p.shape[0], "N": p.shape[1], "M": q.shape[1], **sinkhorn_bound(p, q)}
+    for key, fn in (("kernel", sinkhorn_pallas), ("kernel_cr", sinkhorn_pallas_cr)):
+        out[f"{key}_ms"] = graph_ms(lambda: fn(p, q, D))
+        out[f"{key}_eager_ms"] = time_ms(lambda: fn(p, q, D), iters=100)
+        out[f"{key}_device_ops_per_call"] = graph_nodes_per_call(lambda: fn(p, q, D))
+        out[f"{key}_profiler_kernels_per_call"] = device_ops_per_call(lambda: fn(p, q, D))
+    out["plain_ms"] = time_ms(lambda: sinkhorn_ot_cost(p, q, D), iters=5, warmup=2)
+    out["bound_share"] = out["bound_ms"] / out["kernel_ms"]
+    for key in ("kernel", "kernel_cr"):
+        ops = out[f"{key}_device_ops_per_call"]
+        check(ops == 1, f"Sinkhorn ({key}): {ops} device operations (graph nodes) per call, "
+                        "want 1")
+    return out
 
 
 def phase_sinkhorn_vs_plain() -> dict:
     """Both names against the plain version at every stated shape; rtol
     1e-4, atol 1e-5 (tests/test_kernels.py:35: the same f32 terms summed in
-    another order). Times at the yelp shape."""
+    another order). Times at the yelp and book shapes."""
     import torch
 
     from consistent__style_transfer_torch.kernels.sinkhorn import (
@@ -358,12 +451,13 @@ def phase_sinkhorn_vs_plain() -> dict:
     )
     from consistent__style_transfer_torch.ops.emd import sinkhorn_ot_cost
 
-    cases = [("yelp", 256, 27, 27, None), ("book", 128, 45, 45, None),
-             ("ragged", 5, 9, 7, (7, 5)), ("single", 1, 27, 27, None),
-             ("zero_pairs", 6, 27, 27, None)]
+    cases = [("yelp", 256, 27, 27, None, False), ("book", 128, 45, 45, None, False),
+             ("ragged", 5, 9, 7, (7, 5), False), ("single", 1, 27, 27, None, False),
+             ("zero_pairs", 6, 27, 27, None, False), ("interior_zeros", 64, 27, 27, None, True),
+             ("cap_full", 4, 64, 64, (64, 64), False), ("b257", 257, 27, 27, None, True)]
     checks, worst = [], 0.0
-    for seed, (name, B, N, M, lengths) in enumerate(cases):
-        p, q, D = sinkhorn_inputs(B, N, M, seed, lengths)
+    for seed, (name, B, N, M, lengths, scatter) in enumerate(cases):
+        p, q, D = sinkhorn_inputs(B, N, M, seed, lengths, scatter)
         if name == "zero_pairs":  # fallback rows: both sides zeroed, or one
             p[:3] = 0
             q[:2] = 0
@@ -382,15 +476,12 @@ def phase_sinkhorn_vs_plain() -> dict:
             worst = max(worst, err)
             checks.append({"entry": entry.__name__, "case": name, "B": B, "N": N, "M": M,
                            "max_abs_err": err})
-    p, q, D = sinkhorn_inputs(256, 27, 27, 0)
-    bound_ms, bound_by = sinkhorn_bound(p, q)
-    timed = {"B": 256, "N": 27, "M": 27,
-             "kernel_ms": time_ms(lambda: sinkhorn_pallas(p, q, D), iters=100),
-             "kernel_cr_ms": time_ms(lambda: sinkhorn_pallas_cr(p, q, D), iters=100),
-             "plain_ms": time_ms(lambda: sinkhorn_ot_cost(p, q, D), iters=5, warmup=2),
-             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": worst}
     print(json.dumps({"sinkhorn_checks": checks}), flush=True)
-    print(json.dumps({"sinkhorn_times_yelp_synthetic": timed}), flush=True)
+    timed = {"max_abs_err": worst}
+    for name, B, N, seed in (("yelp", 256, 27, 0), ("book", 128, 45, 1)):
+        p, q, D = sinkhorn_inputs(B, N, N, seed)
+        timed[name] = sinkhorn_times(p, q, D)
+    print(json.dumps({"sinkhorn_times_synthetic": timed}), flush=True)
     return timed
 
 
@@ -682,10 +773,12 @@ def phase_pretrain(work: str, card: str) -> dict:
     nx2, nl2 = transfer_noise_arrays(ids, lens, 0.15, rng, noise_len)
     p, q, D, _ = labeler.pair_inputs(nx1, nl1, nx2, nl2)
     ref = sinkhorn_ot_cost(p, q, D)
-    err = max((entry(p, q, D) - ref).abs().max().item()
-              for entry in (sinkhorn_pallas, sinkhorn_pallas_cr))
-    check(err <= 1e-5 + 1e-4 * ref.abs().max().item(), f"Sinkhorn on a label batch: err {err}")
-    bound_ms, bound_by = sinkhorn_bound(p, q)
+    err = 0.0
+    for entry in (sinkhorn_pallas, sinkhorn_pallas_cr):
+        got = entry(p, q, D)
+        err = max(err, (got - ref).abs().max().item())
+        check(bool(torch.allclose(got, ref, rtol=1e-4, atol=1e-5)),
+              f"{entry.__name__} on a label batch: max abs err {err}")
     for _ in range(2):
         labeler.label_pairs(nx1, nl1, nx2, nl2)
     torch.cuda.synchronize()
@@ -699,13 +792,26 @@ def phase_pretrain(work: str, card: str) -> dict:
         labeler.label_pairs(nx1, nl1, nx2, nl2)
     torch.cuda.synchronize()
     label_pairs_ms = (time.perf_counter() - t0) * 1e2
-    real = {"B": B, "atoms": (p.shape[1], q.shape[1]),
-            "pair_inputs_ms_host": pair_inputs_ms, "label_pairs_ms_host": label_pairs_ms,
-            "valid_terms_per_iter": int(((p > 0).sum(-1) * (q > 0).sum(-1)).sum()),
-            "kernel_ms": time_ms(lambda: sinkhorn_pallas(p, q, D), iters=100),
-            "kernel_cr_ms": time_ms(lambda: sinkhorn_pallas_cr(p, q, D), iters=100),
-            "plain_ms": time_ms(lambda: sinkhorn_ot_cost(p, q, D), iters=5, warmup=2),
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+    # the labeler's device time by part: the Sinkhorn, the host-to-device
+    # copies, and the rest (the vector gathers and ot_inputs' ground cost)
+    prof = profile_breakdown(lambda: labeler.label_pairs(nx1, nl1, nx2, nl2), batches=5,
+                             watch=("sinkhorn", "Memcpy"))
+    label_device = {"device_ms": prof.get("device_ms_per_batch", "not measured"),
+                    "kernels": prof.get("kernels_per_batch", "not measured"),
+                    "top": prof.get("top", "not measured")}
+    if isinstance(label_device["device_ms"], float):
+        part = {w: sum(r["ms_per_batch"] for r in prof["watched"] if w in r["name"])
+                for w in ("sinkhorn", "Memcpy")}
+        label_device.update(sinkhorn_ms=part["sinkhorn"], memcpy_ms=part["Memcpy"],
+                            ot_inputs_and_rest_ms=label_device["device_ms"] - sum(part.values()))
+    # valid atoms a side: the pair with the most sets the kernel's time
+    n_on, m_on = (p > 0).sum(-1).float(), (q > 0).sum(-1).float()
+    real = {"atoms": (p.shape[1], q.shape[1]), "pair_inputs_ms_host": pair_inputs_ms,
+            "valid_atoms": {"mean": [n_on.mean().item(), m_on.mean().item()],
+                            "max": [n_on.max().item(), m_on.max().item()],
+                            "pairs_over_16": int(((n_on > 16) | (m_on > 16)).sum())},
+            "label_pairs_ms_host": label_pairs_ms, "label_device": label_device,
+            "max_abs_err": err, **sinkhorn_times(p, q, D)}
 
     # steady state and profile: the same full-width towers and step, on
     # batches from the prefetcher with the labeler, as in the run above
@@ -782,17 +888,27 @@ def main() -> int:
         "launch_counter": "sinkhorn_cuda.launches (one kernel behind both names)",
         "launches_per_batch": 1,
         "max_abs_err": max(real["max_abs_err"], sinkhorn["max_abs_err"]),
-        "ms": real[ms_key],
-        "kernel_ms": real[ms_key],
+        # graph-timed on a real yelp label batch (sinkhorn_times)
+        "ms": real[f"{key}_ms"],
+        "kernel_ms": real[f"{key}_ms"],
+        "eager_ms": real[f"{key}_eager_ms"],
         "plain_ms": real["plain_ms"],
         "bound_ms": real["bound_ms"],
         "bound_by": real["bound_by"],
+        "bound_term": real["bound_term"],
+        "bound_share": real["bound_ms"] / real[f"{key}_ms"],
         "library_ms": None,  # no single PyTorch call computes a Sinkhorn
+        "device_ops_per_call": real[f"{key}_device_ops_per_call"],  # graph nodes, exact
+        "profiler_kernels_per_call": real[f"{key}_profiler_kernels_per_call"],
         "shape": {"B": real["B"], "N": real["atoms"][0], "M": real["atoms"][1],
-                  "dtype": "float32", "inputs": "one yelp WMD-label batch"},
-        "synthetic_yelp": sinkhorn,
-    } for name, line, ms_key in (("sinkhorn_pallas", 178, "kernel_ms"),
-                                 ("sinkhorn_pallas_cr", 129, "kernel_cr_ms"))]
+                  "valid_terms_per_iter": real["valid_terms_per_iter"],
+                  "valid_atoms": real["valid_atoms"], "dtype": "float32",
+                  "inputs": "one yelp WMD-label batch"},
+        "synthetic": {k: {f: v[f] for f in (f"{key}_ms", f"{key}_eager_ms", "bound_ms",
+                                            "bound_term")}
+                      for k, v in sinkhorn.items() if isinstance(v, dict)},
+    } for name, line, key in (("sinkhorn_pallas", 178, "kernel"),
+                              ("sinkhorn_pallas_cr", 129, "kernel_cr"))]
     print(json.dumps({"kernels": [{
         "name": "fused_decode_logits",
         "route": "cuda",

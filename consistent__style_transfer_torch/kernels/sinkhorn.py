@@ -6,8 +6,9 @@ per program, atoms padded to 128 lanes) and ``sinkhorn_pallas_cr`` (one pair
 per program, potentials as a column and a row); both compute exactly
 ``ops/emd.py::sinkhorn_ot_cost``. Their layouts are TPU needs, so here both
 names are thin entries onto one hand-written CUDA kernel
-(``csrc/sinkhorn.cu``, one block per pair), with the JAX signature less the
-TPU-only ``group``, ``lanes`` and ``interpret`` arguments.
+(``csrc/sinkhorn.cu``: one warp per pair, valid atoms compacted, no block
+barrier), with the JAX signature less the TPU-only ``group``, ``lanes`` and
+``interpret`` arguments.
 
 On a CUDA tensor each entry launches that kernel or raises; on a CPU tensor
 it runs :func:`~..ops.emd.sinkhorn_ot_cost`, the plain version.

@@ -1,9 +1,14 @@
 """The port's plain Sinkhorn (``ops/emd.py::sinkhorn_ot_cost``, the plain
 version of the CUDA kernel) and its CPU entries (``kernels/sinkhorn.py``)
 against the JAX package's jnp ``sinkhorn_ot_cost`` and its two Pallas kernels
-in interpret mode, on the shapes of tests/test_kernels.py and on the yelp
-label shape with an all-zero pair. rtol 1e-4, atol 1e-5: the same float32
-terms, summed in another order."""
+in interpret mode, on the shapes of tests/test_kernels.py, on the yelp label
+shape with an all-zero pair, and on masks with interior zeros (the valid
+atoms not a prefix, which the CUDA kernel compacts). rtol 1e-4, atol 1e-5:
+the same float32 terms, summed in another order. Also the arithmetic of
+``chip_smoke.py::sinkhorn_bound`` on hand-counted masks."""
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -50,10 +55,28 @@ def _yelp_with_zero_pair():
     return p, q, D
 
 
+def _interior_zeros():
+    """Zero masses inside each row, not only a tail: rows of 27 slots with
+    3-12 valid atoms anywhere, one row with a single atom a side in the
+    middle, one with one side empty."""
+    rng = np.random.default_rng(11)
+    p, q, D = _inputs(11, 5, 27, 27, 27, 27, dim=100)
+    for t in (p, q):
+        for b in range(len(t)):
+            t[b, rng.permutation(27)[: 27 - rng.integers(3, 13)]] = 0
+    p[3], q[3] = 0, 0
+    p[3, 13], q[3, 20] = 1, 1
+    q[4] = 0
+    p /= np.maximum(p.sum(-1, keepdims=True), 1e-9)
+    q /= np.maximum(q.sum(-1, keepdims=True), 1e-9)
+    return p, q, D
+
+
 CASES = {
     "kernels_8x8": (_inputs(0, 4, 8, 8, 6, 5), 50),      # test_kernels.py:20
     "kernels_9x7": (_inputs(2, 5, 9, 7, 7, 5), 50),      # test_kernels.py:38
     "yelp_zero_pair": (_yelp_with_zero_pair(), 100),
+    "interior_zeros": (_interior_zeros(), 100),
 }
 
 
@@ -102,3 +125,51 @@ def test_cuda_entry_refuses_cpu_tensors():
     arrays, _ = CASES["kernels_8x8"]
     with pytest.raises(ValueError, match="cuda"):
         sinkhorn_cuda(*_torch(arrays))
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_interior_zero_masks_are_not_prefixes():
+    (p, q, _), _ = CASES["interior_zeros"]
+    for t in (p, q):
+        on = t > 0
+        assert any(row.any() and not row[: row.sum()].all() for row in on)
+
+
+@pytest.mark.parametrize("case", ["special_function_binds", "bytes_bind"])
+def test_sinkhorn_bound_arithmetic(case):
+    """Counted by hand: pair 0 keeps atoms {0, 2} x {0} (2 valid terms, 3
+    atoms); pair 1 has an empty side, so it costs nothing but its bytes. The
+    terms: bytes (p, q, D read, the costs written), one multiply-add (2 flop)
+    per valid term of each of the 200 half-iterations, and one exp and one
+    log per atom of a live pair in each half-iteration, plus 2 exps per
+    valid term (E and the plan) and one log per atom (the masses); the
+    largest binds."""
+    cs = _chip_smoke()
+    p = torch.tensor([[0.5, 0.0, 0.5], [0.2, 0.3, 0.5]])
+    q = torch.tensor([[1.0, 0.0], [0.0, 0.0]])
+    if case == "bytes_bind":
+        p = torch.zeros(2, 3)
+    got = cs.sinkhorn_bound(p, q)
+    valid, atoms = (2, 3) if case == "special_function_binds" else (0, 0)
+    nbytes = (2 * 3 + 2 * 2 + 2 * 3 * 2 + 2) * 4
+    assert got["bytes"] == nbytes == 96
+    assert got["valid_terms_per_iter"] == valid and got["live_atoms"] == atoms
+    assert got["fma_flop"] == 2 * 2 * 100 * valid
+    sfu = 2 * 100 * atoms + 2 * valid + atoms
+    assert got["special_function_ops"] == sfu == (607 if valid else 0)
+    assert got["bytes_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert got["fma_ms"] == pytest.approx(400 * valid / 67e12 * 1e3, rel=1e-12)
+    sfu_ms = sfu / (16 * 132 * 1.98e9) * 1e3
+    assert got["special_function_ms"] == pytest.approx(sfu_ms, rel=1e-12)
+    want = "special_function" if case == "special_function_binds" else "bytes"
+    assert got["bound_term"] == want
+    assert got["bound_by"] == ("operations" if want != "bytes" else "bytes")
+    assert got["bound_ms"] == max(got["bytes_ms"], got["fma_ms"], got["special_function_ms"])
