@@ -33,7 +33,17 @@ Phases, in order; any failure exits non-zero before the last line:
    kernel launched once per labeled batch; then the Sinkhorn on a real label
    batch (checked and timed as in phase 2, with the labeler's host
    times and its device time split into the Sinkhorn, the copies and the
-   rest), ms per step, sentences/s, and a profiler breakdown.
+   rest), ms per step, sentences/s, and a profiler breakdown;
+6. the generator's training at full yelp width on phase 5's BPE dump and
+   scorers: ``warmup`` through the CLI (one epoch, B=512, bf16 autocast,
+   float32 parameters), ``optimize --epochs 1`` (B=256, the 6-layer / 8-head
+   / d=512 frozen matcher and LM), and ``infer`` on the ``G_epoch_0.pth``
+   it wrote: the checkpoints load strictly, every logged loss is finite, one
+   step a batch, D applied ceil(steps / d_update_every) times, the decode
+   head launched 0 times in training and 18 a batch in the infer; then ms
+   per step and sentences/s over each CLI epoch and over 20 steady steps of
+   the same step function, device ms, idle share and the top device
+   operations (profiler), kernels per step, and peak memory.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -43,7 +53,9 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -859,6 +871,195 @@ def phase_pretrain(work: str, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 6
+def read_events(cfg, stage: str) -> list[dict]:
+    with open(os.path.join(cfg.log_dir, cfg.dataset, stage, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_finite_losses(events: list[dict], keys: tuple[str, ...], stage: str) -> dict:
+    seen = {k: [e[k] for e in events if k in e] for k in keys}
+    check(all(seen.values()), f"{stage}: a loss was never logged: { {k: len(v) for k, v in seen.items()} }")
+    bad = {k: v for k, v in seen.items() if not all(math.isfinite(x) for x in v)}
+    check(not bad, f"{stage}: non-finite logged losses {bad}")
+    return {k: v[-1] for k, v in seen.items()}
+
+
+def steady_step(step, batches: int = 20) -> dict:
+    """ms per step on the host clock over ``batches`` calls of ``step`` after
+    3 warm-up calls, ending in a synchronise; peak device memory over them;
+    then a profiler breakdown of 2 more calls and the idle share."""
+    import torch
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / batches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_breakdown(step, batches=2)
+    device_ms = prof.get("device_ms_per_batch")
+    idle = (1 - device_ms / ms) if isinstance(device_ms, float) else "not measured"
+    return {"ms_per_step_steady": ms, "peak_memory_gb_steady": peak_gb,
+            "device_ms_per_step": device_ms, "device_idle_share": idle,
+            "kernels_per_step": prof.get("kernels_per_batch", "not measured"),
+            "top_device_ops": prof.get("top", "not measured")}
+
+
+def phase_training(work: str, card: str) -> dict:
+    import torch
+
+    from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.data.pipeline import make_batches
+    from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
+    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
+    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
+    from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
+    from consistent__style_transfer_torch.train.common import (
+        build_generator,
+        get_corpus,
+        get_tokenizer,
+    )
+    from consistent__style_transfer_torch.train.optimize import (
+        OptimizeModels,
+        load_frozen,
+        load_generator_params,
+        make_optimize_steps,
+    )
+    from consistent__style_transfer_torch.train.state import AdamWithClip, newest_checkpoint
+    from consistent__style_transfer_torch.train.warmup import make_warmup_steps
+
+    dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
+                out_dir=os.path.join(work, "output"), log_dir=os.path.join(work, "log"))
+    flags = [a for k, v in dirs.items() for a in (f"--{k}", v)]
+    cfg = make_config("yelp", **dirs)
+    L, device = cfg.max_len, torch.device(cfg.device)
+    tokenizer = get_tokenizer(cfg)  # phase 3's BPE dump
+    V = len(tokenizer)
+    n_train = count_lines(cfg.train_files())
+    task = os.path.join(cfg.ds_dump_dir, f"optimize-{cfg.ver}")
+    # phase 3's seeded G_epoch_1.pth would sort after G_epoch_0.pth: the
+    # infer below must read what optimize writes
+    shutil.rmtree(task, ignore_errors=True)
+
+    def launches_during(argv):
+        fused_decode_logits.launches = 0
+        sinkhorn_cuda.launches = 0
+        t0 = time.perf_counter()
+        run_cli(argv)
+        torch.cuda.synchronize()
+        check(sinkhorn_cuda.launches == 0, f"{argv[0]} launched the Sinkhorn")
+        return fused_decode_logits.launches, time.perf_counter() - t0
+
+    def load_strict(path):
+        check(os.path.exists(path), f"missing {path}")
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        DenoiseSeq2Seq(V, cfg.n_class, L).load_state_dict(sd, strict=True)
+        check(all(bool(torch.isfinite(v).all()) for v in sd.values()), f"{path}: non-finite weights")
+
+    # 1. warmup, one epoch (the default)
+    head, warmup_s = launches_during(["warmup", *flags])
+    check(head == 0, f"warmup launched the decode head {head} times")
+    load_strict(os.path.join(cfg.ds_dump_dir, "warmup", "G.pth"))
+    events = read_events(cfg, "warmup")
+    warm_losses = check_finite_losses(events, ("dn_loss", "val_loss"), "warmup")
+    warm_epoch = [e for e in events if "train_steps" in e][-1]
+    want = n_train // cfg.warmup_batch_size
+    check(warm_epoch["train_steps"] == want, f"warmup: {warm_epoch['train_steps']} steps, want {want}")
+
+    # 2. optimize, one epoch instead of ten (a stated reduction)
+    head, optimize_s = launches_during(["optimize", *flags, "--epochs", "1"])
+    check(head == 0, f"optimize launched the decode head {head} times")
+    best = os.path.join(task, "G_epoch_0.pth")
+    load_strict(best)
+    events = read_events(cfg, f"optimize-{cfg.ver}")
+    opt_losses = check_finite_losses(events, ("G", "STI", "CP", "BK", "D", "loss", "val_loss"),
+                                     "optimize")
+    opt_epoch = [e for e in events if "train_steps" in e][-1]
+    want = n_train // cfg.batch_size
+    check(opt_epoch["train_steps"] == want, f"optimize: {opt_epoch['train_steps']} steps, want {want}")
+    want = math.ceil(want / cfg.d_update_every)
+    check(opt_epoch["d_applies"] == want, f"optimize: D applied {opt_epoch['d_applies']}, want {want}")
+
+    # 3. infer from the checkpoint optimize wrote
+    check(newest_checkpoint(task) == best, f"infer would read {newest_checkpoint(task)}")
+    infer_launches, infer_s = launches_during(["infer", *flags])
+    infer_batches = sum(-(-count_lines(cfg.split_files(s)) // cfg.batch_size)
+                        for s in ("train", "test"))
+    check(infer_launches == L * infer_batches > 0,
+          f"infer: {infer_launches} decode-head launches, want {L} x {infer_batches}")
+
+    # 4. steady state of the same step functions, on batches from the
+    # prefetcher, from the checkpoints just written
+    corpus = get_corpus(cfg, "train", tokenizer)
+    gen = torch.Generator(device).manual_seed(1)
+
+    def stream(stage, batch_size):
+        return iter(DevicePrefetcher(make_batches(corpus, batch_size, L, stage, shuffle=True,
+                                                  seed=1), device))
+
+    model = build_generator(cfg, V, device, training=True)
+    model.load_state_dict(torch.load(os.path.join(cfg.ds_dump_dir, "warmup", "G.pth"),
+                                     map_location=device, weights_only=True), strict=True)
+    warm_step, _ = make_warmup_steps(model, AdamWithClip(model.parameters(), cfg.warmup_lr,
+                                                         cfg.warmup_clip), torch.bfloat16)
+    batches = stream("warmup", cfg.warmup_batch_size)
+    try:
+        warm_steady = steady_step(lambda: warm_step(next(batches)[1], gen))
+    finally:
+        batches.close()
+    del model, warm_step
+
+    models = OptimizeModels(cfg, V, device)
+    load_frozen(cfg, models)
+    load_generator_params(cfg, models.generator)
+    steps = make_optimize_steps(
+        cfg, models, AdamWithClip(models.generator.parameters(), cfg.optimize_lr, cfg.optimize_clip),
+        AdamWithClip(models.disc.parameters(), cfg.optimize_lr, cfg.optimize_clip))
+    acc = [torch.zeros_like(p) for p in models.disc.parameters()]
+    d_gen = torch.Generator(device).manual_seed(2)
+    state = {"i": 0}
+
+    def opt_step():
+        aux, d_loss = steps.fused_step(next(batches)[1], acc, state["i"] % cfg.d_update_every == 0,
+                                       gen, d_gen)
+        state["i"] += 1
+        return aux, d_loss
+
+    batches = stream("optimize", cfg.batch_size)
+    try:
+        opt_steady = steady_step(opt_step)
+        aux, d_loss = opt_step()
+        check(all(math.isfinite(v.item()) for v in (*aux.values(), d_loss)),
+              f"non-finite steady losses {aux} {d_loss}")
+    finally:
+        batches.close()
+    check(fused_decode_logits.launches == infer_launches and sinkhorn_cuda.launches == 0,
+          "a training step launched a kernel")
+
+    def rates(epoch, steady, batch_size):
+        ms_epoch = epoch["train_s"] * 1e3 / epoch["train_steps"]
+        return {"train_steps": epoch["train_steps"], "batch_size": batch_size,
+                "ms_per_step_epoch": ms_epoch, "sent_per_s_epoch": batch_size * 1e3 / ms_epoch,
+                **steady, "sent_per_s_steady": batch_size * 1e3 / steady["ms_per_step_steady"]}
+
+    result = {"card": card, "dtype": "bfloat16 autocast, float32 parameters", "V": V, "L": L,
+              "train_sentences": n_train, "scorer": "6 layers / 8 heads / d=512",
+              "warmup": {"cli_s": warmup_s, **rates(warm_epoch, warm_steady, cfg.warmup_batch_size),
+                         "losses": warm_losses, "decode_head_launches": 0},
+              "optimize": {"cli_s": optimize_s, "epochs": 1, "d_applies": opt_epoch["d_applies"],
+                           **rates(opt_epoch, opt_steady, cfg.batch_size),
+                           "losses": opt_losses, "decode_head_launches": 0},
+              "infer": {"s": infer_s, "batches": infer_batches,
+                        "decode_head_launches": infer_launches}}
+    print(json.dumps({"training": result}), flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -875,6 +1076,7 @@ def main() -> int:
         served = phase_serve_and_infer(work)
         full = phase_full_width(card)
         pre = phase_pretrain(work, card)
+        trained = phase_training(work, card)
 
     yelp = timed[f"bfloat16_V{YELP_V}"]
     real = pre["sinkhorn_label_batch"]
@@ -914,7 +1116,11 @@ def main() -> int:
         "route": "cuda",
         "source": "consistent__style_transfer_torch/csrc/decode_step.cu",
         "replaces": "consistent__style_transfer_tpu/kernels/decode_step.py:73",
-        "launches": served["serve_launches"] + served["infer_launches"],
+        "launches": (served["serve_launches"] + served["infer_launches"]
+                     + trained["infer"]["decode_head_launches"]),
+        "launches_by_path": {"serve": served["serve_launches"], "infer": served["infer_launches"],
+                             "warmup": 0, "optimize": 0,
+                             "infer_after_optimize": trained["infer"]["decode_head_launches"]},
         "launches_per_batch": full["launches_per_batch"],
         "max_abs_err": yelp["max_abs_err_h"],
         "max_abs_err_h": yelp["max_abs_err_h"],

@@ -8,8 +8,9 @@ greedy style-transfer serving, ``serve`` and ``infer``, whose greedy decode
 head runs as a hand-written CUDA kernel (``kernels/decode_step.py``,
 ``csrc/decode_step.cu``); and the pretrain stage, ``vocab``, ``w2v`` and
 ``pretrain``, whose WMD labels come from a hand-written CUDA Sinkhorn kernel
-(``kernels/sinkhorn.py``, ``csrc/sinkhorn.cu``). Each kernel runs whenever
-its tensors are on the card.
+(``kernels/sinkhorn.py``, ``csrc/sinkhorn.cu``); and the generator's
+training stages, ``warmup`` and ``optimize``. Each kernel runs whenever its
+tensors are on the card.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``--device cpu`` / ``Config.device = "cpu"``); without CUDA and without that

@@ -6,14 +6,17 @@ Commands of the ported slices:
   vocab     train/load the BPE tokenizer dump
   w2v       train/load the WMD word2vec dump
   pretrain  stage 1: the three scorers (classifier, matcher, LM denoiser)
+  warmup    stage 2: the generator's denoising warmup -> warmup/G.pth
+  optimize  stage 3: adversarial style transfer -> optimize-<ver>/G_epoch_<n>.pth
+            (--mode=test: inference, as infer)
   serve     stdin->stdout batch transfer with the current best G
   infer     transfer train+test splits to .tsf with the current best G
             (optimize --mode=test)
 
-Every other command of the JAX package (warmup, optimize, eval-prepare, eval,
-run, ablate, bench) is not ported yet and exits with status 2; ROADMAP.md has
-the order. Commands that compute run on ``--device cuda`` (the default)
-unless given ``--device cpu``.
+Every other command of the JAX package (eval-prepare, eval, run, ablate,
+bench) is not ported yet and exits with status 2; ROADMAP.md has the order.
+Commands that compute run on ``--device cuda`` (the default) unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import sys
 
 from .config import Config, config_from_args
 
-NOT_PORTED = ("warmup", "optimize", "eval-prepare", "eval", "run", "ablate", "bench")
+NOT_PORTED = ("eval-prepare", "eval", "run", "ablate", "bench")
 
 
 def cmd_vocab(cfg: Config) -> None:
@@ -45,11 +48,24 @@ def cmd_pretrain(cfg: Config) -> None:
     print("pretrain artifacts:", run_pretrain(cfg))
 
 
-def cmd_infer(cfg: Config) -> None:
-    from .train.optimize import run_test
+def cmd_warmup(cfg: Config) -> None:
+    from .train.warmup import run_warmup
 
+    print("warmup G:", run_warmup(cfg))
+
+
+def cmd_optimize(cfg: Config) -> None:
+    from .train.optimize import run_optimize, run_test
+
+    if cfg.mode == "test":
+        print("wrote:", run_test(cfg))
+    else:
+        print("best G:", run_optimize(cfg))
+
+
+def cmd_infer(cfg: Config) -> None:
     cfg.mode = "test"
-    print("wrote:", run_test(cfg))
+    cmd_optimize(cfg)
 
 
 def cmd_serve(cfg: Config) -> None:
@@ -109,6 +125,8 @@ COMMANDS = {
     "vocab": cmd_vocab,
     "w2v": cmd_w2v,
     "pretrain": cmd_pretrain,
+    "warmup": cmd_warmup,
+    "optimize": cmd_optimize,
     "infer": cmd_infer,
     "serve": cmd_serve,
 }

@@ -1,8 +1,8 @@
 """Configuration of the port: the JAX package's ``Config``
 (``consistent__style_transfer_tpu/config.py``) trimmed to the fields that the
-ported slices read (serving, and the pretrain stage), plus ``device``.
-Defaults, derived paths and flag parsing are the same, so both packages read
-and write one dump/output layout.
+ported slices read (serving, pretrain, warmup and optimize), plus ``device``.
+Defaults, presets, derived paths and flag parsing are the same, so both
+packages read and write one dump/output layout.
 """
 
 from __future__ import annotations
@@ -30,11 +30,32 @@ class Config:
     max_len: int = 18
     batch_size: int = 256
 
-    # pretrain schedule (reference trainer configs)
+    # optimize-stage loss weights (reference defaults, src/arguments.py:24-30)
+    w_s: float = 0.1
+    w_c: float = 0.5
+    w_adv: float = 1.0
+    w_bt: float = 1.0
+    tau: float = 0.1
+    gap: float = 0.0
+
+    # schedules
     epochs: int = 10
     pretrain_lr: float = 1e-4
+    warmup_lr: float = 1e-3
+    optimize_lr: float = 1e-5
+    warmup_epochs: int = 1
+    warmup_batch_size: int = 512
+    d_update_every: int = 4  # D steps every Nth batch (main_optimize.py:85-88)
+
+    # early stopping patience per stage (reference trainer configs)
     pretrain_patience: int = 1
+    warmup_patience: int = 1
+    optimize_patience: int = 3
+
+    # grad-clip (global norm) per stage
     pretrain_clip: float = 5.0
+    warmup_clip: float = 1.0
+    optimize_clip: float = 1.0
 
     seed: int = 0
     dtype: str = "bfloat16"  # compute dtype: bfloat16 (default) | float32
@@ -42,8 +63,28 @@ class Config:
     # subtracts alpha*count(token emitted so far) from the logits of content
     # tokens. 0 = off (reference-faithful decode, through the fused head kernel)
     device: str = "cuda"  # cuda (default; raises when absent) | cpu | cuda:<n>
+    fuse_gan_steps: bool = False  # reuse the G-step's fake decode for the D
+    # step (saves one of the three rollouts per batch; the reference
+    # recomputes it under no_grad each batch, so the default stays faithful)
     sinkhorn_wmd: bool = True  # WMD labels by the batched Sinkhorn (the CUDA
     # kernel on the card); False = the exact host LP
+    time_major_probs: bool = True  # keep the G-step's soft decode stacks in
+    # the decode loop's (L, B, V) layout: the scorers and D transpose after
+    # their V->d projection instead of the probs. Losses are layout-invariant
+    w_rec: float = 0.0  # optimize-stage self-reconstruction CE weight
+    # (copy bias: CE(G(x, s, teacher=x, s), x) added to the G loss; no
+    # reference equivalent — content-preservation lever for weak-DAE regimes)
+    w_copy: float = 0.0  # copy-regularization on the FREE-RUNNING transfer:
+    # -log p(x_t) under the straight-through transfer distribution. Unlike
+    # w_rec (teacher-forced) this directly biases the transfer decode toward
+    # emitting source tokens; style CE still flips the style-word positions.
+    # No reference equivalent — content-preservation lever.
+    w_copy_decay: float = 1.0  # per-epoch multiplier on w_copy (fused step's
+    # copy_scale): start with a strong copy anchor, decay so the style CE
+    # takes over late. 1.0 = constant.
+    copy_mask: bool = True  # style-aware w_copy: weight each position by the
+    # source token's style-neutrality (data/style_weights.py) so copy
+    # pressure skips style-bearing words
 
     # scorer (Matcher/LM) size overrides; None keeps the reference dims
     # (6 layers, 8 heads, d=512)
@@ -89,9 +130,29 @@ DATASET_PRESETS = {
 }
 
 
-def make_config(dataset: str = "yelp", **overrides) -> Config:
+# Named operating-point presets, applied on top of the dataset preset and
+# before explicit overrides (the JAX package's table). ``ref_band`` is the
+# recipe the JAX package measured inside the reference's published operating
+# band on its 540k control corpus; the plain default keeps the reference's
+# w_s=0.1 (src/arguments.py:24).
+PRESETS = {
+    "ref_band": {
+        "w_s": 0.0075,
+        "w_copy": 0.4,
+        "w_copy_decay": 0.6,
+        "warmup_epochs": 2,
+    },
+}
+
+
+def make_config(dataset: str = "yelp", preset: str | None = None, **overrides) -> Config:
     cfg = Config(dataset=dataset)
-    for k, v in {**DATASET_PRESETS.get(dataset, {}), **overrides}.items():
+    named = {}
+    if preset:
+        if preset not in PRESETS:
+            raise ValueError(f"unknown preset {preset!r} (have {sorted(PRESETS)})")
+        named = PRESETS[preset]
+    for k, v in {**DATASET_PRESETS.get(dataset, {}), **named, **overrides}.items():
         if not hasattr(cfg, k):
             raise ValueError(f"unknown config field {k!r}")
         setattr(cfg, k, v)
@@ -109,6 +170,9 @@ def config_from_args(argv=None) -> Config:
                "bool": lambda s: s.lower() in ("1", "true", "yes")}
     for f in dataclasses.fields(Config):
         parser.add_argument(f"--{f.name}", type=typemap[str(f.type).replace(" | None", "")])
+    parser.add_argument("--preset", choices=sorted(PRESETS),
+                        help="named operating-point preset (e.g. ref_band); explicit flags still win")
     args = vars(parser.parse_args(argv))
     dataset = args.pop("dataset", None) or "yelp"
-    return make_config(dataset, **{k: v for k, v in args.items() if v is not None})
+    preset = args.pop("preset", None)
+    return make_config(dataset, preset=preset, **{k: v for k, v in args.items() if v is not None})

@@ -7,10 +7,11 @@ inference discard the padding; training iterators drop it instead.
 
 Stage batch layouts (the reference's collates, ``src/loader.py:46-90``):
 - optimize: (x, labels), which is what inference reads;
+- warmup: (noised x, x, labels), one transfer_noise(p=0.1) draw aligned to
+  max_len;
 - pretrain: (x, noise1, noise2, perm-noise, labels, wmd) with two independent
   transfer_noise(p=0.15) draws, one rand_perm(0.15) and the WMD label between
   the two noised variants.
-The warmup collate comes with its slice.
 """
 
 from __future__ import annotations
@@ -100,6 +101,14 @@ def collate_optimize(max_len: int):
     return fn
 
 
+def collate_warmup(max_len: int, p: float = 0.1):
+    def fn(ids, lens, labels, rng):
+        nx, nlen = transfer_noise_arrays(ids, lens, p=p, rng=rng, out_len=max_len, pad_id=PAD_ID)
+        return {"nx": nx, "x": ids, "labels": labels.astype(np.int32), "lengths": lens,
+                "nlengths": nlen}
+    return fn
+
+
 def collate_pretrain(max_len: int, wmd_labeler, p: float = 0.15, need_matcher=None):
     """``wmd_labeler.label_pairs(ids1, lens1, ids2, lens2)`` gives the (B,)
     float32 labels: a tensor on the labeler's device (Sinkhorn), which stays
@@ -151,11 +160,12 @@ def make_batches(corpus: StyleCorpus, batch_size: int, max_len: int, stage: str,
                  need_matcher=None) -> BatchIterator:
     if stage == "optimize":
         collate = collate_optimize(max_len)
+    elif stage == "warmup":
+        collate = collate_warmup(max_len)
     elif stage == "pretrain":
         if wmd_labeler is None:
             raise ValueError("pretrain batches need a wmd_labeler")
         collate = collate_pretrain(max_len, wmd_labeler, need_matcher=need_matcher)
     else:
-        raise NotImplementedError(
-            f"stage {stage!r} batches come with a later slice of the port (ROADMAP.md)")
+        raise ValueError(f"unknown stage {stage!r}")
     return BatchIterator(corpus, batch_size, max_len, collate, shuffle=shuffle, seed=seed)

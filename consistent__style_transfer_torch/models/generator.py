@@ -1,6 +1,6 @@
 """Style-conditioned denoising seq2seq generator: the port of the JAX
 package's ``models/generator.py::DenoiseSeq2Seq`` (the reference's
-``DenoiseLSTM``, ``src/model/rnn.py``), for greedy decoding.
+``DenoiseLSTM``, ``src/model/rnn.py``).
 
 Architecture (dims from ``src/model/rnn.py:11-14``):
 - token embedding d=128; encoder = 1-layer BiLSTM hidden=256 whose initial
@@ -16,19 +16,32 @@ Architecture (dims from ``src/model/rnn.py:11-14``):
 Attribute names are the reference's state-dict keys (``encoder.weight_ih_l0``,
 ``encoder.weight_ih_l0_reverse``, ``fn_2.weight``, ``transfer.weight``, ...),
 so its ``.pth`` checkpoints and those of the JAX package's ``save_pth`` load
-with ``load_state_dict(strict=True)``. The whole module runs in its parameter
-dtype (``.to(torch.bfloat16)`` for the default compute dtype), which is what
-flax's ``dtype=bf16`` does: inputs and weights cast to bf16, carries kept in
-bf16.
+with ``load_state_dict(strict=True)``. For serving the module runs in its
+parameter dtype (``.to(torch.bfloat16)``, what flax's ``dtype=bf16`` does);
+the training stages keep float32 parameters and run it under
+``torch.autocast``.
 
-Decode modes of this slice (inference; dropout and the teacher-forced, st and
-gumbel modes come with the training slice):
+Decode modes (reference ``rnn.py:82-96``):
 - ``mode="greedy"``: token ids (B, max_len) int32. With ``rep_penalty == 0``
   the FFN -> vocab -> argmax head is :func:`fused_decode_logits`, a CUDA
   kernel on the card; with ``rep_penalty > 0`` it is the unfused head minus
   ``rep_penalty * counts``, where only ids >= 3 are counted.
-- ``mode="sched"`` with ``x=None``: the same greedy decode, returning the
-  logits (B, max_len, V).
+- ``mode="st"``: differentiable decode, probs softmax(logits / tau); the
+  next input is the straight-through hard sample of the probs times the
+  embedding table, so the gradient reaches both.
+- ``mode="sched"``: scheduled sampling with a teacher ``x``: one coin a step
+  for the whole batch (:func:`sched_coins`) feeds the teacher token's
+  embedding (1) or the greedy token's (0); returns logits. With ``x=None``
+  every step is greedy.
+- ``mode="teacher"``: always teacher-forced logits.
+
+Dropout (``p_drop``, flax's inverted rule) acts in training mode only, at
+three places as in the JAX package: the encoder's id embeddings, the FFN
+input and each fed-back input; its masks come from an explicit
+``torch.Generator``. Soft (B, L, V) encoder input is
+``hard_sample_st(inp) @ table``, without dropout. Soft outputs come
+batch-major (B, L, V), or time-major (L, B, V) with ``time_major_out``; ids
+are always batch-major.
 """
 
 from __future__ import annotations
@@ -38,11 +51,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.decode_step import fused_decode_logits
+from ..ops.sampling import hard_sample_st
 from . import initializers as init
+from .transformer import dropout
 
 D_EMBED = 128
 D_ENC = 256
 D_DEC = 512
+P_DROP = 0.1
+MODES = ("st", "sched", "greedy", "teacher")
+
+
+def sched_coins(n: int, generator: torch.Generator | None, device) -> torch.Tensor:
+    """The coins of one sched-mode decode of ``n`` steps: one Bernoulli(0.5)
+    a step for the whole batch, not one a row (``models/generator.py:292-296``
+    of the JAX package); (n,) bool on ``device``."""
+    return torch.rand(n, generator=generator, device=device) < 0.5
 
 
 class LSTM(nn.Module):
@@ -82,11 +106,12 @@ class LSTM(nn.Module):
 
 class DenoiseSeq2Seq(nn.Module):
     def __init__(self, n_vocab: int, n_class: int, max_len: int,
-                 rep_penalty: float = 0.0, seed: int = 0):
+                 rep_penalty: float = 0.0, p_drop: float = P_DROP, seed: int = 0):
         super().__init__()
         self.n_vocab = n_vocab
         self.max_len = max_len
         self.rep_penalty = rep_penalty  # greedy decode repetition penalty (alpha)
+        self.p_drop = p_drop
         self.start_embedding = nn.Embedding(1, D_EMBED)
         self.token_embedding = nn.Embedding(n_vocab, D_EMBED)
         self.enc_style_embedding = nn.Embedding(n_class, 2 * D_ENC)
@@ -113,9 +138,17 @@ class DenoiseSeq2Seq(nn.Module):
         init.linear_bias_(self.fn_1.bias, self.fn_1.in_features, generator)
         init.linear_kernel_(self.fn_2.weight, generator)
 
-    def encode(self, inp, label_i):
-        """inp (B, L) ids -> (memory (B, L, 2*D_ENC), [c_fwd; c_bwd] (B, 2*D_ENC))."""
-        e = self.token_embedding(inp)
+    def _drop(self, t, generator):
+        return dropout(t, self.p_drop, self.training, generator)
+
+    def encode(self, inp, label_i, generator=None):
+        """inp: ids (B, L), or soft (B, L, V) -> (memory (B, L, 2*D_ENC),
+        [c_fwd; c_bwd] (B, 2*D_ENC))."""
+        if torch.is_floating_point(inp):
+            table = self.token_embedding.weight
+            e = hard_sample_st(inp.to(table.dtype)) @ table
+        else:
+            e = self._drop(self.token_embedding(inp.long()), generator)
         h0_f, h0_b = self.enc_style_embedding(label_i).chunk(2, dim=-1)
         c0 = torch.zeros_like(h0_f)
         mem_f, (_, c_f) = self.encoder.scan(e, h0_f, c0)
@@ -124,53 +157,80 @@ class DenoiseSeq2Seq(nn.Module):
         memory = torch.cat([mem_f, mem_b.flip(1)], dim=-1)
         return memory, torch.cat([c_f, c_b], dim=-1)
 
-    def forward(self, inp, label_i, x, label, mode: str = "sched"):
-        """Greedy decode of ``max_len`` steps from ``inp`` (B, L) in style
-        ``label_i`` to style ``label``. Returns ids (B, max_len) int32 for
-        ``mode="greedy"``, logits (B, max_len, V) for ``mode="sched"``."""
-        if x is not None or mode not in ("greedy", "sched"):
-            raise NotImplementedError(
-                "this slice of the port decodes greedily (mode 'greedy', or 'sched' "
-                "with x=None); teacher forcing and the training modes come later (ROADMAP.md)")
-        inp, label_i, label = inp.long(), label_i.long(), label.long()
-        memory, c_end = self.encode(inp, label_i)
-        B = inp.shape[0]
+    def forward(self, inp, label_i, x, label, mode: str = "sched", tau: float = 1.0,
+                time_major_out: bool = False, generator: torch.Generator | None = None,
+                coins: torch.Tensor | None = None):
+        """Decode from ``inp`` (ids (B, L) or soft (B, L, V)) in style
+        ``label_i`` to style ``label``, over ``x.shape[1]`` steps when a
+        teacher ``x`` (B, L) is given, else ``max_len``. Returns ids (B, L)
+        int32 for ``greedy``, probs for ``st``, logits for ``sched`` and
+        ``teacher``: (B, L, V), or (L, B, V) with ``time_major_out``.
+
+        ``generator`` draws the dropout masks (training mode) and, in
+        ``sched`` mode with a teacher, the coins unless ``coins`` ((L,) bool,
+        one a step) is given."""
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if mode == "teacher" and x is None:
+            raise ValueError("mode 'teacher' needs a teacher x")
+        label_i, label = label_i.long(), label.long()
+        memory, c_end = self.encode(inp, label_i, generator)
+        B, device = memory.shape[0], memory.device
         h = self.style_embedding(label)
         c = F.leaky_relu(self.transfer(c_end), 0.1)
-        x_t = self.start_embedding(torch.zeros(B, dtype=torch.long, device=inp.device))
+        x_t = self.start_embedding(torch.zeros(B, dtype=torch.long, device=device))
         # sqrt in the compute dtype, as the JAX package takes it
         scale = memory.new_tensor(memory.shape[-1]).sqrt()
+        table = self.token_embedding.weight
+        L_out = self.max_len if x is None else x.shape[1]
+        teacher = None
+        if x is not None:
+            teacher = F.embedding(x.long(), table)  # (B, L, E)
+            if mode == "sched":
+                coins = (sched_coins(L_out, generator, device) if coins is None
+                         else coins.to(device=device, dtype=torch.bool))
         greedy = mode == "greedy"
         counts = None
         if greedy and self.rep_penalty > 0:
             counts = memory.new_zeros(B, self.n_vocab)
-            rows = torch.arange(B, device=inp.device)
+            rows = torch.arange(B, device=device)
         outs = []
-        for _ in range(self.max_len):
+        for t in range(L_out):
             h, c = self.decoder.cell(x_t, h, c)
             # attention over every memory position: PADs included, no mask
             scores = torch.bmm(memory, h.unsqueeze(-1)).squeeze(-1) / scale
             a_t = torch.bmm(scores.softmax(dim=-1).unsqueeze(1), memory).squeeze(1)
-            i_ffn = torch.cat([h, a_t], dim=-1)
+            i_ffn = self._drop(torch.cat([h, a_t], dim=-1), generator)
             if greedy and counts is None:
-                ids_t, _ = fused_decode_logits(i_ffn, self.fn_1.weight, self.fn_1.bias,
+                out_t, _ = fused_decode_logits(i_ffn, self.fn_1.weight, self.fn_1.bias,
                                                self.fn_2.weight)
-                out_t = ids_t
+                x_next = self.token_embedding(out_t)
             else:
                 logits_t = self.fn_2(F.leaky_relu(self.fn_1(i_ffn), 0.1))
-                if counts is not None:
+                if mode == "st":
+                    out_t = torch.softmax(logits_t / tau, dim=-1)
+                    x_next = hard_sample_st(out_t) @ table
+                elif greedy:
                     # the penalty acts before the argmax, so the fused head
                     # cannot carry it
                     logits_t = logits_t - self.rep_penalty * counts
-                ids_t = logits_t.argmax(dim=-1).to(torch.int32)
-                if counts is not None:
+                    out_t = logits_t.argmax(dim=-1).to(torch.int32)
                     # count only content tokens (ids >= 3): PAD/BOS/EOS stay free
-                    counts.index_put_((rows, ids_t.long()), (ids_t >= 3).to(counts.dtype),
+                    counts.index_put_((rows, out_t.long()), (out_t >= 3).to(counts.dtype),
                                       accumulate=True)
-                out_t = ids_t if greedy else logits_t
-            x_t = self.token_embedding(ids_t)
+                    x_next = self.token_embedding(out_t)
+                elif mode == "teacher":
+                    out_t, x_next = logits_t, teacher[:, t]
+                else:  # sched: the coin picks the teacher token or the greedy one
+                    out_t = logits_t
+                    x_next = F.embedding(logits_t.argmax(dim=-1), table)
+                    if teacher is not None:
+                        x_next = torch.where(coins[t], teacher[:, t], x_next)
+            x_t = self._drop(x_next, generator)
             outs.append(out_t)
-        return torch.stack(outs, dim=1)  # batch-major: (B, L) ids or (B, L, V)
+        if greedy:
+            return torch.stack(outs, dim=1)  # (B, L) ids
+        return torch.stack(outs, dim=0 if time_major_out else 1)
 
 
 @torch.inference_mode()

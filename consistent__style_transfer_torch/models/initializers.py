@@ -8,11 +8,12 @@ of a seed:
 - ``torch.nn.Embedding``: N(0, 1);
 - ``torch.nn.LSTM``: U(±1/sqrt(hidden)) for every weight and bias;
 - xavier uniform, U(±sqrt(6 / (fan_in + fan_out))), for the attention input
-  projection and the LM's position table.
+  projection and the LM's position table;
+- RelGAN's init, N(0, 1/sqrt(shape[0])) in torch layout, for every
+  discriminator parameter (reference ``src/model/discriminator.py:53-57``).
 
 Each fills a tensor in place, in a weight's torch layout ((out, in) for a
-linear weight, (out, in, kh, kw) for a convolution). The RelGAN init comes
-with the discriminator.
+linear weight, (out, in, kh, kw) for a convolution).
 """
 
 from __future__ import annotations
@@ -49,6 +50,14 @@ def lstm_(param: torch.Tensor, hidden: int, generator: torch.Generator) -> torch
 def conv_kernel_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     bound = 1.0 / math.sqrt(weight[0].numel())  # torch layout (out, in, kh, kw)
     return weight.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def relgan_(param: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """N(0, 1/sqrt(shape[0])): the OUT features of a torch (out, in) weight,
+    the out channels of a conv weight, the length of a bias. The JAX package
+    reads the same axis as ``shape[-1]`` of its (in, out) flax layout."""
+    return param.normal_(0.0, 1.0 / math.sqrt(param.shape[0]), generator=generator)
 
 
 @torch.no_grad()

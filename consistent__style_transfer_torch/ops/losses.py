@@ -1,4 +1,4 @@
-"""Loss primitives of the pretrain stage: the port of the JAX package's
+"""Loss primitives of the training stages: the port of the JAX package's
 ``ops/losses.py``.
 
 As in the reference, the token-level cross entropy does NOT mask padding
@@ -40,3 +40,18 @@ def mse(pred: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
         return err.mean()
     mask = mask.to(err.dtype).expand(err.shape)
     return (mask * err).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def masked_row_mean(values: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """Mean of per-row values (B,) over the rows where ``row_mask`` is nonzero."""
+    values = values.float()
+    row_mask = row_mask.to(values.dtype)
+    return (values * row_mask).sum() / torch.clamp_min(row_mask.sum(), 1.0)
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Binary cross entropy with logits in the JAX package's stable form,
+    ``max(z, 0) - z t + log1p(exp(-|z|))``, mean-reduced (torch
+    ``BCEWithLogitsLoss``)."""
+    z = logits.float()
+    return (torch.clamp_min(z, 0.0) - z * targets + torch.log1p(torch.exp(-z.abs()))).mean()

@@ -3,13 +3,14 @@ and corpus loading, model construction."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
 
 from ..config import Config
 from ..data.corpus import StyleCorpus
-from ..models import DenoiseSeq2Seq, PairMatcher, TextCNN, TransformerLM
+from ..models import DenoiseSeq2Seq, PairMatcher, RelGANDiscriminator, TextCNN, TransformerLM
 from ..text.bpe import BPETokenizer
 from ..text.word2vec import Word2Vec, train_token_w2v
 
@@ -55,12 +56,26 @@ def get_corpus(cfg: Config, split: str, tokenizer) -> StyleCorpus:
     return StyleCorpus.from_files(cfg.split_files(split), tokenizer, cfg.max_len)
 
 
-def build_generator(cfg: Config, n_vocab: int, device: torch.device) -> DenoiseSeq2Seq:
-    """The LSTM generator on ``device`` in the compute dtype, in eval mode,
-    with fresh weights from ``cfg.seed`` (a checkpoint load replaces them)."""
+def build_generator(cfg: Config, n_vocab: int, device: torch.device,
+                    training: bool = False) -> DenoiseSeq2Seq:
+    """The LSTM generator on ``device`` with fresh weights from ``cfg.seed``
+    (a checkpoint load replaces them). For serving: in the compute dtype, in
+    eval mode. With ``training``: float32 master parameters in train mode; a
+    bfloat16 compute dtype is then autocast's (the training stages')."""
     model = DenoiseSeq2Seq(n_vocab=n_vocab, n_class=cfg.n_class, max_len=cfg.max_len,
-                           rep_penalty=cfg.rep_penalty, seed=cfg.seed)
-    return model.to(device=device, dtype=compute_dtype(cfg)).eval()
+                           rep_penalty=cfg.rep_penalty, p_drop=cfg.p_drop,
+                           seed=cfg.seed).to(device)
+    if training:
+        return model.train()
+    return model.to(dtype=compute_dtype(cfg)).eval()
+
+
+def autocast(device: torch.device, dtype: torch.dtype):
+    """A training step's compute-dtype context: ``torch.autocast`` in
+    ``dtype`` over float32 parameters, or nothing for float32."""
+    if dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=dtype)
 
 
 def _scorer_size_kw(cfg: Config) -> dict:
@@ -91,8 +106,17 @@ def build_lm(cfg: Config, n_vocab: int, device: torch.device) -> TransformerLM:
     return TransformerLM(n_vocab=n_vocab, seed=cfg.seed + 2, **_scorer_size_kw(cfg)).to(device)
 
 
-def generator_call(model, inp, label_i, x, label, mode: str = "sched"):
+def build_discriminator(cfg: Config, n_vocab: int, device: torch.device) -> RelGANDiscriminator:
+    return RelGANDiscriminator(n_vocab=n_vocab, seed=cfg.seed + 99).to(device)
+
+
+def generator_call(model, inp, label_i, x, label, mode: str = "sched", tau: float = 1.0,
+                   time_major_out: bool = False, generator: torch.Generator | None = None,
+                   coins: torch.Tensor | None = None):
     """Generator invocation with the reference call semantics (inp,
-    input-style, teacher x, output-style, decode mode). The transformer
+    input-style, teacher x, output-style, decode mode), plus the st
+    temperature, the soft output layout, the dropout/coin generator and
+    given sched coins (``DenoiseSeq2Seq.forward``). The transformer
     backbone, which the JAX package dispatches here, is not ported yet."""
-    return model(inp, label_i, x, label, mode=mode)
+    return model(inp, label_i, x, label, mode=mode, tau=tau, time_major_out=time_major_out,
+                 generator=generator, coins=coins)

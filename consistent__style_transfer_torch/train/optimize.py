@@ -1,34 +1,369 @@
-"""Optimize stage, test mode: load the generator checkpoint and transfer the
-train and test splits to ``.tsf`` files (reference
-``src/main_optimize.py:157-174, 243-255``). Adversarial training comes with a
-later slice of the port."""
+"""Optimize stage: adversarial style-transfer fine-tuning of the generator, the
+port of the JAX package's ``train/optimize.py`` (reference
+``src/main_optimize.py``), train and test modes.
+
+Train mode:
+- loads the frozen pretrain scorers ``pretrain/{cls,mat,dn}.pth`` (all three
+  required) and the warmup ``G.pth`` when there is one
+  (``main_optimize.py:33-54``);
+- two Adam(1e-5) optimizers behind clip 1.0: G applies every batch; D's
+  gradients are summed into an accumulator over batches and applied, clip on
+  the sum, at the epoch-local ``batch_idx % d_update_every == 0`` (so batch 0
+  of each epoch at once); the accumulator is not reset between epochs
+  (``main_optimize.py:78-88``);
+- G step (``:96-113``): sample_p = G(x, src, None, 1-src, "st", tau);
+  s = CE(cls(sample_p), 1-src), c = MSE(mat(sample_p, x), gap),
+  adv = BCE(D(sample_p), 1) with D in eval mode while the frozen cls and
+  mat run in train mode (dropout on), bk = CE(G(argmax(sample_p), 1-src,
+  teacher=x, src), x); total = w_bt bk + w_c c + w_adv adv + w_s s, plus the
+  optional ``w_rec`` reconstruction and style-weighted ``w_copy`` terms.
+  Only G's parameters take its gradient; it flows through D and the scorers
+  without reaching D's accumulator;
+- then D (``:115-124``), against the updated G: a fresh no-grad st decode in
+  train mode with D's own dropout stream (or, with ``fuse_gan_steps``, the G
+  step's), real = D(x), fake = D(decode); w_adv * 0.5 (BCE(real, 1) +
+  BCE(fake, 0)), D in train mode;
+- validation (``:127-141``): tokens = argmax(st decode) in eval mode;
+  CE(cls(tokens), 1-src) + CE(LM(tokens), tokens) + mean(mat(tokens, x))
+  over the real rows, weighted by each batch's; the best G saved as
+  ``G_epoch_<n>.pth`` with the previous best deleted, early stop at
+  patience 3.
+
+With ``time_major_probs`` (the default) the soft decode stacks stay (L, B,
+V): the consumers project first, the back-translation input is the argmax
+transposed, and the CE targets are transposed to match, so every loss equals
+the batch-major one. The JAX package's ``megastep``, ``resume`` and
+``fused_step_dyn_fn`` are not ported yet (ROADMAP.md).
+
+Test mode (``:157-174, 243-255``): the newest ``G_epoch_*``, else the warmup
+G, transfers the train and test splits to ``.tsf`` files.
+"""
 
 from __future__ import annotations
 
 import os
+import time
+from typing import Callable, NamedTuple
+
+import torch
 
 from ..config import Config
-from .common import build_generator, get_device, get_tokenizer
+from ..data.pipeline import eval_arrays, make_batches
+from ..data.prefetch import DevicePrefetcher, to_device
+from ..models.generator import sched_coins
+from ..ops.losses import (bce_with_logits, cross_entropy, masked_row_mean, mse,
+                          softmax_cross_entropy_tokens)
+from ..utils.io import RunLogger
+from .common import (autocast, build_classifier, build_discriminator, build_generator,
+                     build_lm, build_matcher, compute_dtype, generator_call, get_corpus,
+                     get_device, get_tokenizer)
 from .infer import run_inference
-from .state import load_state_dict, newest_checkpoint
+from .loop import EarlyStopper, Throughput
+from .state import (AdamWithClip, AsyncSaver, BestKeeper, load_state_dict, newest_checkpoint,
+                    params_exist)
 
 
-def load_generator_params(cfg: Config, model) -> str:
-    """Test-mode resolution (``main_optimize.py:47-54``): the newest
-    ``optimize-<ver>/G_epoch_*.pth``, else ``warmup/G.pth``. Loads it into
-    ``model`` with ``strict=True`` and returns its path; raises when neither
-    exists (test mode never decodes with fresh weights)."""
-    if cfg.mode != "test":
-        raise NotImplementedError("train-mode loading comes with the optimize slice (ROADMAP.md)")
-    path = newest_checkpoint(os.path.join(cfg.ds_dump_dir, f"optimize-{cfg.ver}"))
-    if path is None:
-        path = os.path.join(cfg.ds_dump_dir, "warmup", "G.pth")
+class OptimizeModels:
+    """The stage's five modules on one device: the generator (float32 master
+    parameters), the three pretrain scorers and the discriminator."""
+
+    def __init__(self, cfg: Config, n_vocab: int, device: torch.device):
+        self.generator = build_generator(cfg, n_vocab, device, training=True)
+        self.classifier = build_classifier(cfg, n_vocab, device)
+        self.matcher = build_matcher(cfg, n_vocab, device)
+        self.nt_checker = build_lm(cfg, n_vocab, device)
+        self.disc = build_discriminator(cfg, n_vocab, device)
+
+
+def load_frozen(cfg: Config, models: OptimizeModels) -> None:
+    """Load the pretrain scorers with ``strict=True`` and freeze them
+    (``requires_grad_(False)``); each is required, as in the reference."""
+    pre = os.path.join(cfg.ds_dump_dir, "pretrain")
+    for name, module in (("cls", models.classifier), ("mat", models.matcher),
+                         ("dn", models.nt_checker)):
+        path = os.path.join(pre, f"{name}.pth")
+        if not params_exist(path):
+            raise FileNotFoundError(f"{path}: the optimize stage needs the pretrain scorers")
+        module.load_state_dict(load_state_dict(path), strict=True)
+        module.requires_grad_(False)
+
+
+def load_generator_params(cfg: Config, model) -> str | None:
+    """Load the generator's weights into ``model`` with ``strict=True`` and
+    return their path. Test mode (``main_optimize.py:47-54``): the newest
+    ``optimize-<ver>/G_epoch_*.pth``, else ``warmup/G.pth``; raises when
+    neither exists (test mode never decodes with fresh weights). Train mode
+    (``:44-46``): ``warmup/G.pth`` if it exists, else the fresh weights stay
+    and None is returned."""
+    warm = os.path.join(cfg.ds_dump_dir, "warmup", "G.pth")
+    if cfg.mode == "test":
+        path = newest_checkpoint(os.path.join(cfg.ds_dump_dir, f"optimize-{cfg.ver}")) or warm
         if not os.path.exists(path):
             raise FileNotFoundError(
                 f"no generator checkpoint: neither {cfg.ds_dump_dir}/optimize-{cfg.ver}/"
                 f"G_epoch_*.pth nor {path}")
+    elif params_exist(warm):
+        path = warm
+    else:
+        return None
     model.load_state_dict(load_state_dict(path), strict=True)
     return path
+
+
+class OptimizeSteps(NamedTuple):
+    """The stage's step functions. ``fused_step`` is the per-batch entry of
+    the training loop; the pieces are there for tests and ablations."""
+
+    g_loss_fn: Callable
+    d_loss_fn: Callable
+    g_step: Callable
+    d_grads: Callable
+    d_grads_reuse: Callable
+    d_apply: Callable
+    accumulate: Callable
+    val_step: Callable
+    fused_step: Callable
+
+
+def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip,
+                        d_opt: AdamWithClip, copy_weights=None) -> OptimizeSteps:
+    """Steps over ``models`` that update G through ``g_opt`` and D through
+    ``d_opt``. ``copy_weights``: optional (V,) style-neutrality weights
+    (``data/style_weights.py``) of the ``w_copy`` term; None = uniform.
+
+    A ``batch`` is a dict of tensors on the models' device (``x``,
+    ``labels``, and for validation an optional ``row_mask``). Randomness
+    comes from explicit generators: ``generator`` (G's dropout, the frozen
+    scorers' and the sched coins) and ``d_generator`` (D's dropout and the
+    fresh fake decode's). ``coins`` ((L,) bool) replaces the sched coins of
+    the back-translation and reconstruction decodes, which share one draw a
+    step, as in the JAX package."""
+    G, CLS, MAT, NT, D = (models.generator, models.classifier, models.matcher,
+                          models.nt_checker, models.disc)
+    g_params, d_params = list(G.parameters()), list(D.parameters())
+    dtype = compute_dtype(cfg)
+    tm = cfg.time_major_probs
+    if copy_weights is not None:
+        copy_weights = torch.as_tensor(copy_weights, dtype=torch.float32,
+                                       device=g_params[0].device)
+
+    def st_decode(batch, generator, time_major: bool):
+        return generator_call(G, batch["x"], batch["labels"], None, 1 - batch["labels"],
+                              mode="st", tau=cfg.tau, time_major_out=time_major,
+                              generator=generator)
+
+    def g_loss_fn(batch, generator=None, coins=None, copy_scale: float = 1.0):
+        """(total, aux, sample_p) with the graph of the loss, G and the frozen
+        cls and mat in train mode, D in eval mode. sample_p is (L, B, V) with
+        ``time_major_probs``, else (B, L, V); every consumer follows it."""
+        for m in (G, CLS, MAT):
+            m.train()
+        D.eval()
+        x, labels = batch["x"], batch["labels"]
+        if coins is None:
+            coins = sched_coins(x.shape[1], generator, x.device)
+        with autocast(x.device, dtype):
+            sample_p = st_decode(batch, generator, tm)
+            s_logits = CLS(sample_p, generator, time_major=tm)
+            c_logits = MAT(sample_p, x, generator, time_major=tm)
+            adv_logits = D(sample_p, time_major=tm)
+            bk_inp = sample_p.detach().argmax(dim=-1)
+            if tm:
+                bk_inp = bk_inp.t()  # (L, B) -> (B, L) ids
+            bk_logits = generator_call(G, bk_inp, 1 - labels, x, labels, mode="sched",
+                                       time_major_out=tm, generator=generator, coins=coins)
+            # CE over B*L is transpose-invariant: time-major logits take
+            # time-major targets
+            tgt = x.t() if tm else x
+            s_loss = cross_entropy(s_logits, 1 - labels)
+            c_loss = mse(c_logits, torch.full_like(c_logits, cfg.gap))
+            adv_loss = bce_with_logits(adv_logits, torch.ones_like(adv_logits))
+            bk_loss = softmax_cross_entropy_tokens(bk_logits, tgt)
+            total = cfg.w_bt * bk_loss + cfg.w_c * c_loss + cfg.w_adv * adv_loss + cfg.w_s * s_loss
+            aux = {"G": adv_loss, "STI": s_loss, "CP": c_logits.float().mean(), "BK": bk_loss}
+            if cfg.w_rec > 0:
+                # same-style teacher-forced reconstruction: anchors G to its
+                # input content (no reference equivalent)
+                rec_logits = generator_call(G, x, labels, x, labels, mode="sched",
+                                            time_major_out=tm, generator=generator, coins=coins)
+                rec_loss = softmax_cross_entropy_tokens(rec_logits, tgt)
+                total = total + cfg.w_rec * rec_loss
+                aux["REC"] = rec_loss
+            if cfg.w_copy > 0:
+                # NLL of the source tokens under the free-running transfer
+                # probs, each position weighted by its token's neutrality
+                # when copy_weights is given; the grid follows the layout
+                t_ax = 0 if tm else 1
+                n = min(sample_p.shape[t_ax], x.shape[1])
+                src = (x[:, :n].t() if tm else x[:, :n]).long()
+                probs = sample_p[:n] if tm else sample_p[:, :n]
+                nll = -torch.log(probs.gather(-1, src[..., None])[..., 0].float() + 1e-9)
+                if copy_weights is None:
+                    copy_loss = nll.mean()
+                else:
+                    w = copy_weights[src]
+                    copy_loss = (w * nll).sum() / torch.clamp_min(w.sum(), 1e-6)
+                total = total + cfg.w_copy * copy_scale * copy_loss
+                aux["COPY"] = copy_loss
+        aux["loss"] = total
+        return total, aux, sample_p
+
+    def g_step(batch, generator=None, coins=None, copy_scale: float = 1.0):
+        """One G update; returns (aux, the decode sample_p without its graph)."""
+        total, aux, sample_p = g_loss_fn(batch, generator, coins, copy_scale)
+        g_opt.zero_grad()
+        total.backward(inputs=g_params)  # G's gradients only: D's .grad stays as it is
+        g_opt.step()
+        return {k: v.detach() for k, v in aux.items()}, sample_p.detach()
+
+    def d_loss_fn(fake_p, batch, d_generator=None):
+        """D's loss in train mode; fake_p carries the G step's layout, the
+        real side is batch-major ids."""
+        D.train()
+        with autocast(batch["x"].device, dtype):
+            t_logits = D(batch["x"], d_generator)
+            f_logits = D(fake_p, d_generator, time_major=tm)
+            loss = 0.5 * (bce_with_logits(t_logits, torch.ones_like(t_logits))
+                          + bce_with_logits(f_logits, torch.zeros_like(f_logits)))
+        return cfg.w_adv * loss
+
+    def d_grads_reuse(fake_p, batch, d_generator=None):
+        """(D's gradients, loss) on a given fake decode (``fuse_gan_steps``)."""
+        loss = d_loss_fn(fake_p, batch, d_generator)
+        return list(torch.autograd.grad(loss, d_params)), loss.detach()
+
+    def d_grads(batch, d_generator=None):
+        """(D's gradients, loss) on a fresh fake decode of the current G, in
+        train mode under no_grad (``main_optimize.py:118-119``)."""
+        G.train()
+        with torch.no_grad(), autocast(batch["x"].device, dtype):
+            fake_p = st_decode(batch, d_generator, tm)
+        return d_grads_reuse(fake_p, batch, d_generator)
+
+    @torch.no_grad()
+    def accumulate(acc: list, grads: list) -> list:
+        torch._foreach_add_(acc, grads)
+        return acc
+
+    @torch.no_grad()
+    def d_apply(acc: list) -> None:
+        """One D update on the accumulated gradients (the clip acts on the
+        sum); D's Adam step count moves only here."""
+        for p, a in zip(d_params, acc):
+            p.grad.copy_(a)
+        d_opt.step()
+
+    @torch.no_grad()
+    def val_step(batch):
+        for m in (G, CLS, MAT, NT):
+            m.eval()
+        rows = batch.get("row_mask")
+        x, labels = batch["x"], batch["labels"]
+        with autocast(x.device, dtype):
+            tokens = st_decode(batch, None, False).argmax(dim=-1)
+            s_loss = cross_entropy(CLS(tokens), 1 - labels, mask=rows)
+            nt_loss = softmax_cross_entropy_tokens(NT(tokens), tokens, row_mask=rows)
+            c_logits = MAT(tokens, x)
+            c_mean = c_logits.float().mean() if rows is None else masked_row_mean(c_logits, rows)
+        return nt_loss + s_loss + c_mean
+
+    def fused_step(batch, acc: list, do_apply: bool, generator=None, d_generator=None,
+                   copy_scale: float = 1.0, coins=None):
+        """One training batch in the reference's order: the G update, then
+        D's gradients against the updated G (a fresh decode, or the G step's
+        with ``fuse_gan_steps``) summed into ``acc``, then, when
+        ``do_apply``, the D update and ``acc`` reset to zero. Returns (aux,
+        d_loss)."""
+        aux, sample_p = g_step(batch, generator, coins, copy_scale)
+        if cfg.fuse_gan_steps:
+            grads, d_loss = d_grads_reuse(sample_p, batch, d_generator)
+        else:
+            grads, d_loss = d_grads(batch, d_generator)
+        accumulate(acc, grads)
+        if do_apply:
+            d_apply(acc)
+            torch._foreach_zero_(acc)
+        return aux, d_loss
+
+    return OptimizeSteps(g_loss_fn, d_loss_fn, g_step, d_grads, d_grads_reuse, d_apply,
+                         accumulate, val_step, fused_step)
+
+
+def run_optimize(cfg: Config, progress: bool = True) -> str | None:
+    """Train mode; returns the path of the best G checkpoint (None if the
+    validation loss never improved: the reference keeps none then either)."""
+    device = get_device(cfg)
+    tokenizer = get_tokenizer(cfg)
+    V = len(tokenizer)
+    models = OptimizeModels(cfg, V, device)
+    load_frozen(cfg, models)
+    load_generator_params(cfg, models.generator)
+    g_opt = AdamWithClip(models.generator.parameters(), cfg.optimize_lr, cfg.optimize_clip)
+    d_opt = AdamWithClip(models.disc.parameters(), cfg.optimize_lr, cfg.optimize_clip)
+
+    task_dump = os.path.join(cfg.ds_dump_dir, f"optimize-{cfg.ver}")
+    os.makedirs(task_dump, exist_ok=True)
+    train_corpus = get_corpus(cfg, "train", tokenizer)
+    train_it = make_batches(train_corpus, cfg.batch_size, cfg.max_len, "optimize",
+                            shuffle=True, seed=cfg.seed)
+    dev_it = make_batches(get_corpus(cfg, "dev", tokenizer), cfg.batch_size, cfg.max_len,
+                          "optimize", shuffle=False, seed=cfg.seed)
+    copy_weights = None
+    if cfg.w_copy > 0 and cfg.copy_mask:
+        from ..data.style_weights import style_neutrality_weights
+
+        copy_weights = style_neutrality_weights(train_corpus, V)
+    steps = make_optimize_steps(cfg, models, g_opt, d_opt, copy_weights=copy_weights)
+
+    logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "optimize", cfg.ver, config=cfg)
+    stopper = EarlyStopper(cfg.optimize_patience)
+    # best-G save + previous-best delete on a worker thread, overlapped with
+    # the next epoch (the reference's torch.save sits on the critical path)
+    saver = AsyncSaver()
+    keeper = BestKeeper(saver=saver)
+    thru = Throughput()
+    acc = [torch.zeros_like(p) for p in models.disc.parameters()]
+    generator = torch.Generator(device).manual_seed(cfg.seed)
+    d_generator = torch.Generator(device).manual_seed(cfg.seed + 1)
+
+    step = 0
+    for epoch in range(cfg.epochs):
+        copy_scale = cfg.w_copy_decay ** epoch  # 1.0 unless a decay is configured
+        ep_t0, ep_steps, d_applies = time.time(), 0, 0
+        for batch_idx, (_, arrays) in enumerate(DevicePrefetcher(train_it, device)):
+            do_apply = batch_idx % cfg.d_update_every == 0  # epoch-local index
+            aux, d_loss = steps.fused_step(arrays, acc, do_apply, generator, d_generator,
+                                           copy_scale)
+            d_applies += do_apply
+            thru.add(cfg.batch_size)
+            ep_steps += 1
+            if step % 20 == 0:
+                logger.log(step, D=d_loss, **aux, **thru.rates())
+            step += 1
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        train_s = time.time() - ep_t0
+
+        # validation; the losses stay on the device until one read
+        totals, weight = [], 0
+        for batch in dev_it:
+            totals.append(steps.val_step(to_device(eval_arrays(batch), device)) * batch.valid)
+            weight += batch.valid
+        val_loss = float(torch.stack(totals).sum()) / max(weight, 1) if totals else 0.0
+        logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps, train_s=train_s,
+                   d_applies=d_applies,
+                   epoch_sent_per_s=ep_steps * cfg.batch_size / max(time.time() - ep_t0, 1e-6))
+        if progress:
+            print(f"[optimize] epoch {epoch} val_loss {val_loss:.4f} "
+                  f"{thru.rates()['sentences_per_sec']:.1f} sent/s")
+        keeper.update(val_loss, models.generator,
+                      os.path.join(task_dump, f"G_epoch_{epoch}.pth"), delete_previous=True)
+        if stopper.update(val_loss):
+            break
+
+    saver.close()  # drain the pending best-G writes, re-raising worker errors
+    logger.close()
+    return keeper.last_path
 
 
 def run_test(cfg: Config) -> list[str]:

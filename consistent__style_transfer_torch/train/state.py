@@ -101,7 +101,10 @@ class AsyncSaver:
             if fn is None:
                 return
 
-    def submit(self, module: torch.nn.Module, path: str) -> None:
+    def submit(self, module: torch.nn.Module, path: str, delete_path: str | None = None) -> None:
+        """Queue a save of ``module``'s weights as they are now; then, on the
+        worker, delete ``delete_path`` (the previous best) if it is another
+        file that exists."""
         snapshot = {k: v.detach().clone() for k, v in module.state_dict().items()}
         ready = None
         if any(v.is_cuda for v in snapshot.values()):
@@ -112,6 +115,8 @@ class AsyncSaver:
             if ready is not None:
                 ready.synchronize()
             save_state_dict(snapshot, path)
+            if delete_path and delete_path != path and os.path.exists(delete_path):
+                os.remove(delete_path)
 
         self._q.put(work)
 
@@ -125,6 +130,35 @@ class AsyncSaver:
         self._q.put(None)
         self.wait()
         self._t.join()
+
+
+class BestKeeper:
+    """Save-on-improvement of a loss, with optional previous-best deletion
+    (the optimize stage's ``G_epoch_<n>`` retention,
+    ``src/main_optimize.py:144-151``). With ``saver``, the save and the
+    delete run on its worker thread, off the epoch-end critical path;
+    without, here."""
+
+    def __init__(self, saver: AsyncSaver | None = None):
+        self.best = float("inf")
+        self.last_path: str | None = None
+        self._saver = saver
+
+    def update(self, value: float, module: torch.nn.Module, path: str,
+               delete_previous: bool = False) -> bool:
+        if not value < self.best:
+            return False
+        self.best = value
+        delete = (self.last_path if delete_previous and self.last_path
+                  and self.last_path != path else None)
+        if self._saver is not None:
+            self._saver.submit(module, path, delete_path=delete)
+        else:
+            save_state_dict(module.state_dict(), path)
+            if delete and os.path.exists(delete):
+                os.remove(delete)
+        self.last_path = path
+        return True
 
 
 def newest_checkpoint(dump_dir: str, pattern: str = "G_epoch_*.pth") -> str | None:

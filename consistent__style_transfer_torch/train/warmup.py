@@ -1,0 +1,129 @@
+"""Warmup stage: train the generator as a denoising autoencoder, the port of
+the JAX package's ``train/warmup.py`` (reference ``src/main_warmup.py``):
+CE(G(transfer_noise(x, 0.1), label, teacher=x, label), x) in scheduled
+sampling, unmasked over every token; Adam lr 1e-3 behind a global-norm clip
+of 1.0, one epoch of batch 512, early stopping with patience 1, the best G
+saved on a validation improvement as ``dump/<ds>/warmup/G.pth``.
+
+Float32 master parameters; with ``dtype="bfloat16"`` the step runs under
+``torch.autocast``. Dropout is on in train steps and off in eval steps. One
+seeded ``torch.Generator`` on the device draws the train steps' dropout masks
+and sched coins; each validation draws its coins once, from a generator
+seeded by the step count, and every dev batch uses them (as the JAX package's
+``step_rngs(key, 10_000_000 + step)`` gives every dev batch the same key).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from ..config import Config
+from ..data.pipeline import eval_arrays, make_batches
+from ..data.prefetch import DevicePrefetcher, to_device
+from ..models.generator import sched_coins
+from ..ops.losses import softmax_cross_entropy_tokens
+from ..utils.io import RunLogger
+from .common import (autocast, build_generator, compute_dtype, generator_call, get_corpus,
+                     get_device, get_tokenizer)
+from .loop import EarlyStopper, Throughput
+from .state import AdamWithClip, BestKeeper, save_state_dict
+
+EVAL_SEED_OFFSET = 10_000_000
+
+
+def make_warmup_steps(model, optimizer: AdamWithClip, dtype: torch.dtype = torch.float32):
+    """(train_step, eval_step) of the denoising objective.
+
+    ``train_step(batch, generator, coins=None)`` runs ``model`` in train mode
+    (dropout and, unless ``coins`` is given, the sched coins from
+    ``generator``), back-propagates the token CE, takes one clipped Adam step
+    and returns the loss from before the update. ``eval_step(batch, coins)``
+    is the same decode in eval mode, without gradients, its CE over the rows
+    of an optional ``row_mask``. ``batch`` holds tensors ``nx``, ``x``,
+    ``labels`` on the model's device."""
+
+    def loss(batch, generator, coins, row_mask=None):
+        with autocast(batch["x"].device, dtype):
+            logits = generator_call(model, batch["nx"], batch["labels"], batch["x"],
+                                    batch["labels"], mode="sched", generator=generator,
+                                    coins=coins)
+            return softmax_cross_entropy_tokens(logits, batch["x"], row_mask=row_mask)
+
+    def train_step(batch, generator=None, coins=None):
+        model.train()
+        optimizer.zero_grad()
+        value = loss(batch, generator, coins)
+        value.backward()
+        optimizer.step()
+        return value.detach()
+
+    @torch.no_grad()
+    def eval_step(batch, coins):
+        model.eval()
+        return loss(batch, None, coins, batch.get("row_mask"))
+
+    return train_step, eval_step
+
+
+def run_warmup(cfg: Config, progress: bool = True) -> str:
+    """Returns the path of the best generator checkpoint."""
+    device = get_device(cfg)
+    tokenizer = get_tokenizer(cfg)
+    task_dump = os.path.join(cfg.ds_dump_dir, "warmup")
+    os.makedirs(task_dump, exist_ok=True)
+    g_path = os.path.join(task_dump, "G.pth")
+
+    bs = cfg.warmup_batch_size
+    train_it = make_batches(get_corpus(cfg, "train", tokenizer), bs, cfg.max_len, "warmup",
+                            shuffle=True, seed=cfg.seed)
+    dev_it = make_batches(get_corpus(cfg, "dev", tokenizer), bs, cfg.max_len, "warmup",
+                          shuffle=False, seed=cfg.seed)
+
+    model = build_generator(cfg, len(tokenizer), device, training=True)
+    optimizer = AdamWithClip(model.parameters(), cfg.warmup_lr, cfg.warmup_clip)
+    train_step, eval_step = make_warmup_steps(model, optimizer, compute_dtype(cfg))
+    generator = torch.Generator(device).manual_seed(cfg.seed)
+
+    logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "warmup", config=cfg)
+    stopper = EarlyStopper(cfg.warmup_patience)
+    keeper = BestKeeper()
+    thru = Throughput()
+
+    step = 0
+    for epoch in range(cfg.warmup_epochs):
+        ep_t0, ep_steps = time.time(), 0
+        for _, arrays in DevicePrefetcher(train_it, device):
+            loss = train_step(arrays, generator)
+            thru.add(bs)
+            ep_steps += 1
+            if step % 50 == 0:
+                logger.log(step, dn_loss=loss, **thru.rates())
+            step += 1
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        train_s = time.time() - ep_t0
+
+        # validation at epoch end, weighted by each batch's real rows; the
+        # losses stay on the device until one read after the loop
+        eval_gen = torch.Generator(device).manual_seed(cfg.seed + EVAL_SEED_OFFSET + step)
+        coins = sched_coins(cfg.max_len, eval_gen, device)
+        totals, weights = [], 0
+        for batch in dev_it:
+            totals.append(eval_step(to_device(eval_arrays(batch), device), coins) * batch.valid)
+            weights += batch.valid
+        val_loss = float(torch.stack(totals).sum()) / max(weights, 1) if totals else 0.0
+        logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps, train_s=train_s)
+        if progress:
+            print(f"[warmup] epoch {epoch} val_loss {val_loss:.4f} "
+                  f"{thru.rates()['sentences_per_sec']:.1f} sent/s")
+        keeper.update(val_loss, model, g_path)
+        if stopper.update(val_loss):
+            break
+
+    if keeper.last_path is None:  # no validation improvement recorded at all
+        save_state_dict(model.state_dict(), g_path)
+    logger.close()
+    return g_path

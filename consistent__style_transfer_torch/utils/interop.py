@@ -3,7 +3,8 @@
 The port's own copy of the mappings in
 ``consistent__style_transfer_tpu/utils/torch_interop.py`` (``_t``,
 ``_conv``, ``_lstm``, ``_transformer_out`` and the ``*_to_state_dict``
-exporters of the generator and the three scorers): flax ``Dense.kernel`` is
+exporters of the generator, the three scorers and the discriminator): flax
+``Dense.kernel`` is
 (in, out) and a torch ``Linear.weight`` (out, in); a flax ``Conv.kernel``
 (k, in, out) is a torch ``Conv2d.weight`` (out, 1, k, in); the LSTM gate
 order (i, f, g, o) is the same in both, so an LSTM kernel only transposes;
@@ -108,6 +109,21 @@ def matcher_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
         "hidden2logits.bias": np.asarray(p["hidden2logits"]["bias"]),
     }
     sd.update(_transformer(p["matcher"], "matcher"))
+    return _tensors(sd)
+
+
+def discriminator_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax ``RelGANDiscriminator`` variables -> the port's
+    :class:`~..models.RelGANDiscriminator` state dict. The flax ``embeddings``
+    param (V, 128) is the torch ``Linear(V, 128)`` weight transposed."""
+    p = params["params"]
+    sd = {"embeddings.weight": _t(p["embeddings"])}
+    for name in ("highway", "feature2out", "out2logits"):
+        sd[f"{name}.weight"] = _t(p[name]["kernel"])
+        sd[f"{name}.bias"] = np.asarray(p[name]["bias"])
+    for i, f in enumerate((2, 3, 4, 5)):
+        sd[f"convs.{i}.weight"] = _conv(p[f"conv_{f}"]["kernel"])
+        sd[f"convs.{i}.bias"] = np.asarray(p[f"conv_{f}"]["bias"])
     return _tensors(sd)
 
 

@@ -1,7 +1,7 @@
-"""The port stands alone: it imports, decodes and runs a tiny pretrain with
-jax, flax, optax, orbax and the JAX package blocked, names none of them in
-its sources or in chip_smoke.py, and its entry points refuse to carry on
-without CUDA unless asked for the CPU."""
+"""The port stands alone: it imports every module, decodes, and runs a tiny
+pretrain, warmup and optimize with jax, flax, optax, orbax and the JAX
+package blocked, names none of them in its sources or in chip_smoke.py, and
+its entry points refuse to carry on without CUDA unless asked for the CPU."""
 
 import ast
 import os
@@ -72,6 +72,28 @@ print("PRETRAINED", sorted(paths))
 """
 
 
+_BLOCKED_TRAINING = r"""
+from consistent__style_transfer_torch import cli
+from consistent__style_transfer_torch.ops.sampling import hard_sample_st
+from consistent__style_transfer_torch.models.discriminator import RelGANDiscriminator
+from consistent__style_transfer_torch.data.style_weights import style_neutrality_weights
+from consistent__style_transfer_torch.train.warmup import run_warmup
+
+flags = ["--dataset", "tiny", "--data_dir", os.path.join(root, "data"),
+         "--dump_dir", os.path.join(root, "dump"), "--log_dir", os.path.join(root, "log"),
+         "--out_dir", os.path.join(root, "out"), "--device", "cpu", "--max_len", "8",
+         "--batch_size", "4", "--vocab_size", "60", "--scorer_layers", "1",
+         "--scorer_d_model", "16", "--scorer_heads", "2", "--dtype", "float32"]
+cli.main(["warmup", *flags, "--warmup_batch_size", "4"])
+cli.main(["optimize", *flags, "--epochs", "1", "--w_copy", "0.5"])
+dump = os.path.join(root, "dump", "tiny")
+assert os.path.exists(os.path.join(dump, "warmup", "G.pth"))
+assert os.listdir(os.path.join(dump, "optimize-v0")) == ["G_epoch_0.pth"]
+assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
+print("TRAINED")
+"""
+
+
 def _run_blocked(body: str) -> str:
     proc = subprocess.run([sys.executable, "-c", (_BLOCKED_RUN % (BLOCKED,)) + body], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -85,6 +107,14 @@ def test_port_imports_and_decodes_with_jax_blocked():
 
 def test_port_runs_a_tiny_pretrain_with_jax_blocked(tmp_path):
     assert "PRETRAINED ['cls', 'dn', 'mat']" in _run_blocked(_BLOCKED_PRETRAIN % str(tmp_path))
+
+
+def test_port_runs_tiny_warmup_and_optimize_with_jax_blocked(tmp_path):
+    """Through the CLI, after the tiny pretrain, on the CPU."""
+    # one intra-op thread: the test workers share the cores
+    out = _run_blocked("torch.set_num_threads(1)\n" + _BLOCKED_PRETRAIN % str(tmp_path)
+                       + _BLOCKED_TRAINING)
+    assert "TRAINED" in out and "best G:" in out
 
 
 def _sources():
@@ -127,7 +157,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         get_device(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_test(cfg)
-    for command in ("serve", "infer", "pretrain"):
+    for command in ("serve", "infer", "pretrain", "warmup", "optimize"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main([command, "--dump_dir", str(tmp_path), "--out_dir", str(tmp_path)])
     assert get_device(make_config("yelp", device="cpu")) == torch.device("cpu")
