@@ -43,7 +43,18 @@ Phases, in order; any failure exits non-zero before the last line:
    head launched 0 times in training and 18 a batch in the infer; then ms
    per step and sentences/s over each CLI epoch and over 20 steady steps of
    the same step function, device ms, idle share and the top device
-   operations (profiler), kernels per step, and peak memory.
+   operations (profiler), kernels per step, and peak memory;
+7. the eval harness on phase 6's ``.tsf`` files: ``eval-prepare`` through
+   the CLI (the fastText classifier fitted on the card, the lexicon, the
+   masked word2vec, the adversarial LR; each substage's seconds), checked
+   (the classifier loads, its ``fit_meta`` is the minibatch path at B=64
+   with no retry, dev P@1 at or above the JAX package's less a margin, the
+   artifacts exist), then ``eval`` (STI, CP, NT, ACC, self-BLEU, ref-BLEU in
+   range); the card's fit held against a CPU fit from the same seed; one
+   epoch of the fit profiled (device ms, kernels) and the sequential path's
+   cost an example; then ``run --epochs 1`` under a new version, which
+   writes ``<out_dir>/yelp-<ver>.txt`` and launches the decode head 18 times
+   a batch in its infer.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -74,6 +85,15 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_SFU_S = 16 * 132 * 1.98e9
 KERNEL_SOURCES = ("decode_step", "sinkhorn")
 SINKHORN_EPS, SINKHORN_ITERS = 0.05, 100
+# phase 7: dev P@1 of the JAX package's own fastText fit on the committed
+# yelp split (on the CPU, seed 0; tests/test_torch_eval_fasttext.py measures
+# it), less a margin of 0.005 (20 of the 4,000 dev sentences)
+EVAL_P1_JAX_CPU, EVAL_P1_MARGIN = 0.99925, 0.005
+EVAL_P1_FLOOR = EVAL_P1_JAX_CPU - EVAL_P1_MARGIN
+# the card's fit against the CPU's from one seed (index_add_ on the card sums
+# repeated rows in no fixed order): dev P@1 within 10 of 4,000 sentences,
+# each table entry (up to about 3.3) within 1e-3
+FASTTEXT_P1_TOL, FASTTEXT_TABLE_TOL = 0.0025, 1e-3
 
 
 def log(msg: str) -> None:
@@ -1060,6 +1080,171 @@ def phase_training(work: str, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 7
+def phase_eval(work: str, card: str) -> dict:
+    """``eval-prepare`` and ``eval`` through the CLI on phase 6's ``.tsf``
+    files, the card's fastText fit against a CPU fit from the same seed, the
+    fit's device time and kernels per epoch, the sequential path's cost an
+    example, then ``run --epochs 1`` under a new version."""
+    import ast
+
+    import numpy as np
+    import torch
+
+    from consistent__style_transfer_torch import cli
+    from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.evaluate.lexicon import load_lexicon, load_model
+    from consistent__style_transfer_torch.evaluate.prepare import eval_paths
+    from consistent__style_transfer_torch.evaluate.run_eval import run_eval
+    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
+    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
+    from consistent__style_transfer_torch.text.fasttext_cls import FastTextClassifier
+
+    t_phase = time.perf_counter()
+    dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
+                out_dir=os.path.join(work, "output"), log_dir=os.path.join(work, "log"))
+    flags = [a for k, v in dirs.items() for a in (f"--{k}", v)]
+    cfg = make_config("yelp", **dirs)
+    p = eval_paths(cli._eval_dir(cfg), cfg.dataset, cfg.ver)
+    check(all(os.path.exists(os.path.join(cfg.run_out_dir, f"style.{s}.{k}.tsf"))
+              for s in ("train", "test") for k in (0, 1)), "phase 6's .tsf files are missing")
+
+    def cli_run(argv):
+        fused_decode_logits.launches = 0
+        sinkhorn_cuda.launches = 0
+        t0 = time.perf_counter()
+        lines = run_cli(argv)
+        torch.cuda.synchronize()
+        return lines, time.perf_counter() - t0, fused_decode_logits.launches, sinkhorn_cuda.launches
+
+    # 1. eval-prepare: the classifier fit on the card, the lexicon, the
+    # masked word2vec and v0's adversarial LR
+    lines, prepare_s, head, sink = cli_run(["eval-prepare", *flags])
+    check(head == 0 and sink == 0, f"eval-prepare launched kernels: head {head}, Sinkhorn {sink}")
+    timings = [ast.literal_eval(line.split("timings: ", 1)[1]) for line in lines
+               if line.startswith("[prepare] timings: ")]
+    check(len(timings) == 1 and set(timings[0]) == {"classifier_s", "lexicon_s", "mask_s",
+                                                     "mask_w2v_s", "adv_lr_s"},
+          f"eval-prepare timings: {timings}")
+    timings = timings[0]
+    with np.load(p["classifier"]) as data:
+        check(sorted(data.files) == ["emb", "meta", "out"], f"classifier keys {data.files}")
+    model = FastTextClassifier.load_model(p["classifier"])
+    check(model.emb.shape == (len(model.vocab) + 1, model.dim) and model.out.shape == (model.dim, 2)
+          and np.isfinite(model.emb).all() and np.isfinite(model.out).all(),
+          "classifier tables: shape or non-finite values")
+    n_train = count_lines(cfg.train_files())
+    want_meta = {"sgd_path": "minibatch", "n_examples": n_train, "batch_size": 64, "retries": 0}
+    check(all(model.fit_meta.get(k) == v for k, v in want_meta.items()),
+          f"fit_meta {model.fit_meta}, want {want_meta}")
+    dev_file, train_file = f"{p['tmp']}/{cfg.dataset}.dev", f"{p['tmp']}/{cfg.dataset}.train"
+    n_dev, dev_p1, _ = model.test(dev_file)
+    check(dev_p1 >= EVAL_P1_FLOOR, f"dev P@1 {dev_p1} below {EVAL_P1_FLOOR}")
+    lexicon = load_lexicon(p["lexicon"])
+    check(len(lexicon) > 0, "empty lexicon")
+    check(os.path.exists(p["mask_w2v"]) and os.path.exists(p["adv_model"]),
+          "masked word2vec or adversarial LR missing")
+    check(len(load_model(p["vectorizer"]).vocabulary_) > 0, "empty vectorizer")
+
+    # 2. eval through the CLI, then the unrounded scores from run_eval
+    lines, eval_s, head, sink = cli_run(["eval", *flags])
+    check(head == 0 and sink == 0, f"eval launched kernels: head {head}, Sinkhorn {sink}")
+    scores = run_eval(cfg.ds_data_dir, cfg.run_out_dir, cli._eval_dir(cfg), cfg.dataset, cfg.ver,
+                      quiet=True)
+    printed = "\n".join(lines)
+    for key, label, fmt in (("STI", "STI (higher is better)", "%.4f"),
+                            ("CP", "CP (lower is better)", "%.4f"),
+                            ("NT", "NT (higher is better)", "%.4f"),
+                            ("ACC", "ACC (transfer accuracy)", "%.4f"),
+                            ("selfBLEU", "self-BLEU", "%.2f"), ("refBLEU", "ref-BLEU", "%.2f")):
+        check(key in scores and f"{label}: {fmt % scores[key]}" in printed,
+              f"eval printed no {label} line equal to {scores.get(key)}")
+    check(-1 <= scores["STI"] <= 1, f"STI {scores['STI']}")
+    check(math.isfinite(scores["CP"]) and scores["CP"] >= 0, f"CP {scores['CP']}")
+    check(0 <= scores["NT"] <= 1 and 0 <= scores["ACC"] <= 1, f"NT/ACC {scores}")
+    check(math.isfinite(scores["selfBLEU"]) and math.isfinite(scores["refBLEU"]), f"BLEU {scores}")
+
+    # 3. the card's fit against the CPU's, from the same seed
+    t0 = time.perf_counter()
+    cpu = FastTextClassifier(seed=cfg.seed, device="cpu").fit_file(train_file)
+    cpu_fit_s = time.perf_counter() - t0
+    _, cpu_p1, _ = cpu.test(dev_file)
+    emb_err = float(np.abs(model.emb - cpu.emb).max())
+    out_err = float(np.abs(model.out - cpu.out).max())
+    check(cpu.fit_meta == model.fit_meta, f"fit_meta: card {model.fit_meta}, CPU {cpu.fit_meta}")
+    check(abs(dev_p1 - cpu_p1) <= FASTTEXT_P1_TOL, f"dev P@1: card {dev_p1}, CPU {cpu_p1}")
+    check(emb_err <= FASTTEXT_TABLE_TOL and out_err <= FASTTEXT_TABLE_TOL,
+          f"card vs CPU tables: emb {emb_err}, out {out_err}")
+
+    # 4. one epoch of the card's minibatch fit, timed (fit_file: parsing,
+    # vocab and upload included), then profiled; the sequential path on
+    # 2,000 examples (its cost an example)
+    def fit_one_epoch():
+        return FastTextClassifier(seed=cfg.seed, epochs=1, device="cuda").fit_file(train_file)
+
+    t0 = time.perf_counter()
+    fit_one_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    prof = profile_breakdown(fit_one_epoch, batches=1)
+    with open(train_file, encoding="utf-8") as f:
+        rows = [line.rstrip("\n").split("\t", 1) for line in f][::16]
+    seq_labels, seq_texts = [r[0] for r in rows], [r[1] for r in rows]
+    seq = FastTextClassifier(seed=cfg.seed, epochs=1, sgd="sequential", device="cuda")
+    seq.fit(seq_texts[:100], seq_labels[:100])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq.fit(seq_texts, seq_labels)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3 / len(seq_texts)
+    seq_prof = profile_breakdown(lambda: seq.fit(seq_texts[:200], seq_labels[:200]), batches=1)
+    seq_ops = seq_prof.get("kernels_per_batch")
+    fasttext = {
+        "n_examples": n_train, "batch_size": 64, "steps_per_epoch": -(-n_train // 64),
+        "epoch_s": epoch_s,
+        "device_ms_per_epoch": prof.get("device_ms_per_batch", "not measured"),
+        "kernels_per_epoch": prof.get("kernels_per_batch", "not measured"),
+        "top_device_ops": prof.get("top", "not measured"),
+        "card_dev_p1": dev_p1, "cpu_dev_p1": cpu_p1, "cpu_fit_s": cpu_fit_s,
+        "emb_max_abs_err": emb_err, "out_max_abs_err": out_err,
+        "emb_max_abs": float(np.abs(cpu.emb).max()), "out_max_abs": float(np.abs(cpu.out).max()),
+        "sequential_examples": len(seq_texts), "sequential_ms_per_example": seq_ms,
+        "sequential_device_ops_per_example": (seq_ops / 200 if isinstance(seq_ops, float)
+                                              else "not measured"),
+    }
+
+    # 5. run --epochs 1 under a new version: optimize, infer, eval-prepare
+    # (only the new version's adversarial LR), eval, and the results file
+    ver = "v_run"
+    lines, run_s, head, sink = cli_run(["run", *flags, "--epochs", "1", "--ver", ver])
+    check(sink == 0, "run launched the Sinkhorn")
+    infer_batches = sum(-(-count_lines(cfg.split_files(s)) // cfg.batch_size)
+                        for s in ("train", "test"))
+    check(head == cfg.max_len * infer_batches > 0,
+          f"run: {head} decode-head launches, want {cfg.max_len} x {infer_batches}")
+    results_path = os.path.join(cfg.out_dir, f"{cfg.dataset}-{ver}.txt")
+    check(os.path.exists(results_path), f"missing {results_path}")
+    with open(results_path, encoding="utf-8") as f:
+        written = f.read()
+    for label in ("STI (higher is better)", "CP (lower is better)", "NT (higher is better)"):
+        check(label in written, f"{results_path} has no {label} line")
+    run_timings = [ast.literal_eval(line.split("timings: ", 1)[1]) for line in lines
+                   if line.startswith("[prepare] timings: ")]
+    check(run_timings and set(run_timings[0]) == {"adv_lr_s"},
+          f"run's eval-prepare rebuilt more than the new version's LR: {run_timings}")
+
+    result = {"card": card, "phase_s": time.perf_counter() - t_phase,
+              "eval_prepare_s": prepare_s, "prepare_timings": timings,
+              "eval_s": eval_s, "dev_n": n_dev, "dev_p1": dev_p1, "dev_p1_floor": EVAL_P1_FLOOR,
+              "fit_meta": model.fit_meta, "lexicon_words": len(lexicon), "scores": scores,
+              "fasttext": fasttext,
+              "run": {"ver": ver, "s": run_s, "decode_head_launches": head,
+                      "infer_batches": infer_batches, "prepare_timings": run_timings[0],
+                      "results": written.strip().splitlines()}}
+    print(json.dumps({"eval": result}), flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1077,6 +1262,7 @@ def main() -> int:
         full = phase_full_width(card)
         pre = phase_pretrain(work, card)
         trained = phase_training(work, card)
+        evaluated = phase_eval(work, card)
 
     yelp = timed[f"bfloat16_V{YELP_V}"]
     real = pre["sinkhorn_label_batch"]
@@ -1117,10 +1303,13 @@ def main() -> int:
         "source": "consistent__style_transfer_torch/csrc/decode_step.cu",
         "replaces": "consistent__style_transfer_tpu/kernels/decode_step.py:73",
         "launches": (served["serve_launches"] + served["infer_launches"]
-                     + trained["infer"]["decode_head_launches"]),
+                     + trained["infer"]["decode_head_launches"]
+                     + evaluated["run"]["decode_head_launches"]),
         "launches_by_path": {"serve": served["serve_launches"], "infer": served["infer_launches"],
                              "warmup": 0, "optimize": 0,
-                             "infer_after_optimize": trained["infer"]["decode_head_launches"]},
+                             "infer_after_optimize": trained["infer"]["decode_head_launches"],
+                             "eval_prepare": 0, "eval": 0,
+                             "run": evaluated["run"]["decode_head_launches"]},
         "launches_per_batch": full["launches_per_batch"],
         "max_abs_err": yelp["max_abs_err_h"],
         "max_abs_err_h": yelp["max_abs_err_h"],

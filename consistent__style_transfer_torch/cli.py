@@ -2,21 +2,30 @@
 
     python -m consistent__style_transfer_torch <command> [--flags]
 
-Commands of the ported slices:
-  vocab     train/load the BPE tokenizer dump
-  w2v       train/load the WMD word2vec dump
-  pretrain  stage 1: the three scorers (classifier, matcher, LM denoiser)
-  warmup    stage 2: the generator's denoising warmup -> warmup/G.pth
-  optimize  stage 3: adversarial style transfer -> optimize-<ver>/G_epoch_<n>.pth
-            (--mode=test: inference, as infer)
-  serve     stdin->stdout batch transfer with the current best G
-  infer     transfer train+test splits to .tsf with the current best G
-            (optimize --mode=test)
+Commands:
+  vocab         train/load the BPE tokenizer dump
+  w2v           train/load the WMD word2vec dump
+  pretrain      stage 1: the three scorers (classifier, matcher, LM denoiser)
+  warmup        stage 2: the generator's denoising warmup -> warmup/G.pth
+  optimize      stage 3: adversarial style transfer -> optimize-<ver>/G_epoch_<n>.pth
+                (--mode=test: inference, as infer)
+  serve         stdin->stdout batch transfer with the current best G
+  infer         transfer train+test splits to .tsf with the current best G
+                (optimize --mode=test)
+  eval-prepare  train the eval models (idempotent): the style classifier
+                (on the device), the lexicon, the masked word2vec and the
+                version's adversarial LR
+  eval          print STI / CP / NT, ACC, self-BLEU and ref-BLEU
+  run           full pipeline: optimize train -> test -> eval-prepare -> eval,
+                the results also written to <out_dir>/<ds>-<ver>.txt (the
+                reference's run.sh; assumes the pretrain and warmup dumps)
+  ablate        the reference's job.sh sweep: warmup once, then optimize
+                train + test, eval-prepare and eval for each ver in {full,
+                wo_s, wo_c, wo_adv, wo_bt, wo_allc}
 
-Every other command of the JAX package (eval-prepare, eval, run, ablate,
-bench) is not ported yet and exits with status 2; ROADMAP.md has the order.
-Commands that compute run on ``--device cuda`` (the default) unless given
-``--device cpu``.
+The JAX package's ``bench`` is not ported yet and exits with status 2;
+ROADMAP.md has the order. Every command runs on ``--device cuda`` (the
+default) unless given ``--device cpu``; without CUDA it raises.
 """
 
 from __future__ import annotations
@@ -25,7 +34,11 @@ import sys
 
 from .config import Config, config_from_args
 
-NOT_PORTED = ("eval-prepare", "eval", "run", "ablate", "bench")
+NOT_PORTED = ("bench",)
+
+
+def _eval_dir(cfg: Config) -> str:
+    return f"{cfg.out_dir}/../evaluate_runtime"
 
 
 def cmd_vocab(cfg: Config) -> None:
@@ -66,6 +79,70 @@ def cmd_optimize(cfg: Config) -> None:
 def cmd_infer(cfg: Config) -> None:
     cfg.mode = "test"
     cmd_optimize(cfg)
+
+
+def cmd_eval_prepare(cfg: Config) -> None:
+    from .evaluate.prepare import run_prepare
+    from .train.common import get_device
+
+    run_prepare(cfg.ds_data_dir, cfg.run_out_dir, _eval_dir(cfg), cfg.dataset,
+                ver=cfg.ver, seed=cfg.seed, device=get_device(cfg))
+
+
+def cmd_eval(cfg: Config) -> None:
+    from .evaluate.run_eval import run_eval
+    from .train.common import get_device
+
+    get_device(cfg)  # the scoring runs on the host; the command checks its device as all do
+    run_eval(cfg.ds_data_dir, cfg.run_out_dir, _eval_dir(cfg), cfg.dataset, cfg.ver)
+
+
+def cmd_run(cfg: Config) -> None:
+    """run.sh: optimize train -> optimize test -> eval prepare -> eval
+    (``run.sh:9-23``); the eval's lines also go to <out_dir>/<ds>-<ver>.txt."""
+    import contextlib
+    import io
+    import os
+
+    cfg.mode = "train"
+    cmd_optimize(cfg)
+    cfg.mode = "test"
+    cmd_optimize(cfg)
+    cmd_eval_prepare(cfg)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cmd_eval(cfg)
+    text = buf.getvalue()
+    print(text, end="")
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    with open(f"{cfg.out_dir}/{cfg.dataset}-{cfg.ver}.txt", "w") as f:
+        f.write(text)
+
+
+ABLATIONS = {
+    # reference src/job.sh:9-18
+    "full": {},
+    "wo_s": {"w_s": 0.0},
+    "wo_c": {"w_c": 0.0},
+    "wo_adv": {"w_adv": 0.0},
+    "wo_bt": {"w_bt": 0.0},
+    "wo_allc": {"w_c": 0.0, "w_bt": 0.0},
+}
+
+
+def cmd_ablate(cfg: Config) -> None:
+    import dataclasses
+
+    from .train.warmup import run_warmup
+
+    run_warmup(cfg)
+    for ver, overrides in ABLATIONS.items():
+        sub = dataclasses.replace(cfg, ver=ver, mode="train", **overrides)
+        cmd_optimize(sub)
+        sub.mode = "test"
+        cmd_optimize(sub)
+        cmd_eval_prepare(sub)
+        cmd_eval(sub)
 
 
 def cmd_serve(cfg: Config) -> None:
@@ -128,6 +205,10 @@ COMMANDS = {
     "warmup": cmd_warmup,
     "optimize": cmd_optimize,
     "infer": cmd_infer,
+    "eval-prepare": cmd_eval_prepare,
+    "eval": cmd_eval,
+    "run": cmd_run,
+    "ablate": cmd_ablate,
     "serve": cmd_serve,
 }
 

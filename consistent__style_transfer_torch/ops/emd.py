@@ -1,14 +1,17 @@
 """Optimal-transport costs: the port of the JAX package's ``ops/emd.py``.
 
+- :func:`pyemd_ones_emd`: the closed form of ``pyemd.emd(p, q, ones)`` that
+  the STI metric uses (ones on the diagonal too, so every feasible plan
+  ships ``min(sum p, sum q)`` at unit cost); :func:`ones_metric_emd`, the
+  zero-diagonal variant, ``0.5 * ||p - q||_1``. Both on tensors, batched
+  over leading dims.
 - :func:`exact_ot_cost`: the exact transport LP (scipy HiGHS) on numpy
-  inputs, the parity path of the WMD labels (gensim/pyemd semantics).
+  inputs, the parity path of the WMD labels and of the eval harness's CP
+  (gensim/pyemd semantics).
 - :func:`sinkhorn_ot_cost`: entropy-regularised batched Sinkhorn in the log
   domain, in plain torch. It is the plain version of the Sinkhorn kernel
   (``kernels/sinkhorn.py``, ``csrc/sinkhorn.cu``): the WMD labeler runs it on
   CPU tensors and the kernel on CUDA tensors.
-
-The all-ones metrics of the eval harness (``pyemd_ones_emd``,
-``ones_metric_emd``) come with the eval slice.
 """
 
 from __future__ import annotations
@@ -17,6 +20,19 @@ import numpy as np
 import torch
 
 _NEG = -1e30
+
+
+def pyemd_ones_emd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact value of ``pyemd.emd(p, q, np.ones((N, N)))``: with unit cost
+    everywhere (diagonal included) every feasible plan ships min(Σp, Σq) mass
+    at cost 1/unit. Batched over leading dims."""
+    return torch.minimum(p.sum(dim=-1), q.sum(dim=-1))
+
+
+def ones_metric_emd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """EMD with a zero-diagonal all-ones distance matrix = 0.5 * ||p - q||_1
+    for equal-mass inputs. Batched over leading dims."""
+    return 0.5 * (p - q).abs().sum(dim=-1)
 
 
 def exact_ot_cost(p: np.ndarray, q: np.ndarray, D: np.ndarray) -> float:

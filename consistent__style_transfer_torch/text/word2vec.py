@@ -8,7 +8,9 @@ seed it gives the same vectors; the ``.npz`` format (``vectors`` plus a json
 file. WMD here is the exact optimal-transport solution (gensim's
 pyemd-backed ``wmdistance``); the training labels use the batched Sinkhorn
 (``data/wmd_labels.py``). The JAX package's hogwild C++ trainer
-(``native/``) is not ported yet (ROADMAP.md).
+(``native/``) is not ported yet (ROADMAP.md): ``train_token_w2v`` and
+``train_sentences_w2v`` always take the numpy trainer, which the JAX
+package also takes whenever its native library is not built.
 """
 
 from __future__ import annotations
@@ -219,3 +221,9 @@ def train_token_w2v(files: Iterable[str], tokenizer, epochs: int = 10, seed: int
     rng.shuffle(corpus)
     sentences = [tokenizer.ids_to_tokens(tokenizer.encode(s)) for s in corpus]
     return Word2Vec(sentences, epochs=epochs, seed=seed, **kw)
+
+
+def train_sentences_w2v(sentences, epochs: int = 5, seed: int = 1) -> Word2Vec:
+    """Train word2vec over pre-tokenized sentences with the numpy trainer
+    (the eval harness's masked word2vec; a per-token SGD loop)."""
+    return Word2Vec(sentences, epochs=epochs, seed=seed)

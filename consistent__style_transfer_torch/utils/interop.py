@@ -12,12 +12,21 @@ a flax ``LayerNorm`` ``scale`` is the torch ``weight``. The keys are the
 reference's state-dict keys, which are the port's attribute names, so each
 result loads into the port's module with ``strict=True``. Takes nested dicts
 of numpy arrays; imports no JAX.
+
+The eval harness's fitted objects come across as numpy too:
+:func:`vectorizer_from_vocabulary` and :func:`l1_lr_from_arrays` build the
+port's vectorizer and L1 logistic regression from a fitted scikit-learn
+``CountVectorizer``'s ``vocabulary_`` and a ``LogisticRegression``'s
+``coef_``, ``intercept_`` and ``classes_`` (the JAX package pickles those
+objects; the port never loads scikit-learn).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..evaluate.lexicon import BinaryUnigramVectorizer, L1LogisticRegression
 
 
 def _t(x) -> np.ndarray:  # flax kernel (in, out) -> torch linear weight (out, in)
@@ -139,3 +148,20 @@ def lm_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     }
     sd.update(_transformer(p["lm"], "lm"))
     return _tensors(sd)
+
+
+def vectorizer_from_vocabulary(vocabulary_: dict) -> BinaryUnigramVectorizer:
+    """A fitted ``CountVectorizer(binary=True)``'s ``vocabulary_`` (token ->
+    column) -> the port's :class:`BinaryUnigramVectorizer`."""
+    return BinaryUnigramVectorizer({str(w): int(i) for w, i in vocabulary_.items()})
+
+
+def l1_lr_from_arrays(coef, intercept, classes) -> L1LogisticRegression:
+    """A fitted binary ``LogisticRegression``'s ``coef_`` (1, n),
+    ``intercept_`` (1,) and ``classes_`` (2,) -> the port's
+    :class:`L1LogisticRegression` (float64)."""
+    lr = L1LogisticRegression()
+    lr.coef_ = np.asarray(coef, np.float64).reshape(1, -1)
+    lr.intercept_ = np.asarray(intercept, np.float64).reshape(1)
+    lr.classes_ = np.asarray(classes)
+    return lr

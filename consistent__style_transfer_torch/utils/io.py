@@ -1,7 +1,9 @@
-"""Metrics logging: the port of the JAX package's ``utils/io.py::RunLogger``
-(the reference's TensorBoard/TestTube loggers and hparams snapshots, as a
-jsonl event stream plus a json hparams file per run, in the same layout:
-``<log_dir>/<stage>[-<ver>]/{events.jsonl,hparams.json}``)."""
+"""Filesystem and metrics logging: the port of the JAX package's
+``utils/io.py``. ``read_lines`` / ``write_lines`` read and write one stripped
+sentence a line; ``RunLogger`` is the reference's TensorBoard/TestTube
+loggers and hparams snapshots, as a jsonl event stream plus a json hparams
+file per run, in the same layout:
+``<log_dir>/<stage>[-<ver>]/{events.jsonl,hparams.json}``."""
 
 from __future__ import annotations
 
@@ -9,6 +11,19 @@ import dataclasses
 import json
 import os
 import time
+from typing import Iterable
+
+
+def read_lines(path: str) -> list[str]:
+    with open(path, "r", encoding="utf-8") as f:
+        return [line.strip() for line in f]
+
+
+def write_lines(lines: Iterable[str], path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        for line in lines:
+            f.write(line.rstrip("\n") + "\n")
 
 
 class RunLogger:

@@ -1,7 +1,9 @@
 """The port stands alone: it imports every module, decodes, and runs a tiny
-pretrain, warmup and optimize with jax, flax, optax, orbax and the JAX
-package blocked, names none of them in its sources or in chip_smoke.py, and
-its entry points refuse to carry on without CUDA unless asked for the CPU."""
+pretrain, warmup and optimize with jax, flax, optax, orbax, the JAX package,
+scikit-learn, gensim, fasttext and pyemd blocked (tests/test_torch_eval_cli.py
+runs the eval commands so), names none of them in its sources or in
+chip_smoke.py, and its entry points refuse to carry on without CUDA unless
+asked for the CPU."""
 
 import ast
 import os
@@ -14,21 +16,31 @@ torch = pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "consistent__style_transfer_torch")
-BLOCKED = ("jax", "flax", "optax", "orbax", "consistent__style_transfer_tpu")
+BLOCKED = ("jax", "flax", "optax", "orbax", "consistent__style_transfer_tpu", "sklearn", "gensim",
+           "fasttext", "pyemd")
 
 _BLOCKED_RUN = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, importlib.machinery, pkgutil, sys
 
 BLOCKED = %r
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
 
-class Blocker(importlib.abc.MetaPathFinder):
+class Blocker(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    # a blocked module has a spec (with no origin: torch._dynamo probes
+    # optional libraries, sklearn among them, with find_spec), and
+    # importing it raises ImportError
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in BLOCKED:
-            raise ImportError("blocked: " + name)
+            return importlib.machinery.ModuleSpec(name, self)
         return None
+
+    def create_module(self, spec):
+        raise ImportError("blocked: " + spec.name)
+
+    def exec_module(self, module):
+        raise ImportError("blocked: " + module.__name__)
 
 sys.meta_path.insert(0, Blocker())
 sys.argv = ["consistent__style_transfer_torch", "--help"]  # for __main__
@@ -157,7 +169,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         get_device(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_test(cfg)
-    for command in ("serve", "infer", "pretrain", "warmup", "optimize"):
+    for command in ("serve", "infer", "pretrain", "warmup", "optimize", "eval-prepare", "eval",
+                    "run", "ablate"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main([command, "--dump_dir", str(tmp_path), "--out_dir", str(tmp_path)])
     assert get_device(make_config("yelp", device="cpu")) == torch.device("cpu")
@@ -166,6 +179,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 def test_unported_commands_exit_2(capsys):
     from consistent__style_transfer_torch import cli
 
+    assert cli.NOT_PORTED == ("bench",)
     for command in cli.NOT_PORTED:
         with pytest.raises(SystemExit) as e:
             cli.main([command])
