@@ -26,9 +26,10 @@ Phases, in order; any failure exits non-zero before the last line:
    the card's greedy ids held against the CPU's on a few sentences in float32;
 4. greedy transfer at the full yelp width (V=10000, L=18, B=256, bf16):
    ms per batch, sentences/s and a profiler breakdown;
-5. ``pretrain --epochs 1`` through the port's CLI at the full yelp width
+5. ``w2v`` through the port's CLI (the native hogwild trainer, its 10
+   epochs), then ``pretrain --epochs 1`` at the full yelp width
    (the three scorers at 6 layers / 8 heads / d=512, B=256, L=18, bf16
-   autocast) on the committed yelp corpus, after a one-epoch word2vec: the
+   autocast) on the committed yelp corpus: the
    checkpoints load strictly, every logged loss is finite, and the Sinkhorn
    kernel launched once per labeled batch; then the Sinkhorn on a real label
    batch (checked and timed as in phase 2, with the labeler's host
@@ -46,15 +47,28 @@ Phases, in order; any failure exits non-zero before the last line:
    operations (profiler), kernels per step, and peak memory;
 7. the eval harness on phase 6's ``.tsf`` files: ``eval-prepare`` through
    the CLI (the fastText classifier fitted on the card, the lexicon, the
-   masked word2vec, the adversarial LR; each substage's seconds), checked
+   masked word2vec with the native hogwild trainer, the adversarial LR;
+   each substage's seconds, beside the numpy trainer's times), checked
    (the classifier loads, its ``fit_meta`` is the minibatch path at B=64
    with no retry, dev P@1 at or above the JAX package's less a margin, the
    artifacts exist), then ``eval`` (STI, CP, NT, ACC, self-BLEU, ref-BLEU in
-   range); the card's fit held against a CPU fit from the same seed; one
+   range), its CP within a stated bound of the CP from a one-thread masked
+   word2vec; the card's fit held against a CPU fit from the same seed; one
    epoch of the fit profiled (device ms, kernels) and the sequential path's
    cost an example; then ``run --epochs 1`` under a new version, which
    writes ``<out_dir>/yelp-<ver>.txt`` and launches the decode head 18 times
-   a batch in its infer.
+   a batch in its infer;
+8. the optimize stage with ``megastep_k=8`` (its fused step as CUDA graphs,
+   one per D-apply branch) at full yelp width on phases 5-6's dumps: graph
+   replays held against eager ``fused_step`` from one state in float32 and
+   bf16 (dropout off, coins given); ``optimize --epochs 1 --megastep_k 8
+   --resume 1`` through the CLI (finite losses, one step a batch, D's
+   cadence, the full state written); the graphed step's steady ms per step,
+   device ms, device operations, host launch calls and graph replays per
+   step, idle share and peak memory beside phase 6's eager step; both
+   ``remat_decode`` settings, eager and graphed; a fresh process that
+   resumes at epoch 1 with the saved best; and ``infer`` from the G it
+   keeps, through the decode head.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -94,6 +108,29 @@ EVAL_P1_FLOOR = EVAL_P1_JAX_CPU - EVAL_P1_MARGIN
 # repeated rows in no fixed order): dev P@1 within 10 of 4,000 sentences,
 # each table entry (up to about 3.3) within 1e-3
 FASTTEXT_P1_TOL, FASTTEXT_TABLE_TOL = 0.0025, 1e-3
+# phase 7: the CP of the hogwild masked word2vec (the default threads) against
+# the one-thread trainer's, relative: the bound tests/test_torch_native.py
+# states; and the numpy trainer's times on the card's host as PERF.md §5
+# records them (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+CP_REL_TOL = 0.10
+NUMPY_TRAINER_S = {"mask_w2v_s": (102.89, 146.34), "eval_prepare_s": (109.64, 156.46)}
+# phase 8: graph replays against eager fused_step from one state (dropout
+# off, coins given, 9 steps, D every 4th: each branch replayed at least
+# twice). Per-step losses within a relative bound; the parameters' mean
+# absolute difference within a share of their mean absolute move (a
+# gradient entry near 0 summed by atomics in another order can flip the
+# sign of its Adam step, so the largest entry is printed, not bounded).
+# float32 is the strict check. Under bf16 autocast a product summed in
+# another order (cuBLAS may pick another kernel on the capture stream) moves
+# an output by one bf16 step, 0.4%, and can flip an argmax of the
+# straight-through decode: measured on an H100, losses 0.5% apart
+GRAPH_TOL = {"float32": {"loss_rel": 1e-5, "param_share": 1e-3},
+             "bfloat16": {"loss_rel": 5e-2, "param_share": 5e-2}}
+MEGASTEP_K = 8
+# the host's CUDA runtime calls that put work on the card, as the profiler
+# names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def log(msg: str) -> None:
@@ -631,9 +668,10 @@ def phase_serve_and_infer(work: str) -> dict:
 def profile_breakdown(fn, batches: int = 3, watch: tuple[str, ...] = ()) -> dict:
     """Device time per call of fn by kernel name (torch.profiler): the sum of
     the kernels' own device time, user annotations (such as the optimizer's
-    ranges) left out; ``watch`` names kernels reported whatever their rank.
-    Where the profiler gives no device time, the breakdown says "not
-    measured"."""
+    ranges) left out; ``watch`` names kernels reported whatever their rank;
+    and the host's launch calls (``HOST_LAUNCH_CALLS``: kernel launches,
+    graph launches, copies) per call. Where the profiler gives no device
+    time, the breakdown says "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -648,7 +686,10 @@ def profile_breakdown(fn, batches: int = 3, watch: tuple[str, ...] = ()) -> dict
         return {"device_ms_per_batch": "not measured", "error": str(e)[:200]}
 
     by_name: dict[str, list[float]] = {}
+    host_calls: dict[str, int] = {}
     for e in events:
+        if e.device_type == DeviceType.CPU and e.name in HOST_LAUNCH_CALLS:
+            host_calls[e.name] = host_calls.get(e.name, 0) + 1
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -667,6 +708,7 @@ def profile_breakdown(fn, batches: int = 3, watch: tuple[str, ...] = ()) -> dict
     top = sorted(by_name, key=lambda n: by_name[n][0], reverse=True)
     return {"device_ms_per_batch": total / batches / 1e3,
             "kernels_per_batch": sum(c for _, c in by_name.values()) / batches,
+            "host_calls_per_batch": {k: v / batches for k, v in sorted(host_calls.items())},
             "top": [row(n) for n in top[:10]],
             "watched": [row(n) for n in top if any(w in n for w in watch)]}
 
@@ -740,7 +782,6 @@ def phase_pretrain(work: str, card: str) -> dict:
     )
     from consistent__style_transfer_torch.models import PairMatcher, TextCNN, TransformerLM
     from consistent__style_transfer_torch.ops.emd import sinkhorn_ot_cost
-    from consistent__style_transfer_torch.text.word2vec import train_token_w2v
     from consistent__style_transfer_torch.train.common import (
         build_classifier,
         build_lm,
@@ -759,11 +800,12 @@ def phase_pretrain(work: str, card: str) -> dict:
     B, L = cfg.batch_size, cfg.max_len
     tokenizer = get_tokenizer(cfg)  # phase 3's BPE dump
     V = len(tokenizer)
-    # a stated reduction: one word2vec epoch instead of get_w2v's ten
+    # the WMD word2vec through the CLI: the native hogwild trainer, 10 epochs
     t0 = time.perf_counter()
-    train_token_w2v(cfg.train_files(), tokenizer, epochs=1, seed=cfg.seed).save(cfg.w2v_path)
+    run_cli(["w2v", *flags])
     w2v_s = time.perf_counter() - t0
-    log(f"word2vec (1 epoch, numpy) in {w2v_s:.1f} s")
+    check(os.path.exists(cfg.w2v_path), f"w2v wrote no {cfg.w2v_path}")
+    log(f"word2vec (10 epochs, native) in {w2v_s:.1f} s")
     n_train, n_dev = count_lines(cfg.train_files()), count_lines(cfg.split_files("dev"))
     labeled = n_train // B + -(-n_dev // B)  # train drops its last partial batch
 
@@ -878,7 +920,8 @@ def phase_pretrain(work: str, card: str) -> dict:
     device_ms = breakdown.get("device_ms_per_batch")
     idle = (1 - device_ms / steady_ms) if isinstance(device_ms, float) else "not measured"
     result = {"card": card, "dtype": "bfloat16 autocast, float32 parameters", "V": V, "L": L,
-              "B": B, "scorer": "6 layers / 8 heads / d=512", "w2v_epochs": 1, "w2v_s": w2v_s,
+              "B": B, "scorer": "6 layers / 8 heads / d=512", "w2v_epochs": 10,
+              "w2v_trainer": "native", "w2v_s": w2v_s,
               "train_sentences": n_train, "dev_sentences": n_dev, "pretrain_cli_s": pretrain_s,
               "train_steps": epoch["train_steps"], "ms_per_step_epoch": ms_per_step,
               "sent_per_s_epoch": B * 1e3 / ms_per_step, "ms_per_step_steady": steady_ms,
@@ -921,12 +964,16 @@ def steady_step(step, batches: int = 20) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / batches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a CUDA graph's private pool is reserved, not allocated, between replays
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     prof = profile_breakdown(step, batches=2)
     device_ms = prof.get("device_ms_per_batch")
     idle = (1 - device_ms / ms) if isinstance(device_ms, float) else "not measured"
     return {"ms_per_step_steady": ms, "peak_memory_gb_steady": peak_gb,
+            "peak_reserved_gb_steady": reserved_gb,
             "device_ms_per_step": device_ms, "device_idle_share": idle,
             "kernels_per_step": prof.get("kernels_per_batch", "not measured"),
+            "host_calls_per_step": prof.get("host_calls_per_batch", "not measured"),
             "top_device_ops": prof.get("top", "not measured")}
 
 
@@ -1093,9 +1140,16 @@ def phase_eval(work: str, card: str) -> dict:
 
     from consistent__style_transfer_torch import cli
     from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.evaluate.content import (
+        calculate_wmd_scores,
+        mask_style_words,
+        train_masked_word2vec,
+    )
     from consistent__style_transfer_torch.evaluate.lexicon import load_lexicon, load_model
-    from consistent__style_transfer_torch.evaluate.prepare import eval_paths
+    from consistent__style_transfer_torch.evaluate.prepare import eval_paths, masked_w2v_texts
     from consistent__style_transfer_torch.evaluate.run_eval import run_eval
+    from consistent__style_transfer_torch.text.native import default_threads
+    from consistent__style_transfer_torch.utils.io import read_lines
     from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
     from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.text.fasttext_cls import FastTextClassifier
@@ -1163,6 +1217,26 @@ def phase_eval(work: str, card: str) -> dict:
     check(math.isfinite(scores["CP"]) and scores["CP"] >= 0, f"CP {scores['CP']}")
     check(0 <= scores["NT"] <= 1 and 0 <= scores["ACC"] <= 1, f"NT/ACC {scores}")
     check(math.isfinite(scores["selfBLEU"]) and math.isfinite(scores["refBLEU"]), f"BLEU {scores}")
+
+    # 2b. eval's CP from the hogwild masked word2vec against the CP from a
+    # one-thread one (a function of the seed alone: the JAX package's at one
+    # thread) on the same masked corpus and pairs, within CP_REL_TOL
+    t0 = time.perf_counter()
+    single = train_masked_word2vec(masked_w2v_texts(cfg.ds_data_dir, lexicon),
+                                   os.path.join(work, "mask_w2v_one_thread.npz"), seed=cfg.seed,
+                                   n_threads=1)
+    one_thread_s = time.perf_counter() - t0
+    single.init_sims()
+    origin = [line for k in (0, 1) for line in read_lines(f"{cfg.ds_data_dir}/style.test.{k}")]
+    transfer = [line for k in (0, 1)
+                for line in read_lines(f"{cfg.run_out_dir}/style.test.{k}.tsf")]
+    wmd = [d for d in calculate_wmd_scores(mask_style_words(transfer, lexicon),
+                                           mask_style_words(origin, lexicon), single)
+           if math.isfinite(d)]
+    cp_one_thread = sum(wmd) / max(len(wmd), 1)
+    check(abs(scores["CP"] - cp_one_thread) <= CP_REL_TOL * cp_one_thread,
+          f"CP {scores['CP']} (hogwild) against {cp_one_thread} (one thread): over "
+          f"{CP_REL_TOL} relative")
 
     # 3. the card's fit against the CPU's, from the same seed
     t0 = time.perf_counter()
@@ -1235,6 +1309,12 @@ def phase_eval(work: str, card: str) -> dict:
 
     result = {"card": card, "phase_s": time.perf_counter() - t_phase,
               "eval_prepare_s": prepare_s, "prepare_timings": timings,
+              "mask_w2v": {"trainer": "native", "threads": default_threads(),
+                           "mask_w2v_s": timings["mask_w2v_s"], "eval_prepare_s": prepare_s,
+                           "numpy_trainer_s": NUMPY_TRAINER_S, "one_thread_s": one_thread_s,
+                           "cp": scores["CP"], "cp_one_thread": cp_one_thread,
+                           "cp_rel_diff": abs(scores["CP"] - cp_one_thread) / max(cp_one_thread, 1e-12),
+                           "cp_rel_tol": CP_REL_TOL},
               "eval_s": eval_s, "dev_n": n_dev, "dev_p1": dev_p1, "dev_p1_floor": EVAL_P1_FLOOR,
               "fit_meta": model.fit_meta, "lexicon_words": len(lexicon), "scores": scores,
               "fasttext": fasttext,
@@ -1242,6 +1322,263 @@ def phase_eval(work: str, card: str) -> dict:
                       "infer_batches": infer_batches, "prepare_timings": run_timings[0],
                       "results": written.strip().splitlines()}}
     print(json.dumps({"eval": result}), flush=True)
+    return result
+
+
+# ------------------------------------------------------------------ phase 8
+def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
+    """The optimize stage with ``megastep_k`` (its fused step as CUDA
+    graphs) at full yelp width, on phase 5's scorers and phase 6's warmup G:
+    1. graph replays of both ``do_apply`` branches against eager
+       ``fused_step`` from the same state, in float32 and under bf16
+       autocast (dropout off, coins given);
+    2. ``optimize --epochs 1 --megastep_k 8 --resume 1`` through the CLI,
+       then the graphed step's steady state: ms per step (host clock),
+       device ms, device operations, the host's launch calls and graph
+       replays per step, idle share, peak memory, beside phase 6's eager
+       step (``eager_steady``);
+    3. both ``remat_decode`` settings, eager and graphed: time and memory;
+    4. a fresh process with ``--resume 1 --epochs 2``: it starts at epoch 1
+       with the saved best;
+    5. ``infer`` from the G it keeps, through the decode head."""
+    import torch
+
+    from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.data.pipeline import make_batches
+    from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
+    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
+    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
+    from consistent__style_transfer_torch.train.checkpoint import StateCheckpointer
+    from consistent__style_transfer_torch.train.common import get_corpus, get_tokenizer
+    from consistent__style_transfer_torch.train.optimize import (
+        GraphedFusedStep,
+        OptimizeModels,
+        load_frozen,
+        load_generator_params,
+        make_optimize_steps,
+    )
+    from consistent__style_transfer_torch.train.state import AdamWithClip, newest_checkpoint
+    from consistent__style_transfer_torch.utils.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
+                out_dir=os.path.join(work, "output"), log_dir=os.path.join(work, "log"))
+    ver = "v_mega"
+    flags = [a for k, v in dirs.items() for a in (f"--{k}", v)] + ["--ver", ver]
+    cfg = make_config("yelp", ver=ver, **dirs)
+    device = torch.device(cfg.device)
+    tokenizer = get_tokenizer(cfg)
+    V, L, B = len(tokenizer), cfg.max_len, cfg.batch_size
+    corpus = get_corpus(cfg, "train", tokenizer)
+    n_train = count_lines(cfg.train_files())
+
+    def build(remat: bool = False, dtype: str = "bfloat16", dropout: bool = True):
+        c = make_config("yelp", ver=ver, dtype=dtype, remat_decode=remat, **dirs)
+        models = OptimizeModels(c, V, device)
+        load_frozen(c, models)
+        load_generator_params(c, models.generator)  # phase 6's warmup G
+        if not dropout:
+            for m in (models.generator, models.classifier, models.matcher, models.nt_checker,
+                      models.disc):
+                for sub in m.modules():
+                    if hasattr(sub, "p_drop"):
+                        sub.p_drop = 0.0
+        steps = make_optimize_steps(
+            c, models, AdamWithClip(models.generator.parameters(), c.optimize_lr, c.optimize_clip),
+            AdamWithClip(models.disc.parameters(), c.optimize_lr, c.optimize_clip))
+        acc = [torch.zeros_like(p) for p in models.disc.parameters()]
+        gens = (torch.Generator(device).manual_seed(1), torch.Generator(device).manual_seed(2))
+        return models, steps, acc, gens
+
+    def stream():
+        return iter(DevicePrefetcher(make_batches(corpus, B, L, "optimize", shuffle=True, seed=1),
+                                     device))
+
+    # 1. replays against eager, from one state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = stream()
+    try:
+        fixed = [next(batches)[1] for _ in range(9)]
+    finally:
+        batches.close()
+    g = torch.Generator().manual_seed(3)
+    coins = [(torch.rand(L, generator=g) < 0.5).to(device) for _ in fixed]
+    equality = {}
+    for dtype in ("float32", "bfloat16"):
+        runs = []
+        for graphed in (False, True):
+            models, steps, acc, gens = build(dtype=dtype, dropout=False)
+
+            def params():
+                return [p.detach().clone() for m in (models.generator, models.disc)
+                        for p in m.parameters()]
+
+            start = params()
+            scale = torch.ones((), device=device)
+            run = (GraphedFusedStep(steps.fused_step, acc, *gens, scale, given_coins=True)
+                   if graphed else None)
+            losses = []
+            for i, (b, c) in enumerate(zip(fixed, coins)):
+                do_apply = i % cfg.d_update_every == 0
+                if graphed:
+                    aux, d_loss = run(b, do_apply, c)
+                else:
+                    aux, d_loss = steps.fused_step(b, acc, do_apply, *gens, scale, c)
+                losses.append(torch.stack([aux[k].float() for k in ("loss", "G", "STI", "CP",
+                                                                     "BK")] + [d_loss.float()]))
+            torch.cuda.synchronize()
+            if graphed:
+                check(sorted(run.graphs) == [False, True], "both branches were not captured")
+            runs.append((torch.stack(losses), params(), start))
+            del models, steps, acc, run
+        (l0, p0, s0), (l1, p1, _) = runs
+        tol = GRAPH_TOL[dtype]
+        loss_rel = float(((l1 - l0).abs() / l0.abs().clamp_min(1e-6)).max())
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p1, p0)])
+        move = torch.cat([(a - b).abs().flatten() for a, b in zip(p0, s0)])
+        share = float(diff.mean() / move.mean().clamp_min(1e-30))
+        equality[dtype] = {"steps": len(fixed), "apply_replays": 2, "accumulate_replays": 5,
+                           "loss_max_rel_diff": loss_rel, "param_mean_abs_diff": float(diff.mean()),
+                           "param_max_abs_diff": float(diff.max()),
+                           "param_mean_abs_move": float(move.mean()), "param_share": share,
+                           "finite": bool(torch.isfinite(l0).all()), "tolerance": tol}
+    print(json.dumps({"megastep_replay_vs_eager": equality}), flush=True)
+    for dtype, e in equality.items():
+        check(e["finite"], f"{dtype}: non-finite eager losses")
+        check(e["loss_max_rel_diff"] <= e["tolerance"]["loss_rel"],
+              f"{dtype}: replay losses {e['loss_max_rel_diff']} apart (relative)")
+        check(e["param_share"] <= e["tolerance"]["param_share"],
+              f"{dtype}: replay parameters {e['param_share']} of their move apart")
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # 2. one epoch through the CLI with megastep_k=8, writing the full state
+    fused_decode_logits.launches = 0
+    sinkhorn_cuda.launches = 0
+    t0 = time.perf_counter()
+    run_cli(["optimize", *flags, "--epochs", "1", "--megastep_k", str(MEGASTEP_K),
+             "--resume", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    check(fused_decode_logits.launches == 0 and sinkhorn_cuda.launches == 0,
+          "the graphed optimize launched a kernel of the port")
+    events = read_events(cfg, f"optimize-{ver}")
+    losses = check_finite_losses(events, ("G", "STI", "CP", "BK", "D", "loss", "val_loss"),
+                                 "optimize --megastep_k")
+    epoch = [e for e in events if "train_steps" in e][-1]
+    want = n_train // B
+    check(epoch["train_steps"] == want, f"megastep: {epoch['train_steps']} steps, want {want}")
+    check(epoch["d_applies"] == math.ceil(want / cfg.d_update_every),
+          f"megastep: D applied {epoch['d_applies']}")
+    state_dir = os.path.join(cfg.ds_dump_dir, f"optimize-{ver}", "full_state")
+    saved = StateCheckpointer(state_dir).restore()
+    check(saved is not None and saved["epoch"] == 0 and saved["step"] == want,
+          "the full state of epoch 0 is missing")
+
+    # steady state of the graphed step (default: remat_decode off), then the
+    # other remat setting, graphed and eager; phase 6 measured eager, off
+    def graphed_steady(remat):
+        models, steps, acc, gens = build(remat=remat)
+        runner = GraphedFusedStep(steps.fused_step, acc, *gens, torch.ones((), device=device))
+        state = {"i": 0}
+        batches = stream()
+        timer = StepTimer()
+
+        def step():
+            with timer:
+                out = runner(next(batches)[1], state["i"] % cfg.d_update_every == 0)
+            state["i"] += 1
+            return out
+
+        try:
+            result = steady_step(step)
+            aux, d_loss = step()
+            check(all(math.isfinite(v.item()) for v in (*aux.values(), d_loss)),
+                  "non-finite graphed losses")
+        finally:
+            batches.close()
+        calls = result["host_calls_per_step"]
+        if isinstance(calls, dict):
+            result["graph_replays_per_step"] = calls.get("cudaGraphLaunch", 0.0)
+            result["kernel_launches_per_step_host"] = sum(
+                v for k, v in calls.items() if "LaunchKernel" in k)
+        result["captured_branches"] = sorted(runner.graphs)
+        result["enqueue_ms_per_step"] = {k: v for k, v in timer.summary().items() if k != "steps"}
+        return result
+
+    def eager_steady_of(remat):
+        models, steps, acc, gens = build(remat=remat)
+        state = {"i": 0}
+        batches = stream()
+
+        def step():
+            out = steps.fused_step(next(batches)[1], acc, state["i"] % cfg.d_update_every == 0,
+                                   *gens)
+            state["i"] += 1
+            return out
+
+        try:
+            return steady_step(step)
+        finally:
+            batches.close()
+
+    graphed = graphed_steady(False)
+    remat = {"graphed_remat_off": graphed, "graphed_remat_on": graphed_steady(True),
+             "eager_remat_off": eager_steady, "eager_remat_on": eager_steady_of(True)}
+    check(graphed["ms_per_step_steady"] > 0, "no graphed step time")
+
+    # 4. a fresh process resumes at epoch 1 with the saved best
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "consistent__style_transfer_torch", "optimize",
+                           *flags, "--epochs", "2", "--megastep_k", str(MEGASTEP_K),
+                           "--resume", "1"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    resume_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"resumed optimize exited {proc.returncode}: {proc.stderr[-2000:]}")
+    epochs = [e for e in read_events(cfg, f"optimize-{ver}") if "train_steps" in e]
+    check([e["epoch"] for e in epochs] == [0, 1],
+          f"the resumed run logged epochs {[e['epoch'] for e in epochs]}, want [0, 1]")
+    resumed_logs = [e for e in read_events(cfg, f"optimize-{ver}") if "loss" in e]
+    check(resumed_logs[-1]["step"] >= want, "the resumed run restarted its step counter")
+    final = StateCheckpointer(state_dir).restore()
+    check(final["epoch"] == 1 and final["step"] == 2 * want, "the resumed run's full state")
+    check(final["best"] == min(saved["best"], epochs[1]["val_loss"]),
+          f"best {final['best']}: saved {saved['best']}, epoch 1 {epochs[1]['val_loss']}")
+    check(os.listdir(state_dir) == ["state_1.pt"], f"full_state holds {os.listdir(state_dir)}")
+
+    # 5. infer from the G the run keeps
+    best = newest_checkpoint(os.path.join(cfg.ds_dump_dir, f"optimize-{ver}"))
+    check(best is not None and os.path.basename(best).startswith("G_epoch_"), f"best G {best}")
+    fused_decode_logits.launches = 0
+    t0 = time.perf_counter()
+    run_cli(["infer", *flags])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    infer_launches = fused_decode_logits.launches
+    infer_batches = sum(-(-count_lines(cfg.split_files(s)) // B) for s in ("train", "test"))
+    check(infer_launches == L * infer_batches > 0,
+          f"infer after megastep: {infer_launches} decode-head launches, want {L} x {infer_batches}")
+
+    result = {"card": card, "phase_s": time.perf_counter() - t_phase, "V": V, "L": L, "B": B,
+              "dtype": "bfloat16 autocast, float32 parameters", "megastep_k": MEGASTEP_K,
+              "replay_vs_eager": equality,
+              "cli": {"s": cli_s, "train_steps": epoch["train_steps"],
+                      "d_applies": epoch["d_applies"],
+                      "ms_per_step_epoch": epoch["train_s"] * 1e3 / epoch["train_steps"],
+                      "losses": losses},
+              "steady": {**graphed, "eager": eager_steady,
+                         "speedup_host": eager_steady["ms_per_step_steady"]
+                         / graphed["ms_per_step_steady"]},
+              "remat_decode": {k: {f: v[f] for f in ("ms_per_step_steady",
+                                                      "peak_memory_gb_steady",
+                                                      "peak_reserved_gb_steady",
+                                                      "device_ms_per_step")}
+                               for k, v in remat.items()},
+              "resume": {"s": resume_s, "saved_best": saved["best"], "final_best": final["best"],
+                         "epoch_1_val_loss": epochs[1]["val_loss"]},
+              "infer": {"s": infer_s, "batches": infer_batches,
+                        "decode_head_launches": infer_launches}}
+    print(json.dumps({"megastep": result}), flush=True)
     return result
 
 
@@ -1263,6 +1600,7 @@ def main() -> int:
         pre = phase_pretrain(work, card)
         trained = phase_training(work, card)
         evaluated = phase_eval(work, card)
+        mega = phase_megastep(work, card, trained["optimize"])
 
     yelp = timed[f"bfloat16_V{YELP_V}"]
     real = pre["sinkhorn_label_batch"]
@@ -1304,12 +1642,15 @@ def main() -> int:
         "replaces": "consistent__style_transfer_tpu/kernels/decode_step.py:73",
         "launches": (served["serve_launches"] + served["infer_launches"]
                      + trained["infer"]["decode_head_launches"]
-                     + evaluated["run"]["decode_head_launches"]),
+                     + evaluated["run"]["decode_head_launches"]
+                     + mega["infer"]["decode_head_launches"]),
         "launches_by_path": {"serve": served["serve_launches"], "infer": served["infer_launches"],
                              "warmup": 0, "optimize": 0,
                              "infer_after_optimize": trained["infer"]["decode_head_launches"],
                              "eval_prepare": 0, "eval": 0,
-                             "run": evaluated["run"]["decode_head_launches"]},
+                             "run": evaluated["run"]["decode_head_launches"],
+                             "optimize_megastep": 0,
+                             "infer_after_megastep": mega["infer"]["decode_head_launches"]},
         "launches_per_batch": full["launches_per_batch"],
         "max_abs_err": yelp["max_abs_err_h"],
         "max_abs_err_h": yelp["max_abs_err_h"],

@@ -25,7 +25,9 @@ Commands:
 
 The JAX package's ``bench`` is not ported yet and exits with status 2;
 ROADMAP.md has the order. Every command runs on ``--device cuda`` (the
-default) unless given ``--device cpu``; without CUDA it raises.
+default) unless given ``--device cpu``; without CUDA it raises. With
+``TPUST_TRACE=1`` a command runs under ``torch.profiler`` and writes a
+Chrome trace to ``$TPUST_TRACE_DIR`` (default ``log/trace``).
 """
 
 from __future__ import annotations
@@ -226,7 +228,11 @@ def main(argv=None) -> None:
     if command not in COMMANDS:
         print(f"unknown command {command!r}; one of {sorted(COMMANDS)}", file=sys.stderr)
         raise SystemExit(2)
-    COMMANDS[command](config_from_args(argv[1:]))
+    from .utils.profiling import trace
+
+    cfg = config_from_args(argv[1:])
+    with trace():  # a torch.profiler trace of the command when TPUST_TRACE=1
+        COMMANDS[command](cfg)
 
 
 if __name__ == "__main__":

@@ -146,6 +146,38 @@ def collate_pretrain(max_len: int, wmd_labeler, p: float = 0.15, need_matcher=No
     return fn
 
 
+class MegaBatches:
+    """Group a :class:`BatchIterator` into stacked (k, B, ...) super-batches
+    (the JAX package's ``data/pipeline.py::MegaBatches``), for the optimize
+    stage's ``megastep_k``: one host-to-device copy brings k training
+    batches. The per-batch content and order are untouched; a last partial
+    group (n_batches % k) comes at its true size."""
+
+    def __init__(self, iterator, k: int):
+        if k < 1:
+            raise ValueError(f"k must be at least 1, got {k}")
+        self.iterator = iterator
+        self.k = k
+
+    def __iter__(self) -> Iterator[Batch]:
+        buf: list[Batch] = []
+
+        def flush():
+            arrays = {key: np.stack([b.arrays[key] for b in buf]) for key in buf[0].arrays}
+            return Batch(arrays, valid=sum(b.valid for b in buf))
+
+        for batch in self.iterator:
+            buf.append(batch)
+            if len(buf) == self.k:
+                yield flush()
+                buf = []
+        if buf:
+            yield flush()
+
+    def __len__(self) -> int:
+        return -(-len(self.iterator) // self.k)
+
+
 def eval_arrays(batch: Batch) -> dict:
     """Batch arrays + a (B,) float32 ``row_mask`` marking the real rows (the
     first ``batch.valid``), so val means leave out the padded duplicates."""

@@ -6,7 +6,8 @@ site, ``evaluate/eval.py:41-43`` — WMD is symmetric so it only affects which
 side is 'references'). Lower is better.
 
 The port's copy of the JAX package's ``evaluate/content.py``. The word2vec
-is the numpy trainer (the port has no native one yet), with the same
+trains with the native hogwild trainer, as the JAX package's does when its
+library is built (``prefer_native=False``: the numpy trainer), for the same
 5 epochs; WMD is the exact LP per pair (``Word2Vec.wmdistance``)."""
 
 from __future__ import annotations
@@ -25,9 +26,12 @@ def mask_style_words(texts, lexicon) -> list[str]:
     return out
 
 
-def train_masked_word2vec(texts, path: str, seed: int = 1) -> Word2Vec:
+def train_masked_word2vec(texts, path: str, seed: int = 1, prefer_native: bool = True,
+                          **kw) -> Word2Vec:
+    """``kw`` goes to the trainer (``n_threads`` to the native one)."""
     sentences = [tokenize(t) for t in texts]
-    w2v = train_sentences_w2v(sentences, epochs=5, seed=seed)  # gensim defaults
+    w2v = train_sentences_w2v(sentences, epochs=5, seed=seed,  # gensim defaults
+                              prefer_native=prefer_native, **kw)
     w2v.save(path)
     return w2v
 

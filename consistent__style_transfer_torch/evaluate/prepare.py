@@ -44,11 +44,22 @@ def eval_paths(eval_dir: str, dataset: str, ver: str | None = None) -> dict:
     return d
 
 
+def masked_w2v_texts(data_dir: str, lexicon) -> list[str]:
+    """The masked word2vec's corpus: every train and dev line of
+    ``data_dir`` with the lexicon's words masked."""
+    texts = []
+    for name in sorted(os.listdir(data_dir)):
+        if ("train" in name or "dev" in name) and not name.endswith(".tsf"):
+            texts += read_lines(f"{data_dir}/{name}")
+    return mask_style_words(texts, lexicon)
+
+
 def run_prepare(data_dir: str, out_dir: str, eval_dir: str, dataset: str,
                 ver: str | None = None, seed: int = 0, quiet: bool = False,
-                device="cuda") -> dict:
+                device="cuda", prefer_native: bool = True) -> dict:
     """data_dir: <base>/data/<ds>; out_dir: <base>/output/<ds>-<ver>;
-    ``device``: where the classifier is fitted. Returns the paths and, under
+    ``device``: where the classifier is fitted; ``prefer_native``: the
+    masked word2vec's trainer (false: numpy). Returns the paths and, under
     "timings", the seconds of each substage that ran."""
     p = eval_paths(eval_dir, dataset, ver)
     os.makedirs(p["dump"], exist_ok=True)
@@ -88,15 +99,11 @@ def run_prepare(data_dir: str, out_dir: str, eval_dir: str, dataset: str,
         )
         timings["lexicon_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        texts = []
-        for name in sorted(os.listdir(data_dir)):
-            if ("train" in name or "dev" in name) and not name.endswith(".tsf"):
-                texts += read_lines(f"{data_dir}/{name}")
-        masked = mask_style_words(texts, lexicon)
+        masked = masked_w2v_texts(data_dir, lexicon)
         timings["mask_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         say("Training masked word2vec model...")
-        train_masked_word2vec(masked, p["mask_w2v"], seed=seed)
+        train_masked_word2vec(masked, p["mask_w2v"], seed=seed, prefer_native=prefer_native)
         timings["mask_w2v_s"] = time.perf_counter() - t0
 
     # 3. adversarial naturalness classifier (per model version)

@@ -5,7 +5,9 @@ The port's own copy of the JAX package's pure-Python tokenizer
 (``consistent__style_transfer_tpu/text/bpe.py``): the same training rule,
 encode/decode and file format, so either package reads the other's dump and
 both give the same ids. Special ids are fixed: PAD=0, BOS=1, EOS=2,
-``<unk>``=3 (reference ``src/vocab.py:9-19``).
+``<unk>``=3 (reference ``src/vocab.py:9-19``). :func:`train_tokenizer` is
+the vocab-training entry: the C++ trainer of ``text/native.py`` (the same
+tables) unless asked for the Python one.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from collections import Counter
 from typing import Iterable, Sequence
 
 from .. import BOS, EOS, PAD, SPECIAL_TOKENS, UNK
+from .native import native_bpe_train
 
 SUFFIX = "</w>"
 _MERGES_HEADER = "#version: 0.2 - Trained by `consistent__style_transfer_torch`"
@@ -211,3 +214,14 @@ class BPETokenizer:
 
     def __len__(self) -> int:
         return len(self.vocab)
+
+
+def train_tokenizer(files: Sequence[str], vocab_size: int,
+                    prefer_native: bool = True) -> BPETokenizer:
+    """Train the vocab and merge tables on ``files``, as the JAX package's
+    ``text/bpe.py:244-262`` does: with the C++ trainer (``native_bpe_train``,
+    whose tables equal :meth:`BPETokenizer.train`'s), or with the Python
+    trainer when ``prefer_native`` is false. A failed native build raises."""
+    if not prefer_native:
+        return BPETokenizer.train(files, vocab_size)
+    return BPETokenizer(*native_bpe_train(files, vocab_size))

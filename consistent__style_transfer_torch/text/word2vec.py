@@ -7,10 +7,11 @@ seed it gives the same vectors; the ``.npz`` format (``vectors`` plus a json
 ``meta`` of vocab and dim) is the same, so either package loads the other's
 file. WMD here is the exact optimal-transport solution (gensim's
 pyemd-backed ``wmdistance``); the training labels use the batched Sinkhorn
-(``data/wmd_labels.py``). The JAX package's hogwild C++ trainer
-(``native/``) is not ported yet (ROADMAP.md): ``train_token_w2v`` and
-``train_sentences_w2v`` always take the numpy trainer, which the JAX
-package also takes whenever its native library is not built.
+(``data/wmd_labels.py``). ``train_token_w2v`` and ``train_sentences_w2v``
+train with the hogwild C++ trainer of ``text/native.py`` (the same vocab
+building and CBOW/negative-sampling scheme, multithreaded), as the JAX
+package's do when its library is built; ``prefer_native=False`` takes the
+numpy trainer. A failed native build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Iterable, Sequence
 import numpy as np
 
 from ..ops.emd import exact_ot_cost
+from .native import native_w2v_train
 
 
 class Word2Vec:
@@ -209,10 +211,11 @@ class Word2Vec:
 
 
 def train_token_w2v(files: Iterable[str], tokenizer, epochs: int = 10, seed: int = 1,
-                    **kw) -> Word2Vec:
+                    prefer_native: bool = True, **kw) -> Word2Vec:
     """Train word2vec over BPE-token streams of the train corpora: the
     reference's WMD labeler setup (``src/wmd.py:14-19``: shuffled corpus,
-    10 epochs, gensim defaults otherwise), with the numpy trainer."""
+    10 epochs, gensim defaults otherwise), with the native trainer, or the
+    numpy one when ``prefer_native`` is false."""
     corpus: list[str] = []
     for path in files:
         with open(path, "r", encoding="utf-8") as f:
@@ -220,10 +223,36 @@ def train_token_w2v(files: Iterable[str], tokenizer, epochs: int = 10, seed: int
     rng = np.random.default_rng(seed)
     rng.shuffle(corpus)
     sentences = [tokenizer.ids_to_tokens(tokenizer.encode(s)) for s in corpus]
+    return train_sentences_w2v(sentences, epochs=epochs, seed=seed,
+                               prefer_native=prefer_native, **kw)
+
+
+def train_sentences_w2v(sentences, epochs: int = 5, seed: int = 1, prefer_native: bool = True,
+                        **kw) -> Word2Vec:
+    """Train word2vec over pre-tokenized sentences with the native trainer
+    (the eval harness's masked word2vec), or the numpy one (a per-token SGD
+    loop) when ``prefer_native`` is false."""
+    if prefer_native:
+        return _native_w2v(sentences, epochs=epochs, seed=seed, **kw)
     return Word2Vec(sentences, epochs=epochs, seed=seed, **kw)
 
 
-def train_sentences_w2v(sentences, epochs: int = 5, seed: int = 1) -> Word2Vec:
-    """Train word2vec over pre-tokenized sentences with the numpy trainer
-    (the eval harness's masked word2vec; a per-token SGD loop)."""
-    return Word2Vec(sentences, epochs=epochs, seed=seed)
+def _native_w2v(sentences, epochs: int, seed: int, dim: int = 100, window: int = 5,
+                min_count: int = 5, negative: int = 5, sample: float = 1e-3,
+                n_threads: int | None = None) -> Word2Vec:
+    """The JAX package's ``text/word2vec.py::_native_w2v``: the numpy
+    trainer's vocab (``min_count``, sorted by count then word), the
+    sentences as its ids, then ``native_w2v_train`` with the same
+    defaults (dim 100, window 5, negative 5, ``min(cpu_count, 8)``
+    threads)."""
+    w2v = Word2Vec(None, dim=dim, window=window, min_count=min_count, negative=negative,
+                   epochs=epochs, sample=sample, seed=seed)
+    w2v._build_vocab(sentences)
+    if not w2v.vocab:
+        w2v.vectors = np.zeros((0, dim), np.float32)
+        return w2v
+    encoded = [[w2v.vocab[t] for t in sent if t in w2v.vocab] for sent in sentences]
+    w2v.vectors = native_w2v_train([e for e in encoded if e], vocab_size=len(w2v.vocab),
+                                   dim=dim, window=window, negative=negative, epochs=epochs,
+                                   sample=sample, seed=seed, n_threads=n_threads)
+    return w2v

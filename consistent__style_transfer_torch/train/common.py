@@ -11,7 +11,8 @@ import torch
 from ..config import Config
 from ..data.corpus import StyleCorpus
 from ..models import DenoiseSeq2Seq, PairMatcher, RelGANDiscriminator, TextCNN, TransformerLM
-from ..text.bpe import BPETokenizer
+from ..text.bpe import BPETokenizer, train_tokenizer
+from ..text.native import NativeBPE
 from ..text.word2vec import Word2Vec, train_token_w2v
 
 
@@ -32,18 +33,24 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def get_tokenizer(cfg: Config) -> BPETokenizer:
+def get_tokenizer(cfg: Config, prefer_native: bool = True) -> NativeBPE | BPETokenizer:
     """Load the dataset tokenizer, training it first if the dump is missing
-    (reference ``src/vocab.py:50-65`` CLI behaviour)."""
+    (reference ``src/vocab.py:50-65`` CLI behaviour), as the JAX package's
+    ``train/common.py:29-48`` does: trained and run in C++
+    (``text/native.py``; the same tables and ids as the Python tokenizer),
+    or in Python when ``prefer_native`` is false. A failed native build
+    raises; nothing falls back."""
     vocab_path, merges_path = cfg.vocab_paths
     if not (os.path.exists(vocab_path) and os.path.exists(merges_path)):
-        BPETokenizer.train(cfg.train_files(), cfg.vocab_size).save(cfg.ds_dump_dir, cfg.dataset)
-    return BPETokenizer.load(vocab_path, merges_path)
+        train_tokenizer(cfg.train_files(), cfg.vocab_size, prefer_native).save(
+            cfg.ds_dump_dir, cfg.dataset)
+    tok = BPETokenizer.load(vocab_path, merges_path)
+    return NativeBPE.from_python(tok) if prefer_native else tok
 
 
 def get_w2v(cfg: Config, tokenizer) -> Word2Vec:
-    """Load the WMD word2vec, training it first (numpy trainer, 10 epochs)
-    and saving it if the dump is missing (reference ``src/wmd.py:58-75``);
+    """Load the WMD word2vec, training it first (the native trainer, 10
+    epochs) and saving it if the dump is missing (reference ``src/wmd.py:58-75``);
     vectors normalised as ``init_sims(replace=True)``."""
     if not os.path.exists(cfg.w2v_path):
         train_token_w2v(cfg.train_files(), tokenizer, epochs=10, seed=cfg.seed).save(cfg.w2v_path)
@@ -64,7 +71,7 @@ def build_generator(cfg: Config, n_vocab: int, device: torch.device,
     bfloat16 compute dtype is then autocast's (the training stages')."""
     model = DenoiseSeq2Seq(n_vocab=n_vocab, n_class=cfg.n_class, max_len=cfg.max_len,
                            rep_penalty=cfg.rep_penalty, p_drop=cfg.p_drop,
-                           seed=cfg.seed).to(device)
+                           seed=cfg.seed, remat=cfg.remat_decode).to(device)
     if training:
         return model.train()
     return model.to(dtype=compute_dtype(cfg)).eval()
@@ -72,16 +79,20 @@ def build_generator(cfg: Config, n_vocab: int, device: torch.device,
 
 def autocast(device: torch.device, dtype: torch.dtype):
     """A training step's compute-dtype context: ``torch.autocast`` in
-    ``dtype`` over float32 parameters, or nothing for float32."""
+    ``dtype`` over float32 parameters, or nothing for float32. While a CUDA
+    graph is being captured it caches no casts (``torch.cuda.graphs``
+    requires ``cache_enabled=False`` there); the numbers are the same."""
     if dtype == torch.float32:
         return contextlib.nullcontext()
-    return torch.autocast(device.type, dtype=dtype)
+    capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    return torch.autocast(device.type, dtype=dtype, cache_enabled=not capturing)
 
 
-def _scorer_size_kw(cfg: Config) -> dict:
-    """Matcher/LM size overrides (``Config.scorer_*``); an empty dict keeps
-    the reference dims of the model defaults."""
-    kw = {}
+def _scorer_kw(cfg: Config) -> dict:
+    """Matcher/LM ``remat`` (``Config.remat_scorers``) and size overrides
+    (``Config.scorer_*``; none keeps the reference dims of the model
+    defaults)."""
+    kw = {"remat": cfg.remat_scorers}
     if cfg.scorer_layers is not None:
         kw["n_layers"] = cfg.scorer_layers
     if cfg.scorer_d_model is not None:
@@ -99,11 +110,11 @@ def build_classifier(cfg: Config, n_vocab: int, device: torch.device) -> TextCNN
 
 
 def build_matcher(cfg: Config, n_vocab: int, device: torch.device) -> PairMatcher:
-    return PairMatcher(n_vocab=n_vocab, seed=cfg.seed + 1, **_scorer_size_kw(cfg)).to(device)
+    return PairMatcher(n_vocab=n_vocab, seed=cfg.seed + 1, **_scorer_kw(cfg)).to(device)
 
 
 def build_lm(cfg: Config, n_vocab: int, device: torch.device) -> TransformerLM:
-    return TransformerLM(n_vocab=n_vocab, seed=cfg.seed + 2, **_scorer_size_kw(cfg)).to(device)
+    return TransformerLM(n_vocab=n_vocab, seed=cfg.seed + 2, **_scorer_kw(cfg)).to(device)
 
 
 def build_discriminator(cfg: Config, n_vocab: int, device: torch.device) -> RelGANDiscriminator:

@@ -32,8 +32,29 @@ Train mode:
 With ``time_major_probs`` (the default) the soft decode stacks stay (L, B,
 V): the consumers project first, the back-translation input is the argmax
 transposed, and the CE targets are transposed to match, so every loss equals
-the batch-major one. The JAX package's ``megastep``, ``resume`` and
-``fused_step_dyn_fn`` are not ported yet (ROADMAP.md).
+the batch-major one.
+
+``megastep_k`` (JAX ``train/optimize.py:369-406``, which scans k fused steps
+in one dispatch): k batches come in one host-to-device copy
+(:class:`~..data.pipeline.MegaBatches`, its short tail included), then k
+steps run back to back, D applying at the epoch-local index
+``% d_update_every``, and the host synchronises once per k. On the card each
+step is a replay of a CUDA graph of ``fused_step``, one graph per
+``do_apply`` branch (:class:`GraphedFusedStep`); a failed capture raises. On
+the CPU the same grouping runs ``fused_step`` eagerly. ``megastep_k=1`` is
+the eager per-batch loop. JAX's ``fused_step_dyn_fn`` (``:408-433``) traces
+``do_apply`` so that XLA compiles both branches once; eager PyTorch compiles
+nothing, and the graphs capture each branch once, so it has no counterpart.
+
+``resume`` (JAX ``:489-511, 575-583``): after every epoch the full state
+(G and D, both optimizers with their step counts, the epoch, the step, the
+best validation loss and its file, and the G and D random generators) goes
+to ``optimize-<ver>/full_state/`` (:class:`~.checkpoint.
+StateCheckpointer`); a resumed run restores it and goes on at the next
+epoch, with the data order of that epoch. The D-gradient accumulator is not
+saved and restarts at zero, as in the JAX package. Unlike the JAX package,
+which restarts its step counter (and so its dropout and coin keys) at 0,
+the generators go on where they stopped.
 
 Test mode (``:157-174, 243-255``): the newest ``G_epoch_*``, else the warmup
 G, transfers the train and test splits to ``.tsf`` files.
@@ -48,7 +69,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..config import Config
-from ..data.pipeline import eval_arrays, make_batches
+from ..data.pipeline import MegaBatches, eval_arrays, make_batches
 from ..data.prefetch import DevicePrefetcher, to_device
 from ..models.generator import sched_coins
 from ..ops.losses import (bce_with_logits, cross_entropy, masked_row_mean, mse,
@@ -57,6 +78,7 @@ from ..utils.io import RunLogger
 from .common import (autocast, build_classifier, build_discriminator, build_generator,
                      build_lm, build_matcher, compute_dtype, generator_call, get_corpus,
                      get_device, get_tokenizer)
+from .checkpoint import StateCheckpointer
 from .infer import run_inference
 from .loop import EarlyStopper, Throughput
 from .state import (AdamWithClip, AsyncSaver, BestKeeper, load_state_dict, newest_checkpoint,
@@ -289,9 +311,75 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
                          accumulate, val_step, fused_step)
 
 
+class GraphedFusedStep:
+    """``fused_step`` as CUDA graphs, one per ``do_apply`` branch, over static
+    buffers: each call copies the batch's ``x`` and ``labels`` (and, with
+    ``given_coins``, the (L,) sched coins) into them and replays the graph
+    of its branch; the first call of a branch runs the step eagerly on a
+    side stream (a real step, which also creates the lazy state: Adam's
+    moments, the library workspaces) and then captures it. A capture that
+    fails raises.
+
+    The G and D generators are registered with each graph, so every replay
+    draws new dropout masks and coins from them; ``copy_scale`` is a 0-dim
+    tensor on the card that the caller fills (each epoch), not a constant
+    baked into the capture. A call returns the graph's static outputs
+    ``(aux, d_loss)``, which the next replay of that branch overwrites: copy
+    what must outlive it."""
+
+    def __init__(self, fused_step: Callable, acc: list, generator: torch.Generator,
+                 d_generator: torch.Generator, copy_scale: torch.Tensor,
+                 given_coins: bool = False):
+        self.fused_step = fused_step
+        self.acc = acc
+        self.generators = (generator, d_generator)
+        self.copy_scale = copy_scale
+        self.given_coins = given_coins
+        self.static: dict[str, torch.Tensor] | None = None
+        self.coins: torch.Tensor | None = None
+        self.graphs: dict[bool, torch.cuda.CUDAGraph] = {}
+        self.outputs: dict[bool, tuple] = {}
+        self.stream = torch.cuda.Stream(copy_scale.device)
+
+    def _run(self, do_apply: bool):
+        return self.fused_step(self.static, self.acc, do_apply, *self.generators,
+                               copy_scale=self.copy_scale, coins=self.coins)
+
+    def __call__(self, batch: dict, do_apply: bool, coins: torch.Tensor | None = None):
+        if self.static is None:
+            self.static = {k: torch.empty_like(batch[k]) for k in ("x", "labels")}
+            if self.given_coins:
+                self.coins = torch.empty(batch["x"].shape[1], dtype=torch.bool,
+                                         device=batch["x"].device)
+        for k, buf in self.static.items():
+            buf.copy_(batch[k])
+        if self.given_coins:
+            self.coins.copy_(coins)
+        graph = self.graphs.get(do_apply)
+        if graph is not None:
+            graph.replay()
+            return self.outputs[do_apply]
+        side = self.stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = self._run(do_apply)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        # other threads (the batch prefetcher) go on copying on their own
+        # stream while this one captures
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            self.outputs[do_apply] = self._run(do_apply)
+        self.graphs[do_apply] = graph
+        return out
+
+
 def run_optimize(cfg: Config, progress: bool = True) -> str | None:
     """Train mode; returns the path of the best G checkpoint (None if the
     validation loss never improved: the reference keeps none then either)."""
+    if cfg.megastep_k < 1:
+        raise ValueError(f"megastep_k must be at least 1, got {cfg.megastep_k}")
     device = get_device(cfg)
     tokenizer = get_tokenizer(cfg)
     V = len(tokenizer)
@@ -326,20 +414,61 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
     generator = torch.Generator(device).manual_seed(cfg.seed)
     d_generator = torch.Generator(device).manual_seed(cfg.seed + 1)
 
-    step = 0
-    for epoch in range(cfg.epochs):
+    start_epoch, step = 0, 0
+    ckpt = StateCheckpointer(os.path.join(task_dump, "full_state")) if cfg.resume else None
+    state = ckpt.restore() if ckpt is not None else None
+    if state is not None:
+        models.generator.load_state_dict(state["g"], strict=True)
+        models.disc.load_state_dict(state["d"], strict=True)
+        g_opt.load_state_dict(state["g_opt"])
+        d_opt.load_state_dict(state["d_opt"])
+        generator.set_state(state["generator"])
+        d_generator.set_state(state["d_generator"])
+        keeper.best = stopper.best = state["best"]
+        keeper.last_path = state["best_path"]
+        start_epoch, step = state["epoch"] + 1, state["step"]
+        train_it.epoch = start_epoch  # that epoch's batch order
+
+    if cfg.megastep_k > 1:
+        copy_scale_t = torch.ones((), device=device)
+        if device.type == "cuda":
+            run_step = GraphedFusedStep(steps.fused_step, acc, generator, d_generator, copy_scale_t)
+        else:
+            def run_step(batch, do_apply):
+                return steps.fused_step(batch, acc, do_apply, generator, d_generator, copy_scale_t)
+
+    for epoch in range(start_epoch, cfg.epochs):
         copy_scale = cfg.w_copy_decay ** epoch  # 1.0 unless a decay is configured
         ep_t0, ep_steps, d_applies = time.time(), 0, 0
-        for batch_idx, (_, arrays) in enumerate(DevicePrefetcher(train_it, device)):
-            do_apply = batch_idx % cfg.d_update_every == 0  # epoch-local index
-            aux, d_loss = steps.fused_step(arrays, acc, do_apply, generator, d_generator,
-                                           copy_scale)
-            d_applies += do_apply
-            thru.add(cfg.batch_size)
-            ep_steps += 1
-            if step % 20 == 0:
-                logger.log(step, D=d_loss, **aux, **thru.rates())
-            step += 1
+        if cfg.megastep_k == 1:
+            for batch_idx, (_, arrays) in enumerate(DevicePrefetcher(train_it, device)):
+                do_apply = batch_idx % cfg.d_update_every == 0  # epoch-local index
+                aux, d_loss = steps.fused_step(arrays, acc, do_apply, generator, d_generator,
+                                               copy_scale)
+                d_applies += do_apply
+                thru.add(cfg.batch_size)
+                ep_steps += 1
+                if step % 20 == 0:
+                    logger.log(step, D=d_loss, **aux, **thru.rates())
+                step += 1
+        else:
+            copy_scale_t.fill_(copy_scale)
+            for _, group in DevicePrefetcher(MegaBatches(train_it, cfg.megastep_k), device):
+                logs = []
+                for i in range(group["x"].shape[0]):
+                    do_apply = ep_steps % cfg.d_update_every == 0  # epoch-local index
+                    aux, d_loss = run_step({k: v[i] for k, v in group.items()}, do_apply)
+                    d_applies += do_apply
+                    thru.add(cfg.batch_size)
+                    ep_steps += 1
+                    if step % 20 == 0:  # copied out before a replay overwrites them
+                        logs.append((step, {"D": d_loss.clone(),
+                                            **{k: v.clone() for k, v in aux.items()}}))
+                    step += 1
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)  # once per group of k batches
+                for logged_step, metrics in logs:
+                    logger.log(logged_step, **metrics, **thru.rates())
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         train_s = time.time() - ep_t0
@@ -358,6 +487,14 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
                   f"{thru.rates()['sentences_per_sec']:.1f} sent/s")
         keeper.update(val_loss, models.generator,
                       os.path.join(task_dump, f"G_epoch_{epoch}.pth"), delete_previous=True)
+        if ckpt is not None:
+            saver.wait()  # the best G it names is on disk first
+            ckpt.save(epoch, {
+                "g": models.generator.state_dict(), "d": models.disc.state_dict(),
+                "g_opt": g_opt.state_dict(), "d_opt": d_opt.state_dict(),
+                "generator": generator.get_state(), "d_generator": d_generator.get_state(),
+                "epoch": epoch, "step": step, "best": keeper.best, "best_path": keeper.last_path,
+            })
         if stopper.update(val_loss):
             break
 

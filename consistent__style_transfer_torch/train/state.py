@@ -28,7 +28,13 @@ class AdamWithClip:
     Every parameter holds a gradient from the start and :meth:`zero_grad`
     zeroes it in place, never to None, so a tower whose loss is off still
     takes an Adam step on zero gradients, moving on its decaying moments, and
-    every parameter's step count is the global one, as under optax."""
+    every parameter's step count is the global one, as under optax.
+
+    On the card the Adam is ``capturable``: its step count lives on the
+    device and the update reads nothing back to the host, so a step can run
+    inside a CUDA graph (the optimize stage's ``megastep_k``); eager steps
+    take the same path. On the CPU, where ``capturable`` is refused, it is
+    the plain Adam."""
 
     def __init__(self, params, lr: float, clip: float):
         self.params = list(params)
@@ -36,10 +42,18 @@ class AdamWithClip:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.clip = clip
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                     capturable=self.params[0].is_cuda)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=False)
+
+    def state_dict(self) -> dict:
+        """The Adam state (moments and step counts) and its hyperparameters."""
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state)
 
     @torch.no_grad()
     def step(self) -> None:

@@ -1,0 +1,72 @@
+"""Profiling hooks: the port of the JAX package's ``utils/profiling.py``. A
+``torch.profiler`` trace of any block (host and, on the card, device
+activity), written as a Chrome trace that Perfetto or ``chrome://tracing``
+opens, and a step-time summary.
+
+``trace`` is on when ``TPUST_TRACE=1`` (or ``enabled=True``), off otherwise,
+and then costs nothing; the trace goes to ``log_dir``, else
+``$TPUST_TRACE_DIR``, else ``log/trace``. The CLI wraps every command in it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None, enabled: bool | None = None):
+    """Profile the enclosed block when enabled; yields the profiler (None
+    when off). The trace is written to ``<log_dir>/trace-<pid>-<time>.json``
+    when the block ends."""
+    if enabled is None:
+        enabled = os.environ.get("TPUST_TRACE", "0") == "1"
+    if not enabled:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or os.environ.get("TPUST_TRACE_DIR", "log/trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        try:
+            yield prof
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace-{os.getpid()}-{int(time.time())}.json"))
+
+
+class StepTimer:
+    """Per-step wall times on the host clock (a ``with`` block each), with
+    p50/p95/mean summaries. A device step is timed only if the block ends
+    in a synchronisation."""
+
+    def __init__(self):
+        self.times: list[float] = []
+        self._t0: float | None = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.times.append(time.perf_counter() - self._t0)
+
+    def summary(self) -> dict:
+        if not self.times:
+            return {}
+        ts = sorted(self.times)
+        n = len(ts)
+        return {
+            "steps": n,
+            "p50_ms": ts[n // 2] * 1e3,
+            "p95_ms": ts[min(int(n * 0.95), n - 1)] * 1e3,
+            "mean_ms": sum(ts) / n * 1e3,
+        }

@@ -12,7 +12,9 @@ lines, so that ref-BLEU is scored):
 - ``human.py``, the all-ones EMDs and the line I/O equal the JAX package's.
 
 The JAX package trains its masked word2vec natively whenever its library
-loads; the tests turn that off, so both packages run the numpy trainer."""
+loads, and so does the port; the tests turn that off on both sides
+(``prefer_native=False`` in the port), so both run the numpy trainer. The
+native trainers are held against each other in tests/test_torch_native.py."""
 
 import csv
 import os
@@ -115,7 +117,7 @@ def test_masked_word2vec_equals_jax_numpy_trainer(styled_corpus, tmp_path,  # no
              + read_lines(f"{styled_corpus}/style.dev.1"))
     masked = mask_style_words(texts, {"terrible", "amazing", "quite"})
     assert masked == jcontent.mask_style_words(texts, {"terrible", "amazing", "quite"})
-    got = train_masked_word2vec(masked, str(tmp_path / "port.npz"), seed=3)
+    got = train_masked_word2vec(masked, str(tmp_path / "port.npz"), seed=3, prefer_native=False)
     want = jcontent.train_masked_word2vec(masked, str(tmp_path / "jax.npz"), seed=3)
     assert got.vocab == want.vocab and "MASK" in got.vocab
     np.testing.assert_array_equal(got.vectors, want.vectors)
@@ -151,7 +153,7 @@ def test_run_prepare_then_eval_near_jax(eval_case, capsys):
     STI 0.65 in both (7.5e-10 apart), NT 0.5 in both."""
     port_dir = str(eval_case["root"] / "port_eval")
     paths = run_prepare(eval_case["data"], eval_case["out"], port_dir, "styled", ver="v0",
-                        device="cpu")
+                        device="cpu", prefer_native=False)
     printed = capsys.readouterr().out
     assert "P@1" in printed and "[prepare] timings" in printed
     assert set(paths["timings"]) == {"classifier_s", "lexicon_s", "mask_s", "mask_w2v_s",
@@ -159,7 +161,7 @@ def test_run_prepare_then_eval_near_jax(eval_case, capsys):
     assert all(os.path.exists(paths[k]) for k in ("classifier", "lexicon", "vectorizer",
                                                   "mask_w2v", "adv_model"))
     again = run_prepare(eval_case["data"], eval_case["out"], port_dir, "styled", ver="v0",
-                        quiet=True, device="cpu")
+                        quiet=True, device="cpu", prefer_native=False)
     assert again["timings"] == {}  # idempotent: every artifact exists
     got = run_eval(eval_case["data"], eval_case["out"], port_dir, "styled", "v0", quiet=True)
     want = eval_case["want"]

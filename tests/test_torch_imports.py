@@ -1,9 +1,12 @@
 """The port stands alone: it imports every module, decodes, and runs a tiny
-pretrain, warmup and optimize with jax, flax, optax, orbax, the JAX package,
+pretrain, warmup and optimize, and its native text runtime, profiling and
+full-state checkpoints, with jax, flax, optax, orbax, the JAX package,
 scikit-learn, gensim, fasttext and pyemd blocked (tests/test_torch_eval_cli.py
 runs the eval commands so), names none of them in its sources or in
-chip_smoke.py, and its entry points refuse to carry on without CUDA unless
-asked for the CPU."""
+chip_smoke.py, builds its native library from ``native/tpust.cc`` into its
+own build directory (never loading the JAX package's ``native/libtpust.so``),
+and its entry points refuse to carry on without CUDA unless asked for the
+CPU."""
 
 import ast
 import os
@@ -106,6 +109,30 @@ print("TRAINED")
 """
 
 
+_BLOCKED_NEW_MODULES = r"""
+import tempfile
+for name in ("text.native", "utils.profiling", "train.checkpoint"):
+    assert "consistent__style_transfer_torch." + name in sys.modules, name
+from consistent__style_transfer_torch.text.native import native_w2v_train
+from consistent__style_transfer_torch.train.checkpoint import StateCheckpointer
+from consistent__style_transfer_torch.utils.profiling import StepTimer, trace
+
+vecs = native_w2v_train([[0, 1, 2, 1]] * 20, 3, dim=4, epochs=1, n_threads=1)
+assert vecs.shape == (3, 4), vecs.shape
+with tempfile.TemporaryDirectory() as d:
+    ckpt = StateCheckpointer(d)
+    ckpt.save(0, {"w": torch.ones(2), "best": 1.0})
+    assert ckpt.restore()["best"] == 1.0
+    timer = StepTimer()
+    with trace(d, enabled=True), timer:
+        torch.ones(3).sum()
+    assert [f for f in os.listdir(d) if f.startswith("trace-")], os.listdir(d)
+    assert timer.summary()["steps"] == 1
+assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
+print("NEW MODULES OK")
+"""
+
+
 def _run_blocked(body: str) -> str:
     proc = subprocess.run([sys.executable, "-c", (_BLOCKED_RUN % (BLOCKED,)) + body], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -127,6 +154,41 @@ def test_port_runs_tiny_warmup_and_optimize_with_jax_blocked(tmp_path):
     out = _run_blocked("torch.set_num_threads(1)\n" + _BLOCKED_PRETRAIN % str(tmp_path)
                        + _BLOCKED_TRAINING)
     assert "TRAINED" in out and "best G:" in out
+
+
+def test_native_profiling_checkpoint_run_with_jax_blocked():
+    assert "NEW MODULES OK" in _run_blocked("import os\n" + _BLOCKED_NEW_MODULES)
+
+
+def test_native_wrapper_loads_only_from_its_build_dir(monkeypatch, tmp_path):
+    """Statically: the wrapper names no prebuilt library (the JAX package's
+    ``native/libtpust.so``) and runs no ``make``; its one ``ctypes.CDLL``
+    loads what ``build()`` returns. Then a build into an empty build dir
+    leaves ``native/`` as it was, and the library lands in the build dir."""
+    from consistent__style_transfer_torch.text import native
+
+    path = os.path.join(PORT, "text", "native.py")
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    strings = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+               and isinstance(n.value, str)]
+    assert not [v for v in strings if "libtpust" in v]
+    assert "make" not in strings
+    loads = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and ast.unparse(n.func) == "ctypes.CDLL"]
+    assert len(loads) == 1 and ast.unparse(loads[0].args[0]) == "build()"
+    assert native.BUILD_DIR == os.path.join(ROOT, "build", "torch_native")
+    assert native.SOURCE == os.path.join(ROOT, "native", "tpust.cc")
+
+    def listing():
+        return sorted((f, os.stat(os.path.join(ROOT, "native", f)).st_mtime_ns)
+                      for f in os.listdir(os.path.join(ROOT, "native")))
+
+    before = listing()
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    built = native.build()
+    assert os.path.dirname(built) == str(tmp_path) and os.path.exists(built)
+    assert listing() == before
 
 
 def _sources():

@@ -54,7 +54,8 @@ def test_port_loads_the_jax_npz(setup):
 
 
 def test_numpy_trainer_gives_the_same_vectors(setup):
-    w = word2vec.train_token_w2v(setup["files"], setup["tok"], epochs=3, seed=4, **W2V_KW)
+    w = word2vec.train_token_w2v(setup["files"], setup["tok"], epochs=3, seed=4,
+                                 prefer_native=False, **W2V_KW)
     assert w.vocab == setup["jw"].vocab
     np.testing.assert_array_equal(w.vectors, setup["jw"].vectors)
 
