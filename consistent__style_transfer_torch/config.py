@@ -86,20 +86,14 @@ class Config:
     copy_mask: bool = True  # style-aware w_copy: weight each position by the
     # source token's style-neutrality (data/style_weights.py) so copy
     # pressure skips style-bearing words
-    megastep_k: int = 1  # optimize-stage batches per host round: >1 groups k
-    # batches into one host-to-device copy and, on the card, replays the
-    # fused step as CUDA graphs (one per D-apply branch), the host
-    # synchronising once per k (train/optimize.py). 1 = the eager per-batch
-    # loop
+    megastep_k: int = 1  # optimize-stage batches per host round: k batches
+    # come up in one host-to-device copy and the host synchronises once per
+    # k (train/optimize.py). Every step replays the fused step's CUDA graph
+    # on the card, whatever k is
     resume: bool = False  # optimize: restore the full train state
     # (optimize-<ver>/full_state/: G and D, both optimizers, the epoch, the
     # best validation loss, the random generators) if present, and write it
     # after every epoch
-    remat_decode: bool = False  # recompute each decoder step in backward
-    # (torch.utils.checkpoint) instead of keeping its activations; the same
-    # numbers. Off by default: on the H100 it costs step time and the step's
-    # memory is small (PERF.md)
-    remat_scorers: bool = False  # the same for each matcher/LM encoder layer
 
     # scorer (Matcher/LM) size overrides; None keeps the reference dims
     # (6 layers, 8 heads, d=512)

@@ -47,15 +47,6 @@ input and each fed-back input; its masks come from an explicit
 ``hard_sample_st(inp) @ table``, without dropout. Soft outputs come
 batch-major (B, L, V), or time-major (L, B, V) with ``time_major_out``; ids
 are always batch-major.
-
-With ``remat`` (``Config.remat_decode``), each decoder step of a decode with
-gradients runs under ``torch.utils.checkpoint``: backward recomputes the
-step (cell, attention, head, feedback) instead of keeping its activations.
-Each step's random draws (its two dropout masks, its Gumbel noise) are made
-before it, outside the checkpoint, in the order the step uses them, and
-handed in: the checkpoint restores only the default generators' state, so a
-draw from the explicit ``generator`` inside it would give the recompute
-other masks and wrong gradients without an error.
 """
 
 from __future__ import annotations
@@ -63,12 +54,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_step import fused_decode_logits
 from ..ops.sampling import hard_sample_st
 from . import initializers as init
-from .transformer import apply_keep, dropout, dropout_keep
+from .transformer import dropout
 
 D_EMBED = 128
 D_ENC = 256
@@ -129,14 +119,12 @@ class LSTM(nn.Module):
 
 class DenoiseSeq2Seq(nn.Module):
     def __init__(self, n_vocab: int, n_class: int, max_len: int,
-                 rep_penalty: float = 0.0, p_drop: float = P_DROP, seed: int = 0,
-                 remat: bool = False):
+                 rep_penalty: float = 0.0, p_drop: float = P_DROP, seed: int = 0):
         super().__init__()
         self.n_vocab = n_vocab
         self.max_len = max_len
         self.rep_penalty = rep_penalty  # greedy decode repetition penalty (alpha)
         self.p_drop = p_drop
-        self.remat = remat  # checkpoint each decoder step of a decode with gradients
         self.start_embedding = nn.Embedding(1, D_EMBED)
         self.token_embedding = nn.Embedding(n_vocab, D_EMBED)
         self.enc_style_embedding = nn.Embedding(n_class, 2 * D_ENC)
@@ -209,90 +197,60 @@ class DenoiseSeq2Seq(nn.Module):
         # sqrt in the compute dtype, as the JAX package takes it; made on the
         # device (no host copy, so a CUDA graph can capture it)
         scale = torch.full((), memory.shape[-1], dtype=memory.dtype, device=device).sqrt()
+        table = self.token_embedding.weight
         L_out = self.max_len if x is None else x.shape[1]
         teacher = None
         if x is not None:
-            teacher = F.embedding(x.long(), self.token_embedding.weight)  # (B, L, E)
+            teacher = F.embedding(x.long(), table)  # (B, L, E)
             if mode == "sched":
                 coins = (sched_coins(L_out, generator, device) if coins is None
                          else coins.to(device=device, dtype=torch.bool))
-        if mode == "greedy":
-            return self._greedy(memory, h, c, x_t, scale, L_out, generator)
-        remat = self.remat and torch.is_grad_enabled()
-        outs = []
-        for t in range(L_out):
-            # the step's draws, in the order it uses them
-            keep_ffn = dropout_keep((B, D_DEC + 2 * D_ENC), self.p_drop, self.training,
-                                    generator, device)
-            g = None
-            if mode == "gumbel":
-                g = gumbel_noise((B, self.n_vocab), generator, device) if noise is None else noise[t]
-            keep_in = dropout_keep((B, D_EMBED), self.p_drop, self.training, generator, device)
-            args = (x_t, h, c, memory, scale, mode, tau, keep_ffn, g, keep_in,
-                    None if teacher is None else teacher[:, t],
-                    None if teacher is None or mode != "sched" else coins[t])
-            if remat:
-                h, c, x_t, out_t = checkpoint(self._step, *args, use_reentrant=False,
-                                              preserve_rng_state=False)
-            else:
-                h, c, x_t, out_t = self._step(*args)
-            outs.append(out_t)
-        return torch.stack(outs, dim=0 if time_major_out else 1)
-
-    def _attend(self, x_t, h, c, memory, scale):
-        """One decoder cell step and its attention: (h, c, [h; a_t])."""
-        h, c = self.decoder.cell(x_t, h, c)
-        # attention over every memory position: PADs included, no mask
-        scores = torch.bmm(memory, h.unsqueeze(-1)).squeeze(-1) / scale
-        a_t = torch.bmm(scores.softmax(dim=-1).unsqueeze(1), memory).squeeze(1)
-        return h, c, torch.cat([h, a_t], dim=-1)
-
-    def _step(self, x_t, h, c, memory, scale, mode, tau, keep_ffn, g, keep_in, teacher_t,
-              coin_t):
-        """One decoder step of a soft or logit mode, with its draws given:
-        -> (h, c, the next input after dropout, the step's output)."""
-        h, c, i_ffn = self._attend(x_t, h, c, memory, scale)
-        logits_t = self.fn_2(F.leaky_relu(self.fn_1(apply_keep(i_ffn, keep_ffn, self.p_drop)), 0.1))
-        table = self.token_embedding.weight
-        if mode in ("st", "gumbel"):
-            if g is not None:
-                logits_t = logits_t + g.to(logits_t.dtype)
-            out_t = torch.softmax(logits_t / tau, dim=-1)
-            x_next = hard_sample_st(out_t) @ table
-        elif mode == "teacher":
-            out_t, x_next = logits_t, teacher_t
-        else:  # sched: the coin picks the teacher token or the greedy one
-            out_t = logits_t
-            x_next = F.embedding(logits_t.argmax(dim=-1), table)
-            if teacher_t is not None:
-                x_next = torch.where(coin_t, teacher_t, x_next)
-        return h, c, apply_keep(x_next, keep_in, self.p_drop), out_t
-
-    def _greedy(self, memory, h, c, x_t, scale, L_out, generator):
-        """Greedy decode: (B, L_out) int32 ids. With ``rep_penalty == 0`` the
-        head is the fused decode-head kernel; else the unfused head minus
-        ``rep_penalty * counts`` of the content tokens (ids >= 3) emitted so
-        far, since the penalty acts before the argmax."""
-        B, device = memory.shape[0], memory.device
+        greedy = mode == "greedy"
         counts = None
-        if self.rep_penalty > 0:
+        if greedy and self.rep_penalty > 0:
             counts = memory.new_zeros(B, self.n_vocab)
             rows = torch.arange(B, device=device)
         outs = []
-        for _ in range(L_out):
-            h, c, i_ffn = self._attend(x_t, h, c, memory, scale)
-            i_ffn = self._drop(i_ffn, generator)
-            if counts is None:
+        for t in range(L_out):
+            h, c = self.decoder.cell(x_t, h, c)
+            # attention over every memory position: PADs included, no mask
+            scores = torch.bmm(memory, h.unsqueeze(-1)).squeeze(-1) / scale
+            a_t = torch.bmm(scores.softmax(dim=-1).unsqueeze(1), memory).squeeze(1)
+            i_ffn = self._drop(torch.cat([h, a_t], dim=-1), generator)
+            if greedy and counts is None:
                 out_t, _ = fused_decode_logits(i_ffn, self.fn_1.weight, self.fn_1.bias,
                                                self.fn_2.weight)
+                x_next = self.token_embedding(out_t)
             else:
                 logits_t = self.fn_2(F.leaky_relu(self.fn_1(i_ffn), 0.1))
-                out_t = (logits_t - self.rep_penalty * counts).argmax(dim=-1).to(torch.int32)
-                counts.index_put_((rows, out_t.long()), (out_t >= 3).to(counts.dtype),
-                                  accumulate=True)
-            x_t = self._drop(self.token_embedding(out_t), generator)
+                if mode in ("st", "gumbel"):
+                    if mode == "gumbel":
+                        g = (gumbel_noise(logits_t.shape, generator, device) if noise is None
+                             else noise[t])
+                        logits_t = logits_t + g.to(logits_t.dtype)
+                    out_t = torch.softmax(logits_t / tau, dim=-1)
+                    x_next = hard_sample_st(out_t) @ table
+                elif greedy:
+                    # the penalty acts before the argmax, so the fused head
+                    # cannot carry it
+                    logits_t = logits_t - self.rep_penalty * counts
+                    out_t = logits_t.argmax(dim=-1).to(torch.int32)
+                    # count only content tokens (ids >= 3): PAD/BOS/EOS stay free
+                    counts.index_put_((rows, out_t.long()), (out_t >= 3).to(counts.dtype),
+                                      accumulate=True)
+                    x_next = self.token_embedding(out_t)
+                elif mode == "teacher":
+                    out_t, x_next = logits_t, teacher[:, t]
+                else:  # sched: the coin picks the teacher token or the greedy one
+                    out_t = logits_t
+                    x_next = F.embedding(logits_t.argmax(dim=-1), table)
+                    if teacher is not None:
+                        x_next = torch.where(coins[t], teacher[:, t], x_next)
+            x_t = self._drop(x_next, generator)
             outs.append(out_t)
-        return torch.stack(outs, dim=1)
+        if greedy:
+            return torch.stack(outs, dim=1)  # (B, L) ids
+        return torch.stack(outs, dim=0 if time_major_out else 1)
 
 
 @torch.inference_mode()

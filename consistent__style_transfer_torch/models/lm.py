@@ -3,8 +3,7 @@ package's ``models/lm.py::TransformerLM`` (reference ``src/model/mlm.py``).
 A 6-layer, 8-head, d=512 bidirectional post-LN encoder (``lm.layers.{i}``)
 over token + learned position embeddings (the position table, capped at
 100, starts xavier-uniform), then a linear head to vocab logits. The
-reference's disabled style embedding stays out. ``remat`` checkpoints each
-encoder layer (``Config.remat_scorers``; ``models/transformer.py``)."""
+reference's disabled style embedding stays out."""
 
 from __future__ import annotations
 
@@ -22,13 +21,11 @@ MAX_POS = 100
 
 class TransformerLM(nn.Module):
     def __init__(self, n_vocab: int, d_model: int = D_MODEL, n_heads: int = N_HEAD,
-                 n_layers: int = N_LAYER, p_drop: float = 0.1, seed: int = 0,
-                 remat: bool = False):
+                 n_layers: int = N_LAYER, p_drop: float = 0.1, seed: int = 0):
         super().__init__()
         self.token_embedding = nn.Embedding(n_vocab, d_model)
         self.posit_embedding = nn.Embedding(MAX_POS, d_model)
-        self.lm = TransformerEncoder(n_layers, d_model, n_heads, p_drop=p_drop,
-                                     remat=remat)
+        self.lm = TransformerEncoder(n_layers, d_model, n_heads, p_drop=p_drop)
         self.fwd = nn.Linear(d_model, n_vocab)
         self.reset_parameters(torch.Generator().manual_seed(seed))
 

@@ -4,9 +4,7 @@ JAX package's ``models/matcher.py::PairMatcher`` (reference
 embeddings; the two sentences are concatenated along time with segment ids
 0/1 and positions restarting per segment; a 6-layer, 8-head, d=512
 post-LN encoder (``matcher.layers.{i}``); max-pool over time; a linear head
-to one score. Trained to regress the WMD label in pretrain. ``remat``
-checkpoints each encoder layer (``Config.remat_scorers``;
-``models/transformer.py``)."""
+to one score. Trained to regress the WMD label in pretrain."""
 
 from __future__ import annotations
 
@@ -24,14 +22,12 @@ MAX_POS = 100
 
 class PairMatcher(nn.Module):
     def __init__(self, n_vocab: int, d_model: int = D_MODEL, n_heads: int = N_HEAD,
-                 n_layers: int = N_LAYER, p_drop: float = 0.1, seed: int = 0,
-                 remat: bool = False):
+                 n_layers: int = N_LAYER, p_drop: float = 0.1, seed: int = 0):
         super().__init__()
         self.token_embedding = nn.Embedding(n_vocab, d_model)
         self.posit_embedding = nn.Embedding(MAX_POS, d_model)
         self.segment_embedding = nn.Embedding(2, d_model)
-        self.matcher = TransformerEncoder(n_layers, d_model, n_heads, p_drop=p_drop,
-                                     remat=remat)
+        self.matcher = TransformerEncoder(n_layers, d_model, n_heads, p_drop=p_drop)
         self.hidden2logits = nn.Linear(d_model, 1)
         self.reset_parameters(torch.Generator().manual_seed(seed))
 

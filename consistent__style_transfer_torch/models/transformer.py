@@ -19,26 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from . import initializers as init
-
-
-def dropout_keep(shape, p: float, training: bool, generator: torch.Generator | None,
-                 device) -> torch.Tensor | None:
-    """The keep mask of one dropout call (keep w.p. 1-p), drawn from
-    ``generator`` (the global generator when None), or None where dropout is
-    the identity (not ``training``, or ``p == 0``). Drawn apart from
-    :func:`apply_keep` so that a recomputed (checkpointed) function can be
-    handed the masks of its first run."""
-    if not training or p == 0.0:
-        return None
-    return torch.rand(shape, generator=generator, device=device) >= p
-
-
-def apply_keep(x: torch.Tensor, keep: torch.Tensor | None, p: float) -> torch.Tensor:
-    """Inverted dropout with flax's rule: kept entries scaled by 1/(1-p)."""
-    return x if keep is None else torch.where(keep, x / (1.0 - p), 0.0)
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
@@ -46,7 +28,10 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     """Inverted dropout with flax's rule (keep w.p. 1-p, scale by 1/(1-p)),
     its mask drawn from ``generator`` (the global generator when None). The
     identity when not ``training``."""
-    return apply_keep(x, dropout_keep(x.shape, p, training, generator, x.device), p)
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 def embed_or_project(x: torch.Tensor, table: torch.Tensor, time_major: bool = False):
@@ -77,15 +62,13 @@ class MultiHeadSelfAttention(nn.Module):
         init.linear_kernel_(self.out_proj.weight, generator)
         init.linear_bias_(self.out_proj.bias, d, generator)
 
-    def forward(self, x, keep=None):
-        """``keep``: the (B, heads, L, L) dropout mask of the attention
-        probabilities, or None for none."""
+    def forward(self, x, generator=None):
         B, L, d = x.shape
         h, hd = self.n_heads, d // self.n_heads
         q, k, v = (t.reshape(B, L, h, hd).transpose(1, 2)
                    for t in F.linear(x, self.in_proj_weight, self.in_proj_bias).split(d, dim=-1))
         scores = q @ k.transpose(-1, -2) / math.sqrt(hd)
-        attn = apply_keep(scores.softmax(dim=-1), keep, self.p_drop)
+        attn = dropout(scores.softmax(dim=-1), self.p_drop, self.training, generator)
         return self.out_proj((attn @ v).transpose(1, 2).reshape(B, L, d))
 
 
@@ -108,38 +91,17 @@ class EncoderLayer(nn.Module):
         for norm in (self.norm1, self.norm2):
             norm.reset_parameters()
 
-    def dropout_masks(self, x, generator=None) -> tuple:
-        """The layer's four dropout masks for input ``x``, in the order the
-        layer uses them (attention probabilities, attention output, FFN
-        hidden, FFN output), each None where dropout is off."""
-        B, L, d = x.shape
-        shapes = ((B, self.self_attn.n_heads, L, L), (B, L, d), (B, L, self.linear1.out_features),
-                  (B, L, d))
-        return tuple(dropout_keep(s, self.p_drop, self.training, generator, x.device)
-                     for s in shapes)
-
-    def forward(self, x, generator=None, masks=None):
-        """``masks``: the four of :meth:`dropout_masks`, drawn from
-        ``generator`` when not given."""
-        attn, out, hidden, ffn = masks if masks is not None else self.dropout_masks(x, generator)
-        x = self.norm1(x + apply_keep(self.self_attn(x, attn), out, self.p_drop))
-        y = self.linear2(apply_keep(F.relu(self.linear1(x)), hidden, self.p_drop))
-        return self.norm2(x + apply_keep(y, ffn, self.p_drop))
+    def forward(self, x, generator=None):
+        drop = lambda t: dropout(t, self.p_drop, self.training, generator)  # noqa: E731
+        x = self.norm1(x + drop(self.self_attn(x, generator)))
+        y = self.linear2(drop(F.relu(self.linear1(x))))
+        return self.norm2(x + drop(y))
 
 
 class TransformerEncoder(nn.Module):
-    """A stack of :class:`EncoderLayer`. With ``remat`` (``Config.
-    remat_scorers``), each layer runs under ``torch.utils.checkpoint`` while
-    gradients are on: its activations are recomputed in backward instead of
-    kept. The layer's dropout masks are drawn before it, outside the
-    checkpoint, and handed in: the recompute reuses them (the checkpoint
-    restores only the default generators' state, not an explicit
-    ``torch.Generator``'s, so masks drawn inside would differ)."""
-
     def __init__(self, n_layers: int, d_model: int, n_heads: int, d_ff: int = 2048,
-                 p_drop: float = 0.1, remat: bool = False):
+                 p_drop: float = 0.1):
         super().__init__()
-        self.remat = remat
         self.layers = nn.ModuleList(EncoderLayer(d_model, n_heads, d_ff, p_drop)
                                     for _ in range(n_layers))
 
@@ -150,9 +112,5 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x, generator=None):
         for layer in self.layers:
-            if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, None, layer.dropout_masks(x, generator),
-                               use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = layer(x, generator)
+            x = layer(x, generator)
         return x

@@ -71,7 +71,7 @@ def build_generator(cfg: Config, n_vocab: int, device: torch.device,
     bfloat16 compute dtype is then autocast's (the training stages')."""
     model = DenoiseSeq2Seq(n_vocab=n_vocab, n_class=cfg.n_class, max_len=cfg.max_len,
                            rep_penalty=cfg.rep_penalty, p_drop=cfg.p_drop,
-                           seed=cfg.seed, remat=cfg.remat_decode).to(device)
+                           seed=cfg.seed).to(device)
     if training:
         return model.train()
     return model.to(dtype=compute_dtype(cfg)).eval()
@@ -88,11 +88,10 @@ def autocast(device: torch.device, dtype: torch.dtype):
     return torch.autocast(device.type, dtype=dtype, cache_enabled=not capturing)
 
 
-def _scorer_kw(cfg: Config) -> dict:
-    """Matcher/LM ``remat`` (``Config.remat_scorers``) and size overrides
-    (``Config.scorer_*``; none keeps the reference dims of the model
-    defaults)."""
-    kw = {"remat": cfg.remat_scorers}
+def _scorer_size_kw(cfg: Config) -> dict:
+    """Matcher/LM size overrides (``Config.scorer_*``); an empty dict keeps
+    the reference dims of the model defaults."""
+    kw = {}
     if cfg.scorer_layers is not None:
         kw["n_layers"] = cfg.scorer_layers
     if cfg.scorer_d_model is not None:
@@ -110,11 +109,11 @@ def build_classifier(cfg: Config, n_vocab: int, device: torch.device) -> TextCNN
 
 
 def build_matcher(cfg: Config, n_vocab: int, device: torch.device) -> PairMatcher:
-    return PairMatcher(n_vocab=n_vocab, seed=cfg.seed + 1, **_scorer_kw(cfg)).to(device)
+    return PairMatcher(n_vocab=n_vocab, seed=cfg.seed + 1, **_scorer_size_kw(cfg)).to(device)
 
 
 def build_lm(cfg: Config, n_vocab: int, device: torch.device) -> TransformerLM:
-    return TransformerLM(n_vocab=n_vocab, seed=cfg.seed + 2, **_scorer_kw(cfg)).to(device)
+    return TransformerLM(n_vocab=n_vocab, seed=cfg.seed + 2, **_scorer_size_kw(cfg)).to(device)
 
 
 def build_discriminator(cfg: Config, n_vocab: int, device: torch.device) -> RelGANDiscriminator:

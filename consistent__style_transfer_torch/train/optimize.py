@@ -34,17 +34,18 @@ V): the consumers project first, the back-translation input is the argmax
 transposed, and the CE targets are transposed to match, so every loss equals
 the batch-major one.
 
-``megastep_k`` (JAX ``train/optimize.py:369-406``, which scans k fused steps
-in one dispatch): k batches come in one host-to-device copy
-(:class:`~..data.pipeline.MegaBatches`, its short tail included), then k
-steps run back to back, D applying at the epoch-local index
-``% d_update_every``, and the host synchronises once per k. On the card each
-step is a replay of a CUDA graph of ``fused_step``, one graph per
-``do_apply`` branch (:class:`GraphedFusedStep`); a failed capture raises. On
-the CPU the same grouping runs ``fused_step`` eagerly. ``megastep_k=1`` is
-the eager per-batch loop. JAX's ``fused_step_dyn_fn`` (``:408-433``) traces
-``do_apply`` so that XLA compiles both branches once; eager PyTorch compiles
-nothing, and the graphs capture each branch once, so it has no counterpart.
+The training loop (JAX ``train/optimize.py:369-406`` with its
+``megastep_k``, which scans k fused steps in one dispatch): k batches come
+in one host-to-device copy (:class:`~..data.pipeline.MegaBatches`, its
+short tail included; k=1 is one batch a copy), then k steps run back to
+back, D applying at the epoch-local index ``% d_update_every``, and the
+host synchronises once per k. On the card every step is a replay of a CUDA
+graph of ``fused_step``, one graph per ``do_apply`` branch
+(:class:`GraphedFusedStep`), whatever k is; a failed capture raises. On the
+CPU the same loop runs ``fused_step`` eagerly. JAX's ``fused_step_dyn_fn``
+(``:408-433``) traces ``do_apply`` so that XLA compiles both branches once;
+eager PyTorch compiles nothing, and the graphs capture each branch once, so
+it has no counterpart.
 
 ``resume`` (JAX ``:489-511, 575-583``): after every epoch the full state
 (G and D, both optimizers with their step counts, the epoch, the step, the
@@ -321,7 +322,8 @@ class GraphedFusedStep:
     fails raises.
 
     The G and D generators are registered with each graph, so every replay
-    draws new dropout masks and coins from them; ``copy_scale`` is a 0-dim
+    draws new dropout masks and coins from them, the same ones the eager
+    step draws from the same generator states; ``copy_scale`` is a 0-dim
     tensor on the card that the caller fills (each epoch), not a constant
     baked into the capture. A call returns the graph's static outputs
     ``(aux, d_loss)``, which the next replay of that branch overwrites: copy
@@ -429,48 +431,33 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
         start_epoch, step = state["epoch"] + 1, state["step"]
         train_it.epoch = start_epoch  # that epoch's batch order
 
-    if cfg.megastep_k > 1:
-        copy_scale_t = torch.ones((), device=device)
-        if device.type == "cuda":
-            run_step = GraphedFusedStep(steps.fused_step, acc, generator, d_generator, copy_scale_t)
-        else:
-            def run_step(batch, do_apply):
-                return steps.fused_step(batch, acc, do_apply, generator, d_generator, copy_scale_t)
+    # the epoch's copy_scale lives on the device, so the graphs read it
+    copy_scale = torch.ones((), device=device)
+    if device.type == "cuda":
+        run_step = GraphedFusedStep(steps.fused_step, acc, generator, d_generator, copy_scale)
+    else:
+        def run_step(batch, do_apply):
+            return steps.fused_step(batch, acc, do_apply, generator, d_generator, copy_scale)
 
     for epoch in range(start_epoch, cfg.epochs):
-        copy_scale = cfg.w_copy_decay ** epoch  # 1.0 unless a decay is configured
+        copy_scale.fill_(cfg.w_copy_decay ** epoch)  # 1.0 unless a decay is configured
         ep_t0, ep_steps, d_applies = time.time(), 0, 0
-        if cfg.megastep_k == 1:
-            for batch_idx, (_, arrays) in enumerate(DevicePrefetcher(train_it, device)):
-                do_apply = batch_idx % cfg.d_update_every == 0  # epoch-local index
-                aux, d_loss = steps.fused_step(arrays, acc, do_apply, generator, d_generator,
-                                               copy_scale)
+        for _, group in DevicePrefetcher(MegaBatches(train_it, cfg.megastep_k), device):
+            logs = []
+            for i in range(group["x"].shape[0]):
+                do_apply = ep_steps % cfg.d_update_every == 0  # epoch-local index
+                aux, d_loss = run_step({k: v[i] for k, v in group.items()}, do_apply)
                 d_applies += do_apply
                 thru.add(cfg.batch_size)
                 ep_steps += 1
-                if step % 20 == 0:
-                    logger.log(step, D=d_loss, **aux, **thru.rates())
+                if step % 20 == 0:  # copied out before a replay overwrites them
+                    logs.append((step, {"D": d_loss.clone(),
+                                        **{k: v.clone() for k, v in aux.items()}}))
                 step += 1
-        else:
-            copy_scale_t.fill_(copy_scale)
-            for _, group in DevicePrefetcher(MegaBatches(train_it, cfg.megastep_k), device):
-                logs = []
-                for i in range(group["x"].shape[0]):
-                    do_apply = ep_steps % cfg.d_update_every == 0  # epoch-local index
-                    aux, d_loss = run_step({k: v[i] for k, v in group.items()}, do_apply)
-                    d_applies += do_apply
-                    thru.add(cfg.batch_size)
-                    ep_steps += 1
-                    if step % 20 == 0:  # copied out before a replay overwrites them
-                        logs.append((step, {"D": d_loss.clone(),
-                                            **{k: v.clone() for k, v in aux.items()}}))
-                    step += 1
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)  # once per group of k batches
-                for logged_step, metrics in logs:
-                    logger.log(logged_step, **metrics, **thru.rates())
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)  # once per group of k batches
+            for logged_step, metrics in logs:
+                logger.log(logged_step, **metrics, **thru.rates())
         train_s = time.time() - ep_t0
 
         # validation; the losses stay on the device until one read

@@ -131,3 +131,18 @@ def test_gumbel_noise_draws_like_jax():
         a = model(x, lab, None, lab, mode="gumbel", generator=torch.Generator().manual_seed(1))
         b = model(x, lab, None, lab, mode="gumbel", generator=torch.Generator().manual_seed(1))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_drawn_noise_is_one_draw_a_step_from_the_generator(case):
+    """Without ``noise`` the decode draws a (B, V) Gumbel sample a step from
+    ``generator``, in step order: the same probs as the (L, B, V) noise made
+    by L calls of ``gumbel_noise`` on a generator from the same seed."""
+    model = _port(case)
+    drawn = torch.Generator().manual_seed(5)
+    noise = torch.stack([gumbel_noise((B, V), drawn, "cpu") for _ in range(L)])
+    with torch.no_grad():
+        args = (torch.from_numpy(case["inp"]), torch.from_numpy(case["labels"]), None,
+                torch.from_numpy(1 - case["labels"]))
+        got = model(*args, mode="gumbel", tau=TAU, generator=torch.Generator().manual_seed(5))
+        want = model(*args, mode="gumbel", tau=TAU, noise=noise)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

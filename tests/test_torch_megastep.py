@@ -4,16 +4,16 @@
   same stacked arrays in the same order, a last short group at its true
   size, the same ``valid`` counts and length;
 - ``run_optimize`` with ``megastep_k=3`` equals the per-batch loop
-  (``megastep_k=1``; the counterpart of tests/test_megastep.py:63): after
-  two epochs of 4 batches (a group of 3, then a tail of 1), the G and D
-  parameters, both Adam states and the generators' states bit for bit, and
-  the logged losses, D's cadence (epoch-local index % ``d_update_every``)
-  and the validation losses equal. On the CPU the grouping runs
-  ``fused_step`` eagerly, in the same order and with the same generators as
-  the per-batch loop, so dropout and the sched coins can stay on and still
-  be compared exactly. The card replays CUDA graphs instead:
+  (``megastep_k=1``, one batch a group; the counterpart of
+  tests/test_megastep.py:63): after two epochs of 4 batches (a group of 3,
+  then a tail of 1), the G and D parameters, both Adam states and the
+  generators' states bit for bit, and the logged losses, D's cadence
+  (epoch-local index % ``d_update_every``) and the validation losses equal.
+  On the CPU every group runs ``fused_step`` eagerly, in the same order and
+  with the same generators, so dropout and the sched coins can stay on and
+  still be compared exactly. The card replays CUDA graphs instead:
   tests/test_torch_megastep_cuda.py holds a replay against the eager step
-  there (dropout off, coins given).
+  there, with dropout and coins drawn as well as without.
 """
 
 import json
@@ -84,9 +84,13 @@ def _run(tiny_corpus, root, k):
     return state, events
 
 
-def test_megastep_3_equals_the_per_batch_loop(tiny_corpus, tmp_path):
-    ref_state, ref_events = _run(tiny_corpus, tmp_path / "k1", 1)
-    state, events = _run(tiny_corpus, tmp_path / "k3", 3)
+@pytest.fixture(scope="module")
+def per_batch_run(tiny_corpus, tmp_path_factory):
+    return _run(tiny_corpus, tmp_path_factory.mktemp("k1"), 1)
+
+
+def _assert_same_run(got, want):
+    (state, events), (ref_state, ref_events) = got, want
     for key in ("g", "d"):
         for name, t in ref_state[key].items():
             assert torch.equal(state[key][name], t), f"{key}.{name}"
@@ -108,6 +112,18 @@ def test_megastep_3_equals_the_per_batch_loop(tiny_corpus, tmp_path):
     assert [e["train_steps"] for e in epochs] == [4, 4]
     assert [e["d_applies"] for e in epochs] == [2, 2]  # epoch-local batches 0 and 2
     assert [e["step"] for e in events if "loss" in e] == [0]  # logged every 20 steps
+
+
+def test_megastep_3_equals_the_per_batch_loop(tiny_corpus, tmp_path, per_batch_run):
+    _assert_same_run(_run(tiny_corpus, tmp_path / "k3", 3), per_batch_run)
+
+
+@pytest.mark.parametrize("k", [2, 4, 5, 8])
+def test_other_megastep_groupings_equal_the_per_batch_loop(tiny_corpus, tmp_path, per_batch_run,
+                                                           k):
+    """Two full groups an epoch (k=2), one group that is the whole epoch
+    (k=4), and one short group larger than the epoch (k=5, 8)."""
+    _assert_same_run(_run(tiny_corpus, tmp_path / f"k{k}", k), per_batch_run)
 
 
 def test_megastep_k_must_be_positive(tiny_corpus, tmp_path):
