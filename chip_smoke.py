@@ -71,7 +71,22 @@ Phases, in order; any failure exits non-zero before the last line:
    ms per step, device ms, device operations, host launch calls and graph
    replays per step, idle share and peak memory beside phase 6's eager
    step; a fresh process that resumes at epoch 1 with the saved best; and
-   ``infer`` from the G it keeps, through the decode head.
+   ``infer`` from the G it keeps, through the decode head;
+9. beam decode and the transformer backbone: the LSTM's stateful beam
+   (K=4) at the yelp serving shape beside greedy on the same batch (ms per
+   batch, sentences/s, device ms, idle share), its float32 ids and scores
+   on the card against the CPU's, ``serve`` and ``infer`` with
+   ``--beam_size 4`` through the CLI on phase 6's G; then the transformer
+   (T5-small widths, float32 compute) on the committed yelp corpus:
+   ``warmup --backbone transformer`` (one epoch, B=512), ``optimize
+   --backbone transformer --epochs 1`` (B=256, the graphed step),
+   ``infer`` greedy through the CLI and the beam of 4 on the test split
+   (checkpoints load strictly, finite losses, one step a batch, D's
+   cadence), graph replays against eager steps in float32 from one saved
+   state, the steady warmup and optimize steps (eager and graphed: ms,
+   device ms, device operations, idle share, peak memory), greedy and
+   beam-4 rates on a batch, and the card's ids against the CPU's. The
+   decode head launches 0 times in the beam and transformer paths.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -133,6 +148,13 @@ NUMPY_TRAINER_S = {"mask_w2v_s": (102.89, 146.34), "eval_prepare_s": (109.64, 15
 GRAPH_TOL = {"float32": {"loss_rel": 1e-5, "param_share": 1e-3},
              "bfloat16": {"loss_rel": 1.5e-2, "param_share": 1e-2}}
 MEGASTEP_K = 8
+# phase 9: the beam width and a check of the card's float32 beam against the
+# CPU's on a few sentences: ids equal, normalised scores (sums of 18 float32
+# log-probs over 18 ** 0.6) within an absolute bound; graph
+# replays of the transformer's fused step against eager ones over this many
+# steps after the two captures (D applies at the first and the fifth)
+BEAM_K, BEAM_CHECK_N, BEAM_SCORE_TOL = 4, 4, 1e-4
+TF_REPLAY_STEPS = 5
 # the host's CUDA runtime calls that put work on the card, as the profiler
 # names them
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -1620,6 +1642,398 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 9
+def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
+    """Beam decode and the transformer backbone at full width:
+    1. the LSTM's stateful beam (K=4) at the yelp serving shape (V=10000,
+       L=18, B=256, bf16, seeded weights): ms per batch and sentences/s
+       beside greedy on the same batch in the same call (and phase 4's
+       ``greedy_full``), device ms and idle share; the card's float32 beam
+       ids and scores against the CPU's on a few sentences; then ``serve``
+       and ``infer`` with ``--beam_size 4`` through the CLI on phase 6's G;
+    2. the transformer (T5-small widths, float32 compute) on the committed
+       yelp corpus, on phase 3's BPE dump and phase 5's scorers: ``warmup
+       --backbone transformer`` (one epoch, B=512), ``optimize --backbone
+       transformer --epochs 1`` (B=256, the graphed fused step), ``infer``
+       greedy through the CLI, and the beam of 4 on the test split: the
+       checkpoints load strictly, the losses are finite, one step a batch,
+       D applied ceil(steps / 4) times; graph replays against eager steps
+       in float32 from one saved state (dropout on, generators restored);
+       the steady warmup and optimize steps (eager, and the optimize step
+       graphed) with device ms, device operations, idle share and peak
+       memory; greedy and beam-4 rates on a batch; the card's greedy ids
+       against the CPU's on a few sentences.
+    The decode head launches 0 times in all of it, the Sinkhorn too."""
+    import numpy as np
+    import torch
+
+    from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.data.noise import align
+    from consistent__style_transfer_torch.data.pipeline import make_batches
+    from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
+    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
+    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
+    from consistent__style_transfer_torch.models.beam import beam_decode_any
+    from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
+    from consistent__style_transfer_torch.models.seq2seq_transformer import TransformerSeq2Seq
+    from consistent__style_transfer_torch.train.common import (
+        build_generator,
+        get_corpus,
+        get_tokenizer,
+    )
+    from consistent__style_transfer_torch.train.infer import make_transfer_step, transfer_split
+    from consistent__style_transfer_torch.train.optimize import (
+        GraphedFusedStep,
+        OptimizeModels,
+        load_frozen,
+        load_generator_params,
+        make_optimize_steps,
+    )
+    from consistent__style_transfer_torch.train.state import AdamWithClip
+    from consistent__style_transfer_torch.train.warmup import make_warmup_steps
+
+    t_phase = time.perf_counter()
+    # phase 8 leaves TF32 on; a fresh process, as a user's CLI run, has it off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(make_config("yelp").device)
+    K = BEAM_K
+    result = {"card": card, "beam_size": K, "length_penalty": 0.6}
+
+    def zero_counts():
+        fused_decode_logits.launches = 0
+        sinkhorn_cuda.launches = 0
+
+    def no_kernel(what):
+        check(fused_decode_logits.launches == 0, f"{what} launched the decode head "
+              f"{fused_decode_logits.launches} times")
+        check(sinkhorn_cuda.launches == 0, f"{what} launched the Sinkhorn")
+
+    def batch_rate(step, x, labels, n):
+        for _ in range(2):
+            step(x, labels)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ids = step(x, labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        launches = fused_decode_logits.launches
+        prof = profile_breakdown(lambda: step(x, labels), batches=1)
+        device_ms = prof.get("device_ms_per_batch")
+        return ids, launches, {
+            "ms_per_batch": ms, "sent_per_s": x.shape[0] * 1e3 / ms,
+            "device_ms_per_batch": device_ms,
+            "device_ops_per_batch": prof.get("kernels_per_batch", "not measured"),
+            "device_idle_share": (1 - device_ms / ms) if isinstance(device_ms, float)
+            else "not measured",
+            "top_device_ops": prof.get("top", ["not measured"])[:5]}
+
+    # 1a. the LSTM beam at the yelp serving shape, beside greedy
+    lstm = DenoiseSeq2Seq(n_vocab=YELP_V, n_class=2, max_len=YELP_L, seed=0)
+    lstm = lstm.to(device, torch.bfloat16).eval()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randint(3, YELP_V, (YELP_B, YELP_L), generator=g, dtype=torch.int32).to(device)
+    labels = torch.randint(0, 2, (YELP_B,), generator=g, dtype=torch.int32).to(device)
+    ids, greedy_launches, greedy = batch_rate(make_transfer_step(lstm), x, labels, 10)
+    check(greedy_launches == YELP_L * 10, f"greedy: {greedy_launches} decode-head launches")
+    result["greedy_beside_beam_launches"] = greedy_launches
+    ids, beam_launches, beam = batch_rate(make_transfer_step(lstm, K), x, labels, 10)
+    check(beam_launches == 0, f"the LSTM beam launched the decode head {beam_launches} times")
+    check(ids.shape == (YELP_B, YELP_L) and ids.dtype == torch.int32
+          and bool(((ids >= 0) & (ids < YELP_V)).all()), "LSTM beam ids shape/range")
+    result["lstm_yelp_shape"] = {
+        "V": YELP_V, "L": YELP_L, "B": YELP_B, "dtype": "bfloat16", "beam": beam,
+        "greedy_same_call": greedy, "greedy_phase_4_ms_per_batch": greedy_full["ms_per_batch"],
+        "beam_over_greedy_ms": beam["ms_per_batch"] / greedy["ms_per_batch"]}
+
+    # 1b. float32 beam, card against CPU, a few sentences
+    f32 = DenoiseSeq2Seq(n_vocab=YELP_V, n_class=2, max_len=YELP_L, seed=0).eval()
+    xs, ls = x[:BEAM_CHECK_N].cpu(), labels[:BEAM_CHECK_N].cpu()
+    cpu_ids, cpu_scores = beam_decode_any(f32, xs, ls, 1 - ls, beam_size=K)
+    f32 = f32.to(device)
+    xd, ld = xs.to(device), ls.to(device)
+    card_ids, card_scores = (t.cpu() for t in beam_decode_any(f32, xd, ld, 1 - ld, beam_size=K))
+    score_err = float((card_scores - cpu_scores).abs().max())
+    check(torch.equal(card_ids, cpu_ids), "f32 LSTM beam ids on the card differ from the CPU's")
+    check(score_err <= BEAM_SCORE_TOL, f"f32 LSTM beam scores {score_err} apart")
+    result["lstm_f32_card_vs_cpu"] = {"sentences": BEAM_CHECK_N, "ids_equal": True,
+                                      "score_max_abs_diff": score_err, "tolerance": BEAM_SCORE_TOL}
+    del lstm, f32
+
+    # 1c. serve and infer --beam_size 4 through the CLI on phase 6's G
+    dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
+                out_dir=os.path.join(work, "output_beam"), log_dir=os.path.join(work, "log_tf"))
+    flags = [a for k, v in dirs.items() for a in (f"--{k}", v)]
+    cfg = make_config("yelp", **dirs)
+    tokenizer = get_tokenizer(cfg)
+    V, L = len(tokenizer), cfg.max_len
+    requests = []
+    for label in (0, 1):
+        with open(os.path.join(cfg.ds_data_dir, f"style.test.{label}"), encoding="utf-8") as f:
+            requests += [f"{label}\t{line.strip()}" for line in f if line.strip()]
+    zero_counts()
+    t0 = time.perf_counter()
+    served = run_cli(["serve", *flags, "--beam_size", str(K)], "\n".join(requests) + "\n")
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    no_kernel("serve --beam_size")
+    check(len(served) == len(requests), f"beam serve printed {len(served)} of {len(requests)}")
+    zero_counts()
+    t0 = time.perf_counter()
+    run_cli(["infer", *flags, "--beam_size", str(K)])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    no_kernel("infer --beam_size")
+    n_infer = 0
+    for split in ("train", "test"):
+        for label in (0, 1):
+            want = count_lines([os.path.join(cfg.ds_data_dir, f"style.{split}.{label}")])
+            with open(os.path.join(cfg.run_out_dir, f"style.{split}.{label}.tsf"),
+                      encoding="utf-8") as f:
+                got = len(f.read().splitlines())
+            check(got == want, f"beam infer {split}.{label}: {got} lines, want {want}")
+            n_infer += want
+    result["lstm_cli"] = {"serve_requests": len(requests), "serve_s": serve_s,
+                          "serve_sent_per_s": len(requests) / serve_s,
+                          "infer_sentences": n_infer, "infer_s": infer_s,
+                          "infer_sent_per_s": n_infer / infer_s, "decode_head_launches": 0}
+    print(json.dumps({"beam_lstm": result}), flush=True)
+
+    # 2. the transformer backbone
+    ver = "v_tf"
+    tf_flags = flags + ["--backbone", "transformer", "--ver", ver]
+    tcfg = make_config("yelp", backbone="transformer", ver=ver, **dirs)
+    n_train = count_lines(tcfg.train_files())
+
+    def load_strict(path):
+        check(os.path.exists(path), f"missing {path}")
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        TransformerSeq2Seq(V, tcfg.n_class, L).load_state_dict(sd, strict=True)
+        check(all(bool(torch.isfinite(v).all()) for v in sd.values()), f"{path}: non-finite")
+
+    def cli_timed(argv):
+        zero_counts()
+        t0 = time.perf_counter()
+        run_cli(argv)
+        torch.cuda.synchronize()
+        no_kernel(f"{argv[0]} --backbone transformer")
+        return time.perf_counter() - t0
+
+    warm_s = cli_timed(["warmup", *tf_flags])
+    warm_path = os.path.join(tcfg.ds_dump_dir, "warmup", "G_transformer.pth")
+    load_strict(warm_path)
+    check(os.path.exists(os.path.join(tcfg.ds_dump_dir, "warmup", "G.pth")),
+          "phase 6's LSTM G.pth is gone")
+    events = read_events(tcfg, "warmup")
+    warm_losses = check_finite_losses(events, ("dn_loss", "val_loss"), "transformer warmup")
+    warm_epoch = [e for e in events if "train_steps" in e][-1]
+    want = n_train // tcfg.warmup_batch_size
+    check(warm_epoch["train_steps"] == want, f"transformer warmup: {warm_epoch['train_steps']}")
+
+    opt_s = cli_timed(["optimize", *tf_flags, "--epochs", "1"])
+    task = os.path.join(tcfg.ds_dump_dir, f"optimize-{ver}")
+    load_strict(os.path.join(task, "G_epoch_0.pth"))
+    events = read_events(tcfg, f"optimize-{ver}")
+    opt_losses = check_finite_losses(events, ("G", "STI", "CP", "BK", "D", "loss", "val_loss"),
+                                     "transformer optimize")
+    opt_epoch = [e for e in events if "train_steps" in e][-1]
+    want = n_train // tcfg.batch_size
+    check(opt_epoch["train_steps"] == want, f"transformer optimize: {opt_epoch['train_steps']}")
+    check(opt_epoch["d_applies"] == math.ceil(want / tcfg.d_update_every),
+          f"transformer optimize: D applied {opt_epoch['d_applies']}")
+
+    infer_s = cli_timed(["infer", *tf_flags])
+    n_infer = sum(count_lines(tcfg.split_files(s)) for s in ("train", "test"))
+    for split in ("train", "test"):
+        for label in (0, 1):
+            path = os.path.join(tcfg.run_out_dir, f"style.{split}.{label}.tsf")
+            check(os.path.exists(path), f"missing {path}")
+
+    # beam 4 on the test split, the trained G
+    bcfg = make_config("yelp", backbone="transformer", ver=ver, beam_size=K, mode="test", **dirs)
+    model = build_generator(bcfg, V, device)
+    load_generator_params(bcfg, model)
+    zero_counts()
+    t0 = time.perf_counter()
+    routed = transfer_split(bcfg, model, tokenizer, "test")
+    torch.cuda.synchronize()
+    beam_test_s = time.perf_counter() - t0
+    no_kernel("the transformer beam")
+    n_test = count_lines(bcfg.split_files("test"))
+    check(len(routed[0]) + len(routed[1]) == n_test, "transformer beam: lines missing")
+
+    # greedy and beam rates on one batch, and the card against the CPU
+    corpus = get_corpus(tcfg, "test", tokenizer)
+    batch = next(iter(make_batches(corpus, tcfg.batch_size, L, "optimize", shuffle=False,
+                                   seed=0)))
+    bx = torch.from_numpy(batch["x"]).to(device)
+    bl = torch.from_numpy(batch["labels"]).to(device)
+    _, _, tf_greedy = batch_rate(make_transfer_step(model), bx, bl, 5)
+    _, _, tf_beam = batch_rate(make_transfer_step(model, K), bx, bl, 2)
+    check(fused_decode_logits.launches == 0, "the transformer launched the decode head")
+    enc = [tokenizer.encode(r.split("\t", 1)[1])[:L] for r in requests[::125]]
+    xs, _ = align(enc, 0, L)
+    xs = torch.from_numpy(xs)
+    ls = torch.tensor([int(r[0]) for r in requests[::125]], dtype=torch.int32)
+    card = make_transfer_step(model)(xs.to(device), ls.to(device)).cpu()
+    card_beam = [t.cpu() for t in beam_decode_any(model, xs[:2].to(device), ls[:2].to(device),
+                                                  1 - ls[:2].to(device), beam_size=K)]
+    cpu_model = build_generator(make_config("yelp", backbone="transformer", device="cpu"), V,
+                                torch.device("cpu"))
+    cpu_model.load_state_dict(model.state_dict())
+    cpu = make_transfer_step(cpu_model)(xs, ls)
+    cpu_beam = beam_decode_any(cpu_model, xs[:2], ls[:2], 1 - ls[:2], beam_size=K)
+    check(torch.equal(card, cpu), "transformer greedy ids on the card differ from the CPU's")
+    check(torch.equal(card_beam[0], cpu_beam[0]), "transformer beam ids differ from the CPU's")
+    tf_score_err = float((card_beam[1] - cpu_beam[1]).abs().max())
+    check(tf_score_err <= BEAM_SCORE_TOL, f"transformer beam scores {tf_score_err} apart")
+    del model, cpu_model
+
+    # graph replays against eager steps, float32, dropout on, from one state
+    def build(dtype):
+        c = make_config("yelp", backbone="transformer", ver=ver, dtype=dtype, **dirs)
+        models = OptimizeModels(c, V, device)
+        load_frozen(c, models)
+        load_generator_params(c, models.generator)  # the transformer's warmup G
+        opts = (AdamWithClip(models.generator.parameters(), c.optimize_lr, c.optimize_clip),
+                AdamWithClip(models.disc.parameters(), c.optimize_lr, c.optimize_clip))
+        steps = make_optimize_steps(c, models, *opts)
+        acc = [torch.zeros_like(p) for p in models.disc.parameters()]
+        gens = (torch.Generator(device).manual_seed(1), torch.Generator(device).manual_seed(2))
+        return models, steps, opts, acc, gens
+
+    train_corpus = get_corpus(tcfg, "train", tokenizer)
+
+    def stream(stage, batch_size):
+        return iter(DevicePrefetcher(make_batches(train_corpus, batch_size, L, stage,
+                                                  shuffle=True, seed=1), device))
+
+    batches = stream("optimize", tcfg.batch_size)
+    try:
+        fixed = [next(batches)[1] for _ in range(TF_REPLAY_STEPS + 2)]
+    finally:
+        batches.close()
+    models, steps, opts, acc, gens = build("float32")
+    scale = torch.ones((), device=device)
+    runner = GraphedFusedStep(steps.fused_step, acc, *gens, scale)
+    runner(fixed[0], True)
+    runner(fixed[1], False)
+    check(sorted(runner.graphs) == [False, True], "both branches were not captured")
+    params = [p for m in (models.generator, models.disc) for p in m.parameters()]
+    state = params + acc + [t for o in opts for st in o.adam.state.values()
+                            for t in st.values() if isinstance(t, torch.Tensor)]
+    torch.cuda.synchronize()
+    saved = [t.detach().clone() for t in state]
+    saved_gens = [gen.get_state() for gen in gens]
+    runs = []
+    for graphed in (False, True):
+        with torch.no_grad():
+            for t, v in zip(state, saved):
+                t.copy_(v)
+        for gen, v in zip(gens, saved_gens):
+            gen.set_state(v)
+        losses = []
+        for i, b in enumerate(fixed[2:]):
+            do_apply = i % tcfg.d_update_every == 0
+            aux, d_loss = runner(b, do_apply) if graphed else steps.fused_step(b, acc, do_apply,
+                                                                                *gens, scale)
+            losses.append(torch.stack([aux[k].float() for k in ("loss", "G", "STI", "CP",
+                                                                 "BK")] + [d_loss.float()]))
+        torch.cuda.synchronize()
+        runs.append((torch.stack(losses), [p.detach().clone() for p in params],
+                     [gen.get_state() for gen in gens]))
+    (l0, p0, g0), (l1, p1, g1) = runs
+    tol = GRAPH_TOL["float32"]
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p1, p0)])
+    move = torch.cat([(a - b).abs().flatten() for a, b in zip(p0, saved)])
+    replay = {"steps": TF_REPLAY_STEPS, "p_drop": tcfg.p_drop, "dtype": "float32",
+              "loss_max_rel_diff": float(((l1 - l0).abs() / l0.abs().clamp_min(1e-6)).max()),
+              "param_mean_abs_diff": float(diff.mean()), "param_max_abs_diff": float(diff.max()),
+              "param_mean_abs_move": float(move.mean()),
+              "param_share": float(diff.mean() / move.mean().clamp_min(1e-30)),
+              "generator_states_equal": all(torch.equal(a, b) for a, b in zip(g0, g1)),
+              "finite": bool(torch.isfinite(l0).all()), "tolerance": tol}
+    print(json.dumps({"transformer_replay_vs_eager": replay}), flush=True)
+    check(replay["finite"], "transformer: non-finite eager losses")
+    check(replay["loss_max_rel_diff"] <= tol["loss_rel"],
+          f"transformer replays: losses {replay['loss_max_rel_diff']} apart")
+    check(replay["param_share"] <= tol["param_share"],
+          f"transformer replays: parameters {replay['param_share']} of their move apart")
+    check(replay["generator_states_equal"], "transformer replays moved the generators otherwise")
+    del models, steps, opts, acc, runner, state, saved
+
+    # steady steps at the CLI's settings (bf16 autocast for the scorers)
+    model = build_generator(tcfg, V, device, training=True)
+    model.load_state_dict(torch.load(warm_path, map_location=device, weights_only=True))
+    warm_step, _ = make_warmup_steps(model, AdamWithClip(model.parameters(), tcfg.warmup_lr,
+                                                         tcfg.warmup_clip), torch.bfloat16)
+    gen = torch.Generator(device).manual_seed(1)
+    batches = stream("warmup", tcfg.warmup_batch_size)
+    try:
+        warm_steady = steady_step(lambda: warm_step(next(batches)[1], gen), batches=10)
+    finally:
+        batches.close()
+    del model, warm_step
+
+    models, steps, _, acc, gens = build("bfloat16")
+    st = {"i": 0}
+
+    def eager():
+        out = steps.fused_step(next(batches)[1], acc, st["i"] % tcfg.d_update_every == 0, *gens)
+        st["i"] += 1
+        return out
+
+    batches = stream("optimize", tcfg.batch_size)
+    try:
+        opt_eager = steady_step(eager, batches=10)
+    finally:
+        batches.close()
+    runner = GraphedFusedStep(steps.fused_step, acc, *gens, torch.ones((), device=device))
+
+    def graphed():
+        out = runner(next(batches)[1], st["i"] % tcfg.d_update_every == 0)
+        st["i"] += 1
+        return out
+
+    batches = stream("optimize", tcfg.batch_size)
+    try:
+        opt_graphed = steady_step(graphed, batches=10)
+        aux, d_loss = graphed()
+        check(all(math.isfinite(v.item()) for v in (*aux.values(), d_loss)),
+              "non-finite graphed transformer losses")
+    finally:
+        batches.close()
+    no_kernel("the transformer's steady steps")
+    del models, steps, acc, runner
+
+    result["transformer"] = {
+        "V": V, "L": L, "widths": "T5-small: d=512, 8 heads, 6+6 layers, ff 2048",
+        "compute": "float32 (its parameters and products; the scorers bf16 autocast)",
+        "train_sentences": n_train,
+        "warmup": {"cli_s": warm_s, "train_steps": warm_epoch["train_steps"],
+                   "batch_size": tcfg.warmup_batch_size,
+                   "ms_per_step_epoch": warm_epoch["train_s"] * 1e3 / warm_epoch["train_steps"],
+                   "losses": warm_losses, **warm_steady},
+        "optimize": {"cli_s": opt_s, "train_steps": opt_epoch["train_steps"],
+                     "d_applies": opt_epoch["d_applies"], "batch_size": tcfg.batch_size,
+                     "ms_per_step_epoch_graphed": opt_epoch["train_s"] * 1e3
+                     / opt_epoch["train_steps"],
+                     "losses": opt_losses, "eager": opt_eager, "graphed": opt_graphed},
+        "replay_vs_eager": replay,
+        "infer_greedy": {"s": infer_s, "sentences": n_infer, "sent_per_s": n_infer / infer_s},
+        "beam_test_split": {"s": beam_test_s, "sentences": n_test,
+                            "sent_per_s": n_test / beam_test_s},
+        "greedy_batch": tf_greedy, "beam_batch": tf_beam,
+        "f32_card_vs_cpu": {"greedy_sentences": len(enc), "beam_sentences": 2,
+                            "ids_equal": True, "beam_score_max_abs_diff": tf_score_err},
+        "decode_head_launches": 0}
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"beam_transformer": result["transformer"], "phase_9_s": result["phase_s"]}),
+          flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1639,6 +2053,7 @@ def main() -> int:
         trained = phase_training(work, card)
         evaluated = phase_eval(work, card)
         mega = phase_megastep(work, card, trained["optimize"])
+        beams = phase_beam_and_transformer(work, card, full)
 
     yelp = timed[f"bfloat16_V{YELP_V}"]
     real = pre["sinkhorn_label_batch"]
@@ -1681,14 +2096,19 @@ def main() -> int:
         "launches": (served["serve_launches"] + served["infer_launches"]
                      + trained["infer"]["decode_head_launches"]
                      + evaluated["run"]["decode_head_launches"]
-                     + mega["infer"]["decode_head_launches"]),
+                     + mega["infer"]["decode_head_launches"]
+                     + beams["greedy_beside_beam_launches"]),
         "launches_by_path": {"serve": served["serve_launches"], "infer": served["infer_launches"],
                              "warmup": 0, "optimize": 0,
                              "infer_after_optimize": trained["infer"]["decode_head_launches"],
                              "eval_prepare": 0, "eval": 0,
                              "run": evaluated["run"]["decode_head_launches"],
                              "optimize_megastep": 0,
-                             "infer_after_megastep": mega["infer"]["decode_head_launches"]},
+                             "infer_after_megastep": mega["infer"]["decode_head_launches"],
+                             "serving_greedy_beside_beam": beams["greedy_beside_beam_launches"],
+                             "serving_beam": 0, "serve_beam": 0, "infer_beam": 0,
+                             "warmup_transformer": 0, "optimize_transformer": 0,
+                             "infer_transformer": 0, "infer_transformer_beam": 0},
         "launches_per_batch": full["launches_per_batch"],
         "max_abs_err": yelp["max_abs_err_h"],
         "max_abs_err_h": yelp["max_abs_err_h"],

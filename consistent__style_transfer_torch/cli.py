@@ -7,6 +7,7 @@ Commands:
   w2v           train/load the WMD word2vec dump
   pretrain      stage 1: the three scorers (classifier, matcher, LM denoiser)
   warmup        stage 2: the generator's denoising warmup -> warmup/G.pth
+                (warmup/G_transformer.pth with --backbone transformer)
   optimize      stage 3: adversarial style transfer -> optimize-<ver>/G_epoch_<n>.pth
                 (--mode=test: inference, as infer)
   serve         stdin->stdout batch transfer with the current best G
@@ -22,6 +23,13 @@ Commands:
   ablate        the reference's job.sh sweep: warmup once, then optimize
                 train + test, eval-prepare and eval for each ver in {full,
                 wo_s, wo_c, wo_adv, wo_bt, wo_allc}
+
+Two flags choose the generator and its decode: ``--backbone
+lstm|transformer`` (every command that trains or runs G: the reference's
+LSTM, or the T5-small-wide transformer, which computes in float32 whatever
+``--dtype`` says) and ``--beam_size K`` (``serve``, ``infer`` and the test
+half of ``run``/``ablate`` decode with a length-normalised beam of K,
+either backbone, instead of greedy).
 
 The JAX package's ``bench`` is not ported yet and exits with status 2;
 ROADMAP.md has the order. Every command runs on ``--device cuda`` (the
@@ -165,7 +173,7 @@ def cmd_serve(cfg: Config) -> None:
     tokenizer = get_tokenizer(cfg)
     model = build_generator(cfg, len(tokenizer), device)
     load_generator_params(cfg, model)
-    step = make_transfer_step(model)
+    step = make_transfer_step(model, cfg.beam_size)
 
     def flush(styles, texts):
         if not texts:

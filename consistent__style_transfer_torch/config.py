@@ -64,6 +64,9 @@ class Config:
     # subtracts alpha*count(token emitted so far) from the logits of content
     # tokens. 0 = off (reference-faithful decode, through the fused head kernel)
     device: str = "cuda"  # cuda (default; raises when absent) | cpu | cuda:<n>
+    backbone: str = "lstm"  # generator family: lstm (reference parity) | transformer
+    # (T5-small widths; computes in float32 whatever dtype says)
+    beam_size: int = 1  # >1: beam decode at inference (serve, infer), either backbone
     fuse_gan_steps: bool = False  # reuse the G-step's fake decode for the D
     # step (saves one of the three rollouts per batch; the reference
     # recomputes it under no_grad each batch, so the default stays faithful)
@@ -154,6 +157,9 @@ PRESETS = {
 }
 
 
+BACKBONES = ("lstm", "transformer")
+
+
 def make_config(dataset: str = "yelp", preset: str | None = None, **overrides) -> Config:
     cfg = Config(dataset=dataset)
     named = {}
@@ -165,6 +171,8 @@ def make_config(dataset: str = "yelp", preset: str | None = None, **overrides) -
         if not hasattr(cfg, k):
             raise ValueError(f"unknown config field {k!r}")
         setattr(cfg, k, v)
+    if cfg.backbone not in BACKBONES:
+        raise ValueError(f"backbone must be one of {BACKBONES}, got {cfg.backbone!r}")
     return cfg
 
 

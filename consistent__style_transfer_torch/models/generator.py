@@ -40,6 +40,9 @@ Decode modes (reference ``rnn.py:82-96``):
   [tiny, 1) as ``jax.random.gumbel`` draws it, from ``generator`` unless
   ``noise`` is given; straight-through feedback as in ``st``.
 
+:func:`stateful_beam_decode` is the beam search on the trained model (one
+encoder pass, K copies of the decoder state, the unfused head).
+
 Dropout (``p_drop``, flax's inverted rule) acts in training mode only, at
 three places as in the JAX package: the encoder's id embeddings, the FFN
 input and each fed-back input; its masks come from an explicit
@@ -170,6 +173,32 @@ class DenoiseSeq2Seq(nn.Module):
         memory = torch.cat([mem_f, mem_b.flip(1)], dim=-1)
         return memory, torch.cat([c_f, c_b], dim=-1)
 
+    def init_state(self, memory, c_end, label):
+        """The decoder's first (h, c, x_t): h the target-style embedding, c
+        LeakyReLU_0.1(transfer(c_end)), x_t the start embedding; and the
+        attention scale sqrt(2*D_ENC), in the compute dtype, as the JAX
+        package takes it, made on the device (no host copy, so a CUDA graph
+        can capture it)."""
+        h = self.style_embedding(label)
+        c = F.leaky_relu(self.transfer(c_end), 0.1)
+        x_t = self.start_embedding(torch.zeros(memory.shape[0], dtype=torch.long,
+                                               device=memory.device))
+        scale = torch.full((), memory.shape[-1], dtype=memory.dtype, device=memory.device).sqrt()
+        return h, c, x_t, scale
+
+    def decoder_step(self, x_t, h, c, memory, scale):
+        """One decoder step before the head: the LSTM cell, then attention
+        of its output over every memory position (PADs included, no mask).
+        Returns (h, c, the FFN input [h; a_t]) without dropout."""
+        h, c = self.decoder.cell(x_t, h, c)
+        scores = torch.bmm(memory, h.unsqueeze(-1)).squeeze(-1) / scale
+        a_t = torch.bmm(scores.softmax(dim=-1).unsqueeze(1), memory).squeeze(1)
+        return h, c, torch.cat([h, a_t], dim=-1)
+
+    def head(self, i_ffn):
+        """The unfused FFN head: vocab logits fn_2(LeakyReLU_0.1(fn_1(i_ffn)))."""
+        return self.fn_2(F.leaky_relu(self.fn_1(i_ffn), 0.1))
+
     def forward(self, inp, label_i, x, label, mode: str = "sched", tau: float = 1.0,
                 time_major_out: bool = False, generator: torch.Generator | None = None,
                 coins: torch.Tensor | None = None, noise: torch.Tensor | None = None):
@@ -191,12 +220,7 @@ class DenoiseSeq2Seq(nn.Module):
         label_i, label = label_i.long(), label.long()
         memory, c_end = self.encode(inp, label_i, generator)
         B, device = memory.shape[0], memory.device
-        h = self.style_embedding(label)
-        c = F.leaky_relu(self.transfer(c_end), 0.1)
-        x_t = self.start_embedding(torch.zeros(B, dtype=torch.long, device=device))
-        # sqrt in the compute dtype, as the JAX package takes it; made on the
-        # device (no host copy, so a CUDA graph can capture it)
-        scale = torch.full((), memory.shape[-1], dtype=memory.dtype, device=device).sqrt()
+        h, c, x_t, scale = self.init_state(memory, c_end, label)
         table = self.token_embedding.weight
         L_out = self.max_len if x is None else x.shape[1]
         teacher = None
@@ -212,17 +236,14 @@ class DenoiseSeq2Seq(nn.Module):
             rows = torch.arange(B, device=device)
         outs = []
         for t in range(L_out):
-            h, c = self.decoder.cell(x_t, h, c)
-            # attention over every memory position: PADs included, no mask
-            scores = torch.bmm(memory, h.unsqueeze(-1)).squeeze(-1) / scale
-            a_t = torch.bmm(scores.softmax(dim=-1).unsqueeze(1), memory).squeeze(1)
-            i_ffn = self._drop(torch.cat([h, a_t], dim=-1), generator)
+            h, c, i_ffn = self.decoder_step(x_t, h, c, memory, scale)
+            i_ffn = self._drop(i_ffn, generator)
             if greedy and counts is None:
                 out_t, _ = fused_decode_logits(i_ffn, self.fn_1.weight, self.fn_1.bias,
                                                self.fn_2.weight)
                 x_next = self.token_embedding(out_t)
             else:
-                logits_t = self.fn_2(F.leaky_relu(self.fn_1(i_ffn), 0.1))
+                logits_t = self.head(i_ffn)
                 if mode in ("st", "gumbel"):
                     if mode == "gumbel":
                         g = (gumbel_noise(logits_t.shape, generator, device) if noise is None
@@ -258,3 +279,43 @@ def greedy_transfer(model: DenoiseSeq2Seq, x, labels):
     """Transfer x (B, L) to the opposite style with greedy decode (reference
     test path, ``src/main_optimize.py:157-164``): ids (B, max_len) int32."""
     return model(x, labels, None, 1 - labels, mode="greedy")
+
+
+@torch.inference_mode()
+def stateful_beam_decode(model: DenoiseSeq2Seq, x, label_i, label, beam_size: int = 4,
+                         length_penalty: float = 0.6):
+    """Beam decode of x (B, L) on the trained ``model`` itself, the port of
+    the JAX package's ``BeamDenoiseSeq2Seq``: one encoder pass on the
+    un-tiled batch, then K copies of (h, c, memory); beams 1..K-1 start at
+    -1e9 so the K equal start states do not give K copies of the greedy
+    path. Each of the ``max_len`` steps takes log_softmax in float32 over
+    the unfused FFN head, the top K of the K*V sums and a gather of the
+    kept beams' rows. Without dropout, in the model's dtype. Returns (ids
+    (B, max_len) int32, scores (B,) = the best beam's sum / L ** 0.6)."""
+    from .beam import best_beam
+
+    if model.training:
+        raise ValueError("beam decode runs the model in eval mode (no dropout)")
+    K, L, V = beam_size, model.max_len, model.n_vocab
+    label_i, label = label_i.long(), label.long()
+    memory, c_end = model.encode(x, label_i)
+    B, device = memory.shape[0], memory.device
+    h, c, x_t, scale = model.init_state(memory, c_end, label)
+    h, c, x_t, memory = (t.repeat_interleave(K, 0) for t in (h, c, x_t, memory))
+    table = model.token_embedding.weight
+    scores = torch.full((B, K), -1e9, device=device)
+    scores[:, 0] = 0.0
+    scores = scores.reshape(-1)
+    seqs = torch.zeros(B * K, L, dtype=torch.int32, device=device)
+    group = torch.arange(B, device=device)[:, None] * K  # each sentence's first row
+    for t in range(L):
+        h, c, i_ffn = model.decoder_step(x_t, h, c, memory, scale)
+        logp = torch.log_softmax(model.head(i_ffn).float(), dim=-1)
+        scores, flat = (scores[:, None] + logp).reshape(B, K * V).topk(K, dim=-1)
+        tok = flat % V
+        rows = (group + flat // V).reshape(-1)
+        h, c, seqs = h[rows], c[rows], seqs[rows]
+        seqs[:, t] = tok.reshape(-1).to(torch.int32)
+        scores = scores.reshape(-1)
+        x_t = F.embedding(tok.reshape(-1), table)
+    return best_beam(seqs, scores, B, K, L, length_penalty)

@@ -8,9 +8,10 @@ import os
 
 import torch
 
-from ..config import Config
+from ..config import BACKBONES, Config
 from ..data.corpus import StyleCorpus
 from ..models import DenoiseSeq2Seq, PairMatcher, RelGANDiscriminator, TextCNN, TransformerLM
+from ..models.seq2seq_transformer import TransformerSeq2Seq, generate
 from ..text.bpe import BPETokenizer, train_tokenizer
 from ..text.native import NativeBPE
 from ..text.word2vec import Word2Vec, train_token_w2v
@@ -64,14 +65,24 @@ def get_corpus(cfg: Config, split: str, tokenizer) -> StyleCorpus:
 
 
 def build_generator(cfg: Config, n_vocab: int, device: torch.device,
-                    training: bool = False) -> DenoiseSeq2Seq:
-    """The LSTM generator on ``device`` with fresh weights from ``cfg.seed``
-    (a checkpoint load replaces them). For serving: in the compute dtype, in
-    eval mode. With ``training``: float32 master parameters in train mode; a
-    bfloat16 compute dtype is then autocast's (the training stages')."""
-    model = DenoiseSeq2Seq(n_vocab=n_vocab, n_class=cfg.n_class, max_len=cfg.max_len,
-                           rep_penalty=cfg.rep_penalty, p_drop=cfg.p_drop,
-                           seed=cfg.seed).to(device)
+                    training: bool = False) -> DenoiseSeq2Seq | TransformerSeq2Seq:
+    """The generator of ``cfg.backbone`` on ``device`` with fresh weights
+    from ``cfg.seed`` (a checkpoint load replaces them), in train mode with
+    ``training``, else in eval mode.
+
+    The LSTM: for serving, in the compute dtype; for training, float32
+    master parameters, a bfloat16 compute dtype then being autocast's (the
+    training stages'); ``rep_penalty`` applies to it only. The transformer
+    keeps float32 parameters and computes in float32 in both, as the JAX
+    package's does whatever ``dtype`` says."""
+    kw = dict(n_vocab=n_vocab, n_class=cfg.n_class, max_len=cfg.max_len, p_drop=cfg.p_drop,
+              seed=cfg.seed)
+    if cfg.backbone == "transformer":
+        model = TransformerSeq2Seq(**kw).to(device)
+        return model.train(training)
+    if cfg.backbone != "lstm":
+        raise ValueError(f"backbone must be one of {BACKBONES}, got {cfg.backbone!r}")
+    model = DenoiseSeq2Seq(rep_penalty=cfg.rep_penalty, **kw).to(device)
     if training:
         return model.train()
     return model.to(dtype=compute_dtype(cfg)).eval()
@@ -126,7 +137,21 @@ def generator_call(model, inp, label_i, x, label, mode: str = "sched", tau: floa
     """Generator invocation with the reference call semantics (inp,
     input-style, teacher x, output-style, decode mode), plus the st
     temperature, the soft output layout, the dropout/coin generator and
-    given sched coins (``DenoiseSeq2Seq.forward``). The transformer
-    backbone, which the JAX package dispatches here, is not ported yet."""
+    given sched coins, for either backbone (JAX ``train/common.py:85-114``).
+
+    The LSTM handles every mode in its forward (``DenoiseSeq2Seq.forward``).
+    The transformer runs ``sched`` with a teacher as its parallel causal
+    pass, which draws no coins (``coins`` is ignored), and every other mode
+    through :func:`~..models.seq2seq_transformer.generate` over the
+    teacher's length, or ``max_len`` without one; it decodes batch-major,
+    so ``time_major_out`` on a soft output is a transpose. Integer ids are
+    batch-major under both."""
+    if isinstance(model, TransformerSeq2Seq):
+        if mode == "sched" and x is not None:
+            out = model(inp, label_i, x, label, generator=generator)
+        else:
+            out = generate(model, inp, label_i, label, mode=mode, tau=tau, generator=generator,
+                           L_out=None if x is None else x.shape[1])
+        return out.transpose(0, 1) if time_major_out and out.dim() == 3 else out
     return model(inp, label_i, x, label, mode=mode, tau=tau, time_major_out=time_major_out,
                  generator=generator, coins=coins)

@@ -1,9 +1,10 @@
-"""Inference: greedy style transfer of whole splits into ``.tsf`` text files.
+"""Inference: style transfer of whole splits into ``.tsf`` text files.
 
 Output contract of the JAX package (``train/infer.py``) and the reference
 (``src/main_optimize.py:157-174`` + ``:243-255``): for each split in (train,
 test), decode every sentence to the *opposite* style with a greedy
-``max_len`` rollout, BPE-decode, and route by the *source* label into
+``max_len`` rollout (a beam search with ``beam_size`` > 1), BPE-decode, and
+route by the *source* label into
 ``output/<ds>-<ver>/style.<split>.{0,1}.tsf``.
 
 The loop keeps the device busy: batch assembly and the host->device copy run
@@ -22,13 +23,20 @@ import torch
 from ..config import Config
 from ..data.pipeline import make_batches
 from ..data.prefetch import DevicePrefetcher
+from ..models.beam import beam_decode_any
 from .common import generator_call, get_corpus
 
 
-def make_transfer_step(model):
+def make_transfer_step(model, beam_size: int = 1):
     """step(x (B, L) int, labels (B,) int) -> ids (B, max_len) int32, on the
-    model's device: greedy decode to the opposite style (labels -> 1 -
-    labels). Beam decode comes with a later slice."""
+    model's device: decode to the opposite style (labels -> 1 - labels),
+    greedy, or with ``beam_size`` > 1 the beam search of either backbone
+    (``models/beam.py::beam_decode_any``, length penalty 0.6)."""
+    if beam_size > 1:
+        def beam_step(x, labels):
+            return beam_decode_any(model, x, labels, 1 - labels, beam_size=beam_size)[0]
+
+        return beam_step
 
     @torch.inference_mode()
     def step(x, labels):
@@ -39,9 +47,9 @@ def make_transfer_step(model):
 
 def transfer_split(cfg: Config, model, tokenizer, split: str,
                    step_fn=None) -> dict[int, list[str]]:
-    """Greedy-transfer one split; returns {source_label: [decoded lines]} in
-    corpus order."""
-    step_fn = step_fn or make_transfer_step(model)
+    """Transfer one split (greedy, or a beam of ``cfg.beam_size``); returns
+    {source_label: [decoded lines]} in corpus order."""
+    step_fn = step_fn or make_transfer_step(model, cfg.beam_size)
     corpus = get_corpus(cfg, split, tokenizer)
     it = make_batches(corpus, cfg.batch_size, cfg.max_len, "optimize",
                       shuffle=False, seed=cfg.seed)
@@ -80,7 +88,7 @@ def write_tsf(cfg: Config, split: str, routed: dict[int, list[str]]) -> list[str
 
 
 def run_inference(cfg: Config, model, tokenizer, splits=("train", "test")) -> list[str]:
-    step_fn = make_transfer_step(model)
+    step_fn = make_transfer_step(model, cfg.beam_size)
     out_paths: list[str] = []
     for split in splits:
         routed = transfer_split(cfg, model, tokenizer, split, step_fn=step_fn)

@@ -4,8 +4,8 @@ port of the JAX package's ``train/optimize.py`` (reference
 
 Train mode:
 - loads the frozen pretrain scorers ``pretrain/{cls,mat,dn}.pth`` (all three
-  required) and the warmup ``G.pth`` when there is one
-  (``main_optimize.py:33-54``);
+  required) and the warmup G (``G.pth``, or ``G_<backbone>.pth``) when
+  there is one (``main_optimize.py:33-54``);
 - two Adam(1e-5) optimizers behind clip 1.0: G applies every batch; D's
   gradients are summed into an accumulator over batches and applied, clip on
   the sum, at the epoch-local ``batch_idx % d_update_every == 0`` (so batch 0
@@ -84,6 +84,7 @@ from .infer import run_inference
 from .loop import EarlyStopper, Throughput
 from .state import (AdamWithClip, AsyncSaver, BestKeeper, load_state_dict, newest_checkpoint,
                     params_exist)
+from .warmup import warmup_ckpt_name
 
 
 class OptimizeModels:
@@ -114,11 +115,12 @@ def load_frozen(cfg: Config, models: OptimizeModels) -> None:
 def load_generator_params(cfg: Config, model) -> str | None:
     """Load the generator's weights into ``model`` with ``strict=True`` and
     return their path. Test mode (``main_optimize.py:47-54``): the newest
-    ``optimize-<ver>/G_epoch_*.pth``, else ``warmup/G.pth``; raises when
-    neither exists (test mode never decodes with fresh weights). Train mode
-    (``:44-46``): ``warmup/G.pth`` if it exists, else the fresh weights stay
-    and None is returned."""
-    warm = os.path.join(cfg.ds_dump_dir, "warmup", "G.pth")
+    ``optimize-<ver>/G_epoch_*.pth``, else the warmup G (``warmup/G.pth``,
+    or ``G_<backbone>.pth``: ``warmup_ckpt_name``); raises when neither
+    exists (test mode never decodes with fresh weights). Train mode
+    (``:44-46``): the warmup G if it exists, else the fresh weights stay and
+    None is returned."""
+    warm = os.path.join(cfg.ds_dump_dir, "warmup", warmup_ckpt_name(cfg))
     if cfg.mode == "test":
         path = newest_checkpoint(os.path.join(cfg.ds_dump_dir, f"optimize-{cfg.ver}")) or warm
         if not os.path.exists(path):
@@ -165,7 +167,11 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
                           models.nt_checker, models.disc)
     g_params, d_params = list(G.parameters()), list(D.parameters())
     dtype = compute_dtype(cfg)
-    tm = cfg.time_major_probs
+    # an LSTM layout: the transformer decodes batch-major, where the flag
+    # would only move the transpose (JAX optimize.py:175)
+    tm = cfg.time_major_probs and cfg.backbone == "lstm"
+    # the transformer's teacher-forced decodes draw no sched coins
+    draw_coins = cfg.backbone == "lstm"
     if copy_weights is not None:
         copy_weights = torch.as_tensor(copy_weights, dtype=torch.float32,
                                        device=g_params[0].device)
@@ -183,7 +189,7 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
             m.train()
         D.eval()
         x, labels = batch["x"], batch["labels"]
-        if coins is None:
+        if coins is None and draw_coins:
             coins = sched_coins(x.shape[1], generator, x.device)
         with autocast(x.device, dtype):
             sample_p = st_decode(batch, generator, tm)

@@ -3,7 +3,9 @@ the JAX package's ``train/warmup.py`` (reference ``src/main_warmup.py``):
 CE(G(transfer_noise(x, 0.1), label, teacher=x, label), x) in scheduled
 sampling, unmasked over every token; Adam lr 1e-3 behind a global-norm clip
 of 1.0, one epoch of batch 512, early stopping with patience 1, the best G
-saved on a validation improvement as ``dump/<ds>/warmup/G.pth``.
+saved on a validation improvement as ``dump/<ds>/warmup/G.pth``
+(``G_<backbone>.pth`` for another backbone than the LSTM:
+:func:`warmup_ckpt_name`).
 
 Float32 master parameters; with ``dtype="bfloat16"`` the step runs under
 ``torch.autocast``. Dropout is on in train steps and off in eval steps. One
@@ -32,6 +34,13 @@ from .loop import EarlyStopper, Throughput
 from .state import AdamWithClip, BestKeeper, save_state_dict
 
 EVAL_SEED_OFFSET = 10_000_000
+
+
+def warmup_ckpt_name(cfg: Config) -> str:
+    """The reference's name for the reference backbone, a backbone-qualified
+    one otherwise, so another backbone never overwrites the LSTM's G (JAX
+    ``train/warmup.py:30-34``)."""
+    return "G.pth" if cfg.backbone == "lstm" else f"G_{cfg.backbone}.pth"
 
 
 def make_warmup_steps(model, optimizer: AdamWithClip, dtype: torch.dtype = torch.float32):
@@ -74,7 +83,7 @@ def run_warmup(cfg: Config, progress: bool = True) -> str:
     tokenizer = get_tokenizer(cfg)
     task_dump = os.path.join(cfg.ds_dump_dir, "warmup")
     os.makedirs(task_dump, exist_ok=True)
-    g_path = os.path.join(task_dump, "G.pth")
+    g_path = os.path.join(task_dump, warmup_ckpt_name(cfg))
 
     bs = cfg.warmup_batch_size
     train_it = make_batches(get_corpus(cfg, "train", tokenizer), bs, cfg.max_len, "warmup",

@@ -3,7 +3,8 @@
 The port's own copy of the mappings in
 ``consistent__style_transfer_tpu/utils/torch_interop.py`` (``_t``,
 ``_conv``, ``_lstm``, ``_transformer_out`` and the ``*_to_state_dict``
-exporters of the generator, the three scorers and the discriminator): flax
+exporters of the generator, the three scorers and the discriminator), and
+the transformer generator's by name (it has no exporter there): flax
 ``Dense.kernel`` is
 (in, out) and a torch ``Linear.weight`` (out, in); a flax ``Conv.kernel``
 (k, in, out) is a torch ``Conv2d.weight`` (out, 1, k, in); the LSTM gate
@@ -147,6 +148,31 @@ def lm_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
         "fwd.bias": np.asarray(p["fwd"]["bias"]),
     }
     sd.update(_transformer(p["lm"], "lm"))
+    return _tensors(sd)
+
+
+def transformer_generator_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax ``TransformerSeq2Seq`` variables -> the port's
+    :class:`~..models.seq2seq_transformer.TransformerSeq2Seq` state dict.
+    The port's attribute names are the flax tree's, joined by dots
+    (``dec_3.cross_attn.out``); a Dense ``kernel`` becomes the transposed
+    ``weight``, a LayerNorm ``scale`` and an Embed ``embedding`` the
+    ``weight``, a ``bias`` stays. The JAX package has no counterpart
+    (its ``generator_to_state_dict`` is the LSTM's): the ``.pth`` of this
+    backbone is the port's own format."""
+    sd = {}
+
+    def walk(tree: dict, prefix: str) -> None:
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{name}.")
+            elif name == "kernel":
+                sd[f"{prefix}weight"] = _t(value)
+            else:
+                sd[prefix + {"scale": "weight", "embedding": "weight"}.get(name, name)] = \
+                    np.asarray(value)
+
+    walk(params["params"], "")
     return _tensors(sd)
 
 

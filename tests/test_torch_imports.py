@@ -1,4 +1,5 @@
-"""The port stands alone: it imports every module, decodes, and runs a tiny
+"""The port stands alone: it imports every module, decodes (greedy, the
+beam of both backbones, the transformer generator), and runs a tiny
 pretrain, warmup and optimize, and its native text runtime, profiling and
 full-state checkpoints, with jax, flax, optax, orbax, the JAX package,
 scikit-learn, gensim, fasttext and pyemd blocked (tests/test_torch_eval_cli.py
@@ -133,6 +134,29 @@ print("NEW MODULES OK")
 """
 
 
+_BLOCKED_BACKBONE = r"""
+from consistent__style_transfer_torch.models.beam import beam_decode_any
+from consistent__style_transfer_torch.models.seq2seq_transformer import TransformerSeq2Seq, generate
+from consistent__style_transfer_torch.train.common import generator_call
+from consistent__style_transfer_torch.train.infer import make_transfer_step
+from consistent__style_transfer_torch.train.warmup import warmup_ckpt_name
+from consistent__style_transfer_torch.utils.interop import transformer_generator_state_dict_from_jax
+
+tf = TransformerSeq2Seq(n_vocab=40, n_class=2, max_len=5, d_model=16, n_heads=2, n_enc=1,
+                        n_dec=1, d_ff=32).eval()
+x, li = torch.randint(3, 40, (3, 6), generator=g), torch.tensor([0, 1, 0])
+assert generate(tf, x, li, 1 - li, mode="st").shape == (3, 5, 40)
+assert generator_call(tf, x, li, x, 1 - li).shape == (3, 6, 40)
+for m in (tf, model):
+    ids, scores = beam_decode_any(m, x, li, 1 - li, beam_size=3)
+    assert ids.shape == (3, 5) and torch.isfinite(scores).all()
+    assert torch.equal(make_transfer_step(m, 3)(x, li), ids)
+assert callable(transformer_generator_state_dict_from_jax)
+assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
+print("BACKBONE OK")
+"""
+
+
 def _run_blocked(body: str) -> str:
     proc = subprocess.run([sys.executable, "-c", (_BLOCKED_RUN % (BLOCKED,)) + body], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -154,6 +178,12 @@ def test_port_runs_tiny_warmup_and_optimize_with_jax_blocked(tmp_path):
     out = _run_blocked("torch.set_num_threads(1)\n" + _BLOCKED_PRETRAIN % str(tmp_path)
                        + _BLOCKED_TRAINING)
     assert "TRAINED" in out and "best G:" in out
+
+
+def test_beam_and_transformer_backbone_run_with_jax_blocked():
+    """The transformer generator decodes, both backbones beam-decode and the
+    transfer step takes the beam."""
+    assert "BACKBONE OK" in _run_blocked(_BLOCKED_BACKBONE)
 
 
 def test_native_profiling_checkpoint_run_with_jax_blocked():
@@ -236,6 +266,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main([command, "--dump_dir", str(tmp_path), "--out_dir", str(tmp_path)])
     assert get_device(make_config("yelp", device="cpu")) == torch.device("cpu")
+
+
+def test_backbone_and_beam_flags_raise_without_cuda(monkeypatch, tmp_path):
+    """``--backbone transformer --beam_size 4`` changes nothing there: no
+    CUDA and no ``--device cpu``, every generator command raises."""
+    from consistent__style_transfer_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for command in ("serve", "infer", "warmup", "optimize", "run", "ablate"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([command, "--backbone", "transformer", "--beam_size", "4",
+                      "--dump_dir", str(tmp_path), "--out_dir", str(tmp_path)])
 
 
 def test_unported_commands_exit_2(capsys):
