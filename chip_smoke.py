@@ -86,7 +86,19 @@ Phases, in order; any failure exits non-zero before the last line:
    state, the steady warmup and optimize steps (eager and graphed: ms,
    device ms, device operations, idle share, peak memory), greedy and
    beam-4 rates on a batch, and the card's ids against the CPU's. The
-   decode head launches 0 times in the beam and transformer paths.
+   decode head launches 0 times in the beam and transformer paths;
+10. data parallelism (``parallel/``) at world size 1, the one card: in
+   this process a world-size-1 NCCL group, the graphed optimize steps at
+   full yelp width with the group's all-reduces captured held bit for bit
+   against the same steps without a group (dropout off and coins given;
+   dropout on and coins drawn), with the graphs' node counts, and the same
+   for warmup and pretrain steps; the graphed step's steady time with and
+   without the group; then ``pretrain``, ``warmup``, ``optimize`` and
+   ``infer`` through ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m consistent__style_transfer_torch`` in a fresh dump
+   dir: finite losses, one step a batch, the child's own kernel launch
+   counts (``TPUST_KERNEL_COUNTS=1``), its ``.tsf`` files byte-equal to a
+   plain ``infer``'s, and each command's seconds beside its plain run.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -494,8 +506,6 @@ def graph_nodes_per_call(fn) -> int:
     """Device operations one fn() call launches, exactly: the nodes (kernels,
     copies, memsets) of a CUDA graph that captures one call, counted by
     libcuda's cuGraphGetNodes."""
-    import ctypes
-
     import torch
 
     side = torch.cuda.Stream()
@@ -506,6 +516,14 @@ def graph_nodes_per_call(fn) -> int:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
+    return graph_nodes(graph)
+
+
+def graph_nodes(graph) -> int:
+    """The nodes of a captured CUDA graph (``keep_graph=True``), counted by
+    libcuda's cuGraphGetNodes."""
+    import ctypes
+
     count = ctypes.c_size_t(0)
     err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
         ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
@@ -2034,6 +2052,358 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 10
+LAUNCHER_STEPS = 9  # graphed optimize steps a side: D applies at 0, 4 and 8
+PRE_WARM_STEPS = 3  # warmup and pretrain steps a side
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def state_tensors(modules, opts, acc=()) -> list:
+    """Parameters, every Adam state tensor and the accumulator, in a fixed
+    order, copied."""
+    out = [p.detach().clone() for m in modules for p in m.parameters()]
+    out += [t.detach().clone() for o in opts for st in o.adam.state.values()
+            for t in st.values() if hasattr(t, "detach")]
+    return out + [a.clone() for a in acc]
+
+
+def phase_launcher(work: str, card: str, pre: dict, trained: dict) -> dict:
+    """Data parallelism (``parallel/``) on the card, at world size 1 (one
+    card; NCCL refuses two ranks on one GPU, so this is no multi-GPU
+    measurement):
+    1. in this process, a world-size-1 NCCL group: LAUNCHER_STEPS graphed
+       optimize steps at full yelp width (phase 6's scorers and warmup G,
+       float32) with the group's optimizers equal the same steps without
+       the group bit for bit (losses, parameters, both Adam states, the
+       accumulator, the generators), with dropout off and coins given and
+       with dropout on and coins drawn, and the graphs' node counts each
+       way; PRE_WARM_STEPS warmup steps (B=512) and pretrain steps (the
+       three full-width towers, labels from the Sinkhorn) the same way; the
+       graphed bf16 step's steady ms, device ms, device operations and idle
+       share with and without the group, in this run;
+    2. ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+       consistent__style_transfer_torch`` ``pretrain``, ``warmup``,
+       ``optimize`` (one epoch each) and ``infer`` in a fresh dump dir (phase
+       3's BPE and phase 5's word2vec copied in): finite logged losses, one
+       step a batch, D's cadence, the child's own Sinkhorn launches (one a
+       labeled batch) and decode-head launches (18 a batch) from its
+       ``TPUST_KERNEL_COUNTS`` line, its ``.tsf`` files byte-equal to a
+       plain ``infer`` of the same G, and each command's seconds in the
+       child beside the same command's plain run in phases 5-6 (in this
+       process) and, for ``warmup``, in a fresh process without the
+       launcher."""
+    import torch
+    import torch.distributed as dist
+
+    from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.data.pipeline import make_batches
+    from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
+    from consistent__style_transfer_torch.data.wmd_labels import SinkhornWmdLabeler
+    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
+    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
+    from consistent__style_transfer_torch.parallel.mesh import destroy_distributed, make_mesh
+    from consistent__style_transfer_torch.parallel.sharding import data_group
+    from consistent__style_transfer_torch.train.common import (
+        build_classifier,
+        build_generator,
+        build_lm,
+        build_matcher,
+        get_corpus,
+        get_tokenizer,
+        get_w2v,
+    )
+    from consistent__style_transfer_torch.train.optimize import (
+        GraphedFusedStep,
+        OptimizeModels,
+        load_frozen,
+        load_generator_params,
+        make_optimize_steps,
+    )
+    from consistent__style_transfer_torch.train.pretrain import TASKS, make_pretrain_steps
+    from consistent__style_transfer_torch.train.state import AdamWithClip
+    from consistent__style_transfer_torch.train.warmup import make_warmup_steps
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
+                out_dir=os.path.join(work, "output"), log_dir=os.path.join(work, "log"))
+    cfg = make_config("yelp", dtype="float32", **dirs)
+    device = torch.device(cfg.device)
+    tokenizer = get_tokenizer(cfg)
+    V, L, B = len(tokenizer), cfg.max_len, cfg.batch_size
+    corpus = get_corpus(cfg, "train", tokenizer)
+    result = {"card": card, "world_size": 1, "note": "one card: no multi-GPU measurement"}
+
+    def fixed(stage, batch_size, n, **kw):
+        it = iter(DevicePrefetcher(make_batches(corpus, batch_size, L, stage, shuffle=True,
+                                                seed=1, **kw), device))
+        try:
+            return [next(it)[1] for _ in range(n)]
+        finally:
+            it.close()
+
+    def all_equal(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # 1. in process, a world-size-1 NCCL group
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        group = data_group(make_mesh(1, 1, "cuda"))
+        check(group is not None, "no data group in a world-size-1 NCCL group")
+        batches = fixed("optimize", B, LAUNCHER_STEPS)
+        g = torch.Generator().manual_seed(4)
+        coins = [(torch.rand(L, generator=g) < 0.5).to(device) for _ in batches]
+
+        def build(dtype, dropout, grp):
+            c = make_config("yelp", dtype=dtype, **dirs)
+            models = OptimizeModels(c, V, device)
+            load_frozen(c, models)
+            load_generator_params(c, models.generator)  # phase 6's warmup G
+            if not dropout:
+                for m in (models.generator, models.classifier, models.matcher,
+                          models.nt_checker, models.disc):
+                    for sub in m.modules():
+                        if hasattr(sub, "p_drop"):
+                            sub.p_drop = 0.0
+            opts = (AdamWithClip(models.generator.parameters(), c.optimize_lr, c.optimize_clip,
+                                 group=grp),
+                    AdamWithClip(models.disc.parameters(), c.optimize_lr, c.optimize_clip,
+                                 group=grp))
+            steps = make_optimize_steps(c, models, *opts, group=grp)
+            acc = [torch.zeros_like(p) for p in models.disc.parameters()]
+            gens = (torch.Generator(device).manual_seed(1), torch.Generator(device).manual_seed(2))
+            runner = GraphedFusedStep(steps.fused_step, acc, *gens, torch.ones((), device=device),
+                                      given_coins=not dropout)
+            return models, opts, acc, gens, runner
+
+        optimize_eq = {}
+        for dropout in (False, True):
+            runs = {}
+            for name, grp in (("plain", None), ("group", group)):
+                models, opts, acc, gens, runner = build("float32", dropout, grp)
+                losses = []
+                for i, (b, c) in enumerate(zip(batches, coins)):
+                    aux, d_loss = runner(b, i % cfg.d_update_every == 0, None if dropout else c)
+                    losses.append(torch.stack([aux["loss"], aux["BK"], d_loss]).clone())
+                torch.cuda.synchronize()
+                check(sorted(runner.graphs) == [False, True], "both branches were not captured")
+                runs[name] = {"losses": torch.stack(losses),
+                              "state": state_tensors((models.generator, models.disc), opts, acc),
+                              "gens": [x.get_state() for x in gens],
+                              "nodes": {str(k): graph_nodes(gr) for k, gr in runner.graphs.items()}}
+                del models, opts, acc, gens, runner
+            p, q = runs["plain"], runs["group"]
+            optimize_eq["dropout_on_coins_drawn" if dropout else "dropout_off_coins_given"] = {
+                "steps": LAUNCHER_STEPS, "finite": bool(torch.isfinite(p["losses"]).all()),
+                "losses_equal": torch.equal(p["losses"], q["losses"]),
+                "state_equal": all_equal(p["state"], q["state"]),
+                "state_tensors": len(p["state"]),
+                "generators_equal": all_equal(p["gens"], q["gens"]),
+                "max_abs_diff": max(float((x - y).abs().max()) for x, y in
+                                    zip(p["state"], q["state"])),
+                "graph_nodes_plain": p["nodes"], "graph_nodes_group": q["nodes"]}
+        result["optimize_group_vs_plain"] = optimize_eq
+
+        # warmup steps, eager, dropout on and the coins drawn
+        warm_batches = fixed("warmup", cfg.warmup_batch_size, PRE_WARM_STEPS)
+        runs = {}
+        for name, grp in (("plain", None), ("group", group)):
+            model = build_generator(cfg, V, device, training=True)
+            model.load_state_dict(torch.load(os.path.join(cfg.ds_dump_dir, "warmup", "G.pth"),
+                                             map_location=device, weights_only=True), strict=True)
+            opt = AdamWithClip(model.parameters(), cfg.warmup_lr, cfg.warmup_clip, group=grp)
+            step, _ = make_warmup_steps(model, opt)
+            gen = torch.Generator(device).manual_seed(5)
+            losses = torch.stack([step(b, gen) for b in warm_batches])
+            torch.cuda.synchronize()
+            runs[name] = (losses, state_tensors((model,), (opt,)))
+            del model, opt, step
+        result["warmup_group_vs_plain"] = {
+            "steps": PRE_WARM_STEPS, "batch_size": cfg.warmup_batch_size,
+            "finite": bool(torch.isfinite(runs["plain"][0]).all()),
+            "losses_equal": torch.equal(runs["plain"][0], runs["group"][0]),
+            "state_equal": all_equal(runs["plain"][1], runs["group"][1])}
+
+        # pretrain steps: the full-width towers, labels from the Sinkhorn
+        labeler = SinkhornWmdLabeler(get_w2v(cfg, tokenizer), tokenizer,
+                                     max_atoms=L + L // 2, device=device)
+        pre_batches = fixed("pretrain", B, PRE_WARM_STEPS, wmd_labeler=labeler)
+        runs = {}
+        for name, grp in (("plain", None), ("group", group)):
+            towers = {"cls": build_classifier(cfg, V, device), "mat": build_matcher(cfg, V, device),
+                      "dn": build_lm(cfg, V, device)}
+            for t in TASKS:
+                towers[t].load_state_dict(torch.load(
+                    os.path.join(cfg.ds_dump_dir, "pretrain", f"{t}.pth"), map_location=device,
+                    weights_only=True), strict=True)
+            opt = AdamWithClip([p for t in TASKS for p in towers[t].parameters()],
+                               cfg.pretrain_lr, cfg.pretrain_clip, group=grp)
+            step, _ = make_pretrain_steps(towers, opt)
+            gen = torch.Generator(device).manual_seed(6)
+            losses = torch.stack([torch.stack(list(step(b, (True, True, True), gen).values()))
+                                  for b in pre_batches])
+            torch.cuda.synchronize()
+            runs[name] = (losses, state_tensors(towers.values(), (opt,)))
+            del towers, opt, step
+        result["pretrain_group_vs_plain"] = {
+            "steps": PRE_WARM_STEPS, "batch_size": B,
+            "finite": bool(torch.isfinite(runs["plain"][0]).all()),
+            "losses_equal": torch.equal(runs["plain"][0], runs["group"][0]),
+            "state_equal": all_equal(runs["plain"][1], runs["group"][1])}
+        del runs
+
+        # the graphed bf16 step (dropout on, as a user's run) with and without
+        torch.backends.cuda.matmul.allow_tf32 = False
+        steady = {}
+        for name, grp in (("plain", None), ("group", group)):
+            models, opts, acc, gens, runner = build("bfloat16", True, grp)
+            state = {"i": 0}
+            stream = iter(DevicePrefetcher(make_batches(corpus, B, L, "optimize", shuffle=True,
+                                                        seed=2), device))
+
+            def step():
+                out = runner(next(stream)[1], state["i"] % cfg.d_update_every == 0)
+                state["i"] += 1
+                return out
+
+            try:
+                steady[name] = steady_step(step)
+            finally:
+                stream.close()
+            steady[name]["graph_nodes"] = {str(k): graph_nodes(gr)
+                                           for k, gr in runner.graphs.items()}
+            del models, opts, acc, gens, runner
+        result["steady_graphed_bf16"] = steady
+    finally:
+        destroy_distributed()
+    print(json.dumps({"launcher_in_process": result}), flush=True)
+    for case, e in result["optimize_group_vs_plain"].items():
+        check(e["finite"], f"{case}: non-finite losses")
+        check(e["losses_equal"] and e["state_equal"] and e["generators_equal"],
+              f"{case}: graphed steps with the group differ from those without "
+              f"(max abs diff {e['max_abs_diff']})")
+        for branch, n in e["graph_nodes_group"].items():
+            check(n > e["graph_nodes_plain"][branch],
+                  f"{case}: the group's graph ({branch}) holds no more nodes")
+    for key in ("warmup_group_vs_plain", "pretrain_group_vs_plain"):
+        e = result[key]
+        check(e["finite"] and e["losses_equal"] and e["state_equal"],
+              f"{key}: steps with the group differ from those without: {e}")
+
+    # 2. the commands under the launcher, in a fresh dump dir
+    fresh = dict(dirs, dump_dir=os.path.join(work, "launch_dump"),
+                 out_dir=os.path.join(work, "launch_output"),
+                 log_dir=os.path.join(work, "launch_log"))
+    lcfg = make_config("yelp", **fresh)
+    os.makedirs(lcfg.ds_dump_dir)
+    for path in (*cfg.vocab_paths, cfg.w2v_path):  # phase 3's BPE, phase 5's word2vec
+        shutil.copy(path, lcfg.ds_dump_dir)
+    flags = [a for k, v in fresh.items() for a in (f"--{k}", v)]
+    n_train, n_dev = count_lines(lcfg.train_files()), count_lines(lcfg.split_files("dev"))
+    launcher = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "-m", "consistent__style_transfer_torch"]
+    env = dict(os.environ, TPUST_KERNEL_COUNTS="1")
+    runs = {}
+    for command, extra in (("pretrain", ["--epochs", "1"]), ("warmup", []),
+                           ("optimize", ["--epochs", "1"]), ("infer", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([*launcher, command, *flags, *extra], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"launcher {command} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        reports = [json.loads(line)["kernel_launches"] for line in proc.stderr.splitlines()
+                   if line.startswith('{"kernel_launches"')]
+        check(len(reports) == 1 and reports[0]["rank"] == 0 and reports[0]["command"] == command,
+              f"launcher {command}: kernel reports {reports}")
+        runs[command] = {"wall_s": wall, "command_s": reports[0]["seconds"],
+                         "decode_head_launches": reports[0]["fused_decode_logits"],
+                         "sinkhorn_launches": reports[0]["sinkhorn"]}
+    labeled = n_train // B + -(-n_dev // B)
+    r = runs["pretrain"]
+    check(r["sinkhorn_launches"] == labeled and r["decode_head_launches"] == 0,
+          f"launcher pretrain: {r}; want {labeled} Sinkhorn launches")
+    events = read_events(lcfg, "pretrain")
+    check(all(math.isfinite(v) for e in events for k, v in e.items()
+              if k.endswith("_loss") or k.startswith("val_")), "launcher pretrain: a loss")
+    epoch = [e for e in events if "train_steps" in e][-1]
+    check(epoch["train_steps"] == n_train // B, f"launcher pretrain: {epoch['train_steps']} steps")
+    r["train_steps"] = epoch["train_steps"]
+    for command in ("warmup", "optimize"):
+        check(runs[command]["sinkhorn_launches"] == 0 and
+              runs[command]["decode_head_launches"] == 0, f"launcher {command}: {runs[command]}")
+    events = read_events(lcfg, "warmup")
+    runs["warmup"]["losses"] = check_finite_losses(events, ("dn_loss", "val_loss"),
+                                                   "launcher warmup")
+    epoch = [e for e in events if "train_steps" in e][-1]
+    want = n_train // lcfg.warmup_batch_size
+    check(epoch["train_steps"] == want, f"launcher warmup: {epoch['train_steps']} steps")
+    runs["warmup"]["train_steps"] = want
+    events = read_events(lcfg, f"optimize-{lcfg.ver}")
+    runs["optimize"]["losses"] = check_finite_losses(
+        events, ("G", "STI", "CP", "BK", "D", "loss", "val_loss"), "launcher optimize")
+    epoch = [e for e in events if "train_steps" in e][-1]
+    want = n_train // B
+    check(epoch["train_steps"] == want
+          and epoch["d_applies"] == math.ceil(want / lcfg.d_update_every),
+          f"launcher optimize: {epoch['train_steps']} steps, {epoch['d_applies']} applies")
+    runs["optimize"].update(train_steps=want, d_applies=epoch["d_applies"])
+    infer_batches = sum(-(-count_lines(lcfg.split_files(s)) // B) for s in ("train", "test"))
+    r = runs["infer"]
+    check(r["decode_head_launches"] == L * infer_batches and r["sinkhorn_launches"] == 0,
+          f"launcher infer: {r}; want {L} x {infer_batches} decode-head launches")
+    r["batches"] = infer_batches
+
+    # a plain infer of the same G (no launcher), byte for byte
+    plain_out = os.path.join(work, "plain_output")
+    t0 = time.perf_counter()
+    run_cli(["infer", *[a for k, v in dict(fresh, out_dir=plain_out).items()
+                        for a in (f"--{k}", v)]])
+    torch.cuda.synchronize()
+    plain_infer_s = time.perf_counter() - t0
+    mine = os.path.join(lcfg.out_dir, f"yelp-{lcfg.ver}")
+    theirs = os.path.join(plain_out, f"yelp-{lcfg.ver}")
+    files = sorted(os.listdir(theirs))
+    check(files == sorted(os.listdir(mine)) and len(files) == 4, f"tsf files {files}")
+    for f in files:
+        with open(os.path.join(mine, f), "rb") as a, open(os.path.join(theirs, f), "rb") as b:
+            check(a.read() == b.read(), f"launcher infer: {f} differs from the plain infer's")
+    r["tsf_byte_equal_plain"] = True
+    plain = {"pretrain": pre["pretrain_cli_s"], "warmup": trained["warmup"]["cli_s"],
+             "optimize": trained["optimize"]["cli_s"], "infer": plain_infer_s}
+    for command, seconds in plain.items():
+        runs[command]["plain_command_s"] = seconds
+    # the warmup again in a fresh process without the launcher: what a new
+    # process costs, apart from the launcher and the group
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "consistent__style_transfer_torch", "warmup",
+                           *[a for k, v in dict(fresh, log_dir=os.path.join(work, "fresh_log"))
+                             .items() for a in (f"--{k}", v)]],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900,
+                          env={k: v for k, v in env.items() if k not in
+                               ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")})
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"plain warmup exited {proc.returncode}: {proc.stderr[-3000:]}")
+    report = [json.loads(line)["kernel_launches"] for line in proc.stderr.splitlines()
+              if line.startswith('{"kernel_launches"')]
+    check(len(report) == 1, f"plain warmup: kernel reports {report}")
+    runs["warmup"]["fresh_process_plain"] = {"wall_s": wall, "command_s": report[0]["seconds"]}
+    result["launcher"] = runs
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"launcher": result}), flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2054,6 +2424,7 @@ def main() -> int:
         evaluated = phase_eval(work, card)
         mega = phase_megastep(work, card, trained["optimize"])
         beams = phase_beam_and_transformer(work, card, full)
+        launch = phase_launcher(work, card, pre, trained)["launcher"]
 
     yelp = timed[f"bfloat16_V{YELP_V}"]
     real = pre["sinkhorn_label_batch"]
@@ -2063,7 +2434,9 @@ def main() -> int:
         "source": "consistent__style_transfer_torch/csrc/sinkhorn.cu",
         "replaces": f"consistent__style_transfer_tpu/kernels/sinkhorn.py:{line}",
         # one CUDA kernel behind both names: its launches, through either
-        "launches": pre["sinkhorn_launches"],
+        "launches": pre["sinkhorn_launches"] + launch["pretrain"]["sinkhorn_launches"],
+        "launches_by_path": {"pretrain": pre["sinkhorn_launches"],
+                             "pretrain_launcher": launch["pretrain"]["sinkhorn_launches"]},
         "launch_counter": "sinkhorn_cuda.launches (one kernel behind both names)",
         "launches_per_batch": 1,
         "max_abs_err": max(real["max_abs_err"], sinkhorn["max_abs_err"]),
@@ -2097,7 +2470,8 @@ def main() -> int:
                      + trained["infer"]["decode_head_launches"]
                      + evaluated["run"]["decode_head_launches"]
                      + mega["infer"]["decode_head_launches"]
-                     + beams["greedy_beside_beam_launches"]),
+                     + beams["greedy_beside_beam_launches"]
+                     + launch["infer"]["decode_head_launches"]),
         "launches_by_path": {"serve": served["serve_launches"], "infer": served["infer_launches"],
                              "warmup": 0, "optimize": 0,
                              "infer_after_optimize": trained["infer"]["decode_head_launches"],
@@ -2108,7 +2482,10 @@ def main() -> int:
                              "serving_greedy_beside_beam": beams["greedy_beside_beam_launches"],
                              "serving_beam": 0, "serve_beam": 0, "infer_beam": 0,
                              "warmup_transformer": 0, "optimize_transformer": 0,
-                             "infer_transformer": 0, "infer_transformer_beam": 0},
+                             "infer_transformer": 0, "infer_transformer_beam": 0,
+                             "pretrain_launcher": 0, "warmup_launcher": 0,
+                             "optimize_launcher": 0,
+                             "infer_launcher": launch["infer"]["decode_head_launches"]},
         "launches_per_batch": full["launches_per_batch"],
         "max_abs_err": yelp["max_abs_err_h"],
         "max_abs_err_h": yelp["max_abs_err_h"],

@@ -31,11 +31,27 @@ LSTM, or the T5-small-wide transformer, which computes in float32 whatever
 half of ``run``/``ablate`` decode with a length-normalised beam of K,
 either backbone, instead of greedy).
 
+Data parallelism: one process per GPU under the PyTorch launcher,
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m consistent__style_transfer_torch <command> ... [--n_data D --n_model M]
+
+NCCL on the card (rank r on cuda:LOCAL_RANK), gloo with ``--device cpu``.
+``D * M`` must be N (``--n_data`` defaults to N // M); a model axis in a
+CLI run only repeats the work, the parameters being replicated. Each data
+rank takes its rows of every batch (``pretrain``, ``warmup``, ``optimize``,
+``infer``, and the training and decoding of ``run`` and ``ablate``); rank 0
+writes every file and runs the eval commands while the others wait.
+``serve`` runs in one process. Without the launcher every command runs in
+one process, and a mesh other than 1 x 1 raises.
+
 The JAX package's ``bench`` is not ported yet and exits with status 2;
 ROADMAP.md has the order. Every command runs on ``--device cuda`` (the
 default) unless given ``--device cpu``; without CUDA it raises. With
 ``TPUST_TRACE=1`` a command runs under ``torch.profiler`` and writes a
-Chrome trace to ``$TPUST_TRACE_DIR`` (default ``log/trace``).
+Chrome trace to ``$TPUST_TRACE_DIR`` (default ``log/trace``); with
+``TPUST_KERNEL_COUNTS=1`` it prints its seconds and the port's kernel
+launch counts as one JSON line to stderr, on each rank.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ from __future__ import annotations
 import sys
 
 from .config import Config, config_from_args
+from .parallel.mesh import barrier, destroy_distributed, init_distributed, is_main, world_size
 
 NOT_PORTED = ("bench",)
 
@@ -51,39 +68,45 @@ def _eval_dir(cfg: Config) -> str:
     return f"{cfg.out_dir}/../evaluate_runtime"
 
 
+def say(*args) -> None:
+    """print on rank 0 only (every process without the launcher)."""
+    if is_main():
+        print(*args)
+
+
 def cmd_vocab(cfg: Config) -> None:
     from .train.common import get_tokenizer
 
     tok = get_tokenizer(cfg)
-    print(f"vocab size: {len(tok)} -> {cfg.vocab_paths[0]}")
+    say(f"vocab size: {len(tok)} -> {cfg.vocab_paths[0]}")
 
 
 def cmd_w2v(cfg: Config) -> None:
     from .train.common import get_tokenizer, get_w2v
 
     w2v = get_w2v(cfg, get_tokenizer(cfg))
-    print(f"w2v vocab: {len(w2v.vocab)} -> {cfg.w2v_path}")
+    say(f"w2v vocab: {len(w2v.vocab)} -> {cfg.w2v_path}")
 
 
 def cmd_pretrain(cfg: Config) -> None:
     from .train.pretrain import run_pretrain
 
-    print("pretrain artifacts:", run_pretrain(cfg))
+    say("pretrain artifacts:", run_pretrain(cfg))
 
 
 def cmd_warmup(cfg: Config) -> None:
     from .train.warmup import run_warmup
 
-    print("warmup G:", run_warmup(cfg))
+    say("warmup G:", run_warmup(cfg))
 
 
 def cmd_optimize(cfg: Config) -> None:
     from .train.optimize import run_optimize, run_test
 
     if cfg.mode == "test":
-        print("wrote:", run_test(cfg))
+        say("wrote:", run_test(cfg))
     else:
-        print("best G:", run_optimize(cfg))
+        say("best G:", run_optimize(cfg))
 
 
 def cmd_infer(cfg: Config) -> None:
@@ -91,7 +114,17 @@ def cmd_infer(cfg: Config) -> None:
     cmd_optimize(cfg)
 
 
-def cmd_eval_prepare(cfg: Config) -> None:
+def _on_main(fn, cfg: Config) -> None:
+    """Run ``fn(cfg)`` on rank 0 while the other ranks wait: the eval
+    commands are host-bound and work file by file."""
+    try:
+        if is_main():
+            fn(cfg)
+    finally:
+        barrier()
+
+
+def _eval_prepare(cfg: Config) -> None:
     from .evaluate.prepare import run_prepare
     from .train.common import get_device
 
@@ -99,12 +132,20 @@ def cmd_eval_prepare(cfg: Config) -> None:
                 ver=cfg.ver, seed=cfg.seed, device=get_device(cfg))
 
 
-def cmd_eval(cfg: Config) -> None:
+def _eval(cfg: Config) -> None:
     from .evaluate.run_eval import run_eval
     from .train.common import get_device
 
     get_device(cfg)  # the scoring runs on the host; the command checks its device as all do
     run_eval(cfg.ds_data_dir, cfg.run_out_dir, _eval_dir(cfg), cfg.dataset, cfg.ver)
+
+
+def cmd_eval_prepare(cfg: Config) -> None:
+    _on_main(_eval_prepare, cfg)
+
+
+def cmd_eval(cfg: Config) -> None:
+    _on_main(_eval, cfg)
 
 
 def cmd_run(cfg: Config) -> None:
@@ -118,15 +159,19 @@ def cmd_run(cfg: Config) -> None:
     cmd_optimize(cfg)
     cfg.mode = "test"
     cmd_optimize(cfg)
-    cmd_eval_prepare(cfg)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        cmd_eval(cfg)
-    text = buf.getvalue()
-    print(text, end="")
-    os.makedirs(cfg.out_dir, exist_ok=True)
-    with open(f"{cfg.out_dir}/{cfg.dataset}-{cfg.ver}.txt", "w") as f:
-        f.write(text)
+
+    def evaluate(cfg):
+        _eval_prepare(cfg)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _eval(cfg)
+        text = buf.getvalue()
+        print(text, end="")
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        with open(f"{cfg.out_dir}/{cfg.dataset}-{cfg.ver}.txt", "w") as f:
+            f.write(text)
+
+    _on_main(evaluate, cfg)
 
 
 ABLATIONS = {
@@ -159,9 +204,16 @@ def cmd_serve(cfg: Config) -> None:
     """Read ``<style>\\t<text>`` lines (or bare text, style 0) from stdin,
     print each transferred text. Uses the newest optimize checkpoint, else the
     warmup G. Every batch is padded to ``batch_size`` rows, as the JAX package
-    pads to its compiled shape, so each batch decodes at one shape."""
+    pads to its compiled shape, so each batch decodes at one shape.
+
+    One process: the JAX ``serve`` feeds the whole batch to every device,
+    so a mesh there only repeats the work; under the launcher with more
+    than one rank it raises."""
     import numpy as np
     import torch
+
+    if world_size() > 1:
+        raise RuntimeError("serve runs in one process; start it without torch.distributed.run")
 
     from .data.noise import align
     from .train.common import build_generator, get_device, get_tokenizer
@@ -236,11 +288,21 @@ def main(argv=None) -> None:
     if command not in COMMANDS:
         print(f"unknown command {command!r}; one of {sorted(COMMANDS)}", file=sys.stderr)
         raise SystemExit(2)
-    from .utils.profiling import trace
+    import time
+
+    from .parallel.mesh import rank
+    from .utils.profiling import report_launches, trace
 
     cfg = config_from_args(argv[1:])
-    with trace():  # a torch.profiler trace of the command when TPUST_TRACE=1
-        COMMANDS[command](cfg)
+    owned = init_distributed(cfg)  # the launcher's group, if it started this process
+    t0 = time.perf_counter()
+    try:
+        with trace():  # a torch.profiler trace of the command when TPUST_TRACE=1
+            COMMANDS[command](cfg)
+        report_launches(command, time.perf_counter() - t0, rank())  # TPUST_KERNEL_COUNTS=1
+    finally:
+        if owned:
+            destroy_distributed()
 
 
 if __name__ == "__main__":

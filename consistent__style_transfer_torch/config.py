@@ -1,7 +1,9 @@
 """Configuration of the port: the JAX package's ``Config``
 (``consistent__style_transfer_tpu/config.py``) trimmed to the fields that the
 ported slices read (serving, pretrain, warmup, optimize and the eval
-harness), plus ``device``.
+harness), plus ``device``. ``mesh`` (``--n_data`` / ``--n_model``) shapes the
+``(data, model)`` process mesh of a run under the PyTorch launcher
+(``parallel/mesh.py``).
 Defaults, presets, derived paths and flag parsing are the same, so both
 packages read and write one dump/output layout.
 """
@@ -9,7 +11,18 @@ packages read and write one dump/output layout.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
+
+@dataclass
+class MeshConfig:
+    """The ``(data, model)`` mesh shape (JAX ``config.py:15-20``). Under the
+    launcher ``n_data * n_model`` must equal the world size; ``n_data=None``
+    puts every rank the model axis leaves on the data axis. Without the
+    launcher the world is one process, so any other shape raises."""
+
+    n_data: int | None = None
+    n_model: int = 1
 
 
 @dataclass
@@ -30,6 +43,7 @@ class Config:
     vocab_size: int = 10000
     max_len: int = 18
     batch_size: int = 256
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     # optimize-stage loss weights (reference defaults, src/arguments.py:24-30)
     w_s: float = 0.1
@@ -179,17 +193,28 @@ def make_config(dataset: str = "yelp", preset: str | None = None, **overrides) -
 def config_from_args(argv=None) -> Config:
     """CLI flag parsing with the reference's knob names (one flag per field),
     as the JAX package parses them: a ``bool`` flag is true for 1/true/yes
-    and false otherwise, and an ``int | None`` flag takes an int."""
+    and false otherwise, and an ``int | None`` flag takes an int.
+    ``--n_data`` / ``--n_model`` set ``mesh`` (JAX ``config.py:237-252``)."""
     import argparse
 
     parser = argparse.ArgumentParser(description="tpu-st (PyTorch port) configuration")
     typemap = {"str": str, "int": int, "float": float,
                "bool": lambda s: s.lower() in ("1", "true", "yes")}
     for f in dataclasses.fields(Config):
+        if f.name == "mesh":
+            continue
         parser.add_argument(f"--{f.name}", type=typemap[str(f.type).replace(" | None", "")])
+    parser.add_argument("--n_data", type=int)
+    parser.add_argument("--n_model", type=int)
     parser.add_argument("--preset", choices=sorted(PRESETS),
                         help="named operating-point preset (e.g. ref_band); explicit flags still win")
     args = vars(parser.parse_args(argv))
     dataset = args.pop("dataset", None) or "yelp"
     preset = args.pop("preset", None)
-    return make_config(dataset, preset=preset, **{k: v for k, v in args.items() if v is not None})
+    n_data, n_model = args.pop("n_data", None), args.pop("n_model", None)
+    cfg = make_config(dataset, preset=preset, **{k: v for k, v in args.items() if v is not None})
+    if n_data is not None:
+        cfg.mesh.n_data = n_data
+    if n_model is not None:
+        cfg.mesh.n_model = n_model
+    return cfg

@@ -12,6 +12,13 @@ Stage batch layouts (the reference's collates, ``src/loader.py:46-90``):
 - pretrain: (x, noise1, noise2, perm-noise, labels, wmd) with two independent
   transfer_noise(p=0.15) draws, one rand_perm(0.15) and the WMD label between
   the two noised variants.
+
+Under data parallelism every rank builds the global batch, with the same
+host noise draws in the same order, and keeps its rows
+(``parallel/sharding.py``), so a rank's rows equal the same rows of a
+one-process batch bit for bit. The optimize and warmup batches are split on
+their way to the device (``data/prefetch.py``); the pretrain collate splits
+before its WMD labels, so each rank labels only its own pairs.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ from .noise import rand_perm_arrays, transfer_noise_arrays
 @dataclass
 class Batch:
     arrays: dict[str, np.ndarray]
-    valid: int  # number of non-padding rows
+    valid: int  # number of non-padding rows of the global batch
+    start: int = 0  # the global row of arrays' first row (a rank's rows)
 
     def __getitem__(self, k: str) -> np.ndarray:
         return self.arrays[k]
@@ -67,6 +75,7 @@ class BatchIterator:
         shuffle: bool = True,
         drop_last: bool | None = None,
         seed: int = 0,
+        start: int = 0,
     ):
         self.corpus = corpus
         self.batch_size = batch_size
@@ -75,6 +84,7 @@ class BatchIterator:
         self.shuffle = shuffle
         self.drop_last = shuffle if drop_last is None else drop_last
         self.seed = seed
+        self.start = start  # see Batch.start: a collate that keeps a rank's rows
         self.epoch = 0
 
     def __iter__(self) -> Iterator[Batch]:
@@ -85,7 +95,7 @@ class BatchIterator:
             ids = self.corpus.ids[idx]
             lens = self.corpus.lengths[idx]
             labels = self.corpus.labels[idx]
-            yield Batch(self.collate(ids, lens, labels, rng), valid=valid)
+            yield Batch(self.collate(ids, lens, labels, rng), valid=valid, start=self.start)
         self.epoch += 1
 
     def __len__(self) -> int:
@@ -109,7 +119,8 @@ def collate_warmup(max_len: int, p: float = 0.1):
     return fn
 
 
-def collate_pretrain(max_len: int, wmd_labeler, p: float = 0.15, need_matcher=None):
+def collate_pretrain(max_len: int, wmd_labeler, p: float = 0.15, need_matcher=None,
+                     rows: slice | None = None):
     """``wmd_labeler.label_pairs(ids1, lens1, ids2, lens2)`` gives the (B,)
     float32 labels: a tensor on the labeler's device (Sinkhorn), which stays
     there, or a numpy array (exact host OT). Noised rows can exceed max_len
@@ -121,8 +132,12 @@ def collate_pretrain(max_len: int, wmd_labeler, p: float = 0.15, need_matcher=No
     transfer_noise variants and the WMD label are not computed, and zeros of
     the same shape take their place. The two skipped draws then no longer
     consume the host generator, so later rand_perm noise differs from an
-    ungated run at the same seed, as in the JAX package."""
+    ungated run at the same seed, as in the JAX package.
+
+    ``rows`` (a data-parallel rank's slice of the batch): every draw is made
+    for the global batch, then only these rows are kept and labelled."""
     noise_len = max_len + max(4, max_len // 2)
+    keep = slice(None) if rows is None else rows
 
     def fn(ids, lens, labels, rng):
         if need_matcher is None or need_matcher():
@@ -130,18 +145,19 @@ def collate_pretrain(max_len: int, wmd_labeler, p: float = 0.15, need_matcher=No
                                              out_len=noise_len, pad_id=PAD_ID)
             nx2, nl2 = transfer_noise_arrays(ids, lens, p=p, rng=rng,
                                              out_len=noise_len, pad_id=PAD_ID)
+            nx1, nl1, nx2, nl2 = nx1[keep], nl1[keep], nx2[keep], nl2[keep]
             wmd = wmd_labeler.label_pairs(nx1, nl1, nx2, nl2)
         else:
-            B = len(ids)
+            B = len(ids[keep])
             # two arrays, not one aliased twice: an in-place consumer of
             # one must not change the other
             nx1 = np.zeros((B, noise_len), dtype=ids.dtype)
             nx2 = np.zeros((B, noise_len), dtype=ids.dtype)
             wmd = np.zeros(B, np.float32)
-        nx3 = rand_perm_arrays(ids, lens, p=p, rng=rng)
+        nx3 = rand_perm_arrays(ids, lens, p=p, rng=rng)[keep]
         return {
-            "x": ids, "nx1": nx1, "nx2": nx2, "nx3": nx3,
-            "labels": labels.astype(np.int32), "wmd": wmd, "lengths": lens,
+            "x": ids[keep], "nx1": nx1, "nx2": nx2, "nx3": nx3,
+            "labels": labels[keep].astype(np.int32), "wmd": wmd, "lengths": lens[keep],
         }
     return fn
 
@@ -180,16 +196,20 @@ class MegaBatches:
 
 def eval_arrays(batch: Batch) -> dict:
     """Batch arrays + a (B,) float32 ``row_mask`` marking the real rows (the
-    first ``batch.valid``), so val means leave out the padded duplicates."""
+    first ``batch.valid`` of the global batch, whose row ``batch.start`` is
+    the arrays' first), so val means leave out the padded duplicates."""
     arrays = dict(batch.arrays)
     B = len(arrays["labels"])
-    arrays["row_mask"] = (np.arange(B) < batch.valid).astype(np.float32)
+    arrays["row_mask"] = (batch.start + np.arange(B) < batch.valid).astype(np.float32)
     return arrays
 
 
 def make_batches(corpus: StyleCorpus, batch_size: int, max_len: int, stage: str,
                  shuffle: bool, seed: int = 0, wmd_labeler=None,
-                 need_matcher=None) -> BatchIterator:
+                 need_matcher=None, rows: slice | None = None) -> BatchIterator:
+    """The stage's batch iterator. ``rows`` (pretrain only): the rows of
+    each global batch a data-parallel rank keeps, before its WMD labels;
+    the other stages split their batches on the way to the device."""
     if stage == "optimize":
         collate = collate_optimize(max_len)
     elif stage == "warmup":
@@ -197,7 +217,10 @@ def make_batches(corpus: StyleCorpus, batch_size: int, max_len: int, stage: str,
     elif stage == "pretrain":
         if wmd_labeler is None:
             raise ValueError("pretrain batches need a wmd_labeler")
-        collate = collate_pretrain(max_len, wmd_labeler, need_matcher=need_matcher)
+        collate = collate_pretrain(max_len, wmd_labeler, need_matcher=need_matcher, rows=rows)
     else:
         raise ValueError(f"unknown stage {stage!r}")
-    return BatchIterator(corpus, batch_size, max_len, collate, shuffle=shuffle, seed=seed)
+    if rows is not None and stage != "pretrain":
+        raise ValueError("only the pretrain collate keeps a rank's rows")
+    return BatchIterator(corpus, batch_size, max_len, collate, shuffle=shuffle, seed=seed,
+                         start=0 if rows is None else rows.start)

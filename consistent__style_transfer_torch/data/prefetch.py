@@ -13,6 +13,11 @@ thread makes the consumer's current stream its own before it walks the
 iterator, so the copies and the labeler's kernels are queued on the stream
 the consumer computes on, and stream order puts each of them before the
 compute that reads it: no event is needed.
+
+``shard_fn`` (JAX ``data/prefetch.py:23-30``) keeps a data-parallel rank's
+rows of each batch's arrays before the copy: ``parallel/sharding.py::
+shard_batch``, or ``shard_stacked_batch`` for the optimize stage's (k, B,
+...) groups.
 """
 
 from __future__ import annotations
@@ -45,10 +50,11 @@ def to_device(arrays: dict, device: torch.device) -> dict[str, torch.Tensor]:
 class DevicePrefetcher:
     """Iterate ``(Batch, device_tensors)`` with ``depth`` batches in flight."""
 
-    def __init__(self, iterator, device: torch.device, depth: int = 2):
+    def __init__(self, iterator, device: torch.device, depth: int = 2, shard_fn=None):
         self.iterator = iterator
         self.device = torch.device(device)
         self.depth = depth
+        self.shard_fn = shard_fn
 
     def __iter__(self) -> Iterator[tuple[Batch, dict[str, torch.Tensor]]]:
         q: queue.Queue = queue.Queue(maxsize=self.depth)
@@ -65,7 +71,9 @@ class DevicePrefetcher:
                     for batch in self.iterator:
                         if stop.is_set():
                             return
-                        q.put((batch, to_device(batch.arrays, self.device)))
+                        arrays = batch.arrays if self.shard_fn is None else self.shard_fn(
+                            batch.arrays)
+                        q.put((batch, to_device(arrays, self.device)))
             except BaseException as e:  # surfaced in the consumer
                 errors.append(e)
             finally:

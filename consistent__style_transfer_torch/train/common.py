@@ -1,5 +1,6 @@
-"""Shared stage plumbing: device and dtype resolution, tokenizer, word2vec
-and corpus loading, model construction."""
+"""Shared stage plumbing: device, mesh and dtype resolution, the random
+streams of a rank, tokenizer, word2vec and corpus loading, model
+construction."""
 
 from __future__ import annotations
 
@@ -12,20 +13,56 @@ from ..config import BACKBONES, Config
 from ..data.corpus import StyleCorpus
 from ..models import DenoiseSeq2Seq, PairMatcher, RelGANDiscriminator, TextCNN, TransformerLM
 from ..models.seq2seq_transformer import TransformerSeq2Seq, generate
+from ..parallel.mesh import barrier, is_main, make_mesh
+from ..parallel.sharding import data_index, data_size
 from ..text.bpe import BPETokenizer, train_tokenizer
 from ..text.native import NativeBPE
 from ..text.word2vec import Word2Vec, train_token_w2v
 
 
+# the random streams of a data-parallel run (see rank_generators)
+COIN_SEED_OFFSET = 20_000_000
+RANK_SEED_STRIDE = 1_000_003
+
+
 def get_device(cfg: Config) -> torch.device:
     """The device an entry point runs on: ``cfg.device`` (``cuda`` unless
-    the caller asked for the CPU). Raises when CUDA is asked for and absent;
-    it never falls back to the CPU."""
+    the caller asked for the CPU), ``cuda:LOCAL_RANK`` for a bare ``cuda``
+    under the launcher. Raises when CUDA is asked for and absent; it never
+    falls back to the CPU."""
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu (Config.device='cpu') "
                            "to run on the CPU")
+    if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return device
+
+
+def get_mesh(cfg: Config, device: torch.device):
+    """The run's ``(data, model)`` mesh (``parallel/mesh.py::make_mesh``):
+    None in one process without a group. Raises when ``cfg.mesh`` does not
+    fit the world."""
+    return make_mesh(cfg.mesh.n_data, cfg.mesh.n_model, device.type)
+
+
+def rank_generators(seed: int, device: torch.device, mesh
+                    ) -> tuple[torch.Generator, torch.Generator | None]:
+    """(the dropout stream, the coin stream) of this rank.
+
+    One process, or one data rank: one generator seeded ``seed`` draws both,
+    as it always has, and the coin stream is None (the caller then draws the
+    coins from the dropout stream), so such a run draws what a run without
+    the launcher draws. ``D`` > 1 data ranks: every rank's rows need their
+    own dropout masks, while a sched coin is one draw a decode step for the
+    whole global batch. So the dropout stream is seeded by the data index
+    (``seed`` at index 0) and the coins come from a second stream, seeded
+    ``seed + COIN_SEED_OFFSET`` alike on every rank. Ranks that differ only
+    in their model index draw alike (they hold the same rows)."""
+    dropout_gen = torch.Generator(device).manual_seed(seed + RANK_SEED_STRIDE * data_index(mesh))
+    if data_size(mesh) == 1:
+        return dropout_gen, None
+    return dropout_gen, torch.Generator(device).manual_seed(seed + COIN_SEED_OFFSET)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -42,9 +79,10 @@ def get_tokenizer(cfg: Config, prefer_native: bool = True) -> NativeBPE | BPETok
     or in Python when ``prefer_native`` is false. A failed native build
     raises; nothing falls back."""
     vocab_path, merges_path = cfg.vocab_paths
-    if not (os.path.exists(vocab_path) and os.path.exists(merges_path)):
+    if is_main() and not (os.path.exists(vocab_path) and os.path.exists(merges_path)):
         train_tokenizer(cfg.train_files(), cfg.vocab_size, prefer_native).save(
             cfg.ds_dump_dir, cfg.dataset)
+    barrier()  # under the launcher rank 0 trains the missing dump, then all load it
     tok = BPETokenizer.load(vocab_path, merges_path)
     return NativeBPE.from_python(tok) if prefer_native else tok
 
@@ -53,8 +91,9 @@ def get_w2v(cfg: Config, tokenizer) -> Word2Vec:
     """Load the WMD word2vec, training it first (the native trainer, 10
     epochs) and saving it if the dump is missing (reference ``src/wmd.py:58-75``);
     vectors normalised as ``init_sims(replace=True)``."""
-    if not os.path.exists(cfg.w2v_path):
+    if is_main() and not os.path.exists(cfg.w2v_path):
         train_token_w2v(cfg.train_files(), tokenizer, epochs=10, seed=cfg.seed).save(cfg.w2v_path)
+    barrier()
     w2v = Word2Vec.load(cfg.w2v_path)
     w2v.init_sims()
     return w2v

@@ -11,12 +11,18 @@ The loop keeps the device busy: batch assembly and the host->device copy run
 in the prefetcher's thread, each decode is queued on the stream without
 waiting, and the copy of the ids back to the host plus the BPE decode run in
 a small thread pool.
+
+Under the launcher (``parallel/``) each data rank decodes its rows of every
+batch; the ids are gathered over the data group in rank order, the padding
+rows dropped by ``batch.valid``, and rank 0 writes the files, in corpus
+order, so they equal a one-process run's.
 """
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import torch
 
@@ -24,6 +30,8 @@ from ..config import Config
 from ..data.pipeline import make_batches
 from ..data.prefetch import DevicePrefetcher
 from ..models.beam import beam_decode_any
+from ..parallel.mesh import barrier, is_main
+from ..parallel.sharding import all_gather_rows, data_group, shard_batch
 from .common import generator_call, get_corpus
 
 
@@ -46,9 +54,11 @@ def make_transfer_step(model, beam_size: int = 1):
 
 
 def transfer_split(cfg: Config, model, tokenizer, split: str,
-                   step_fn=None) -> dict[int, list[str]]:
+                   step_fn=None, mesh=None) -> dict[int, list[str]]:
     """Transfer one split (greedy, or a beam of ``cfg.beam_size``); returns
-    {source_label: [decoded lines]} in corpus order."""
+    {source_label: [decoded lines]} in corpus order. With a ``mesh`` each
+    data rank decodes its rows of a batch and rank 0 gets the gathered
+    lines; the other ranks return empty lists."""
     step_fn = step_fn or make_transfer_step(model, cfg.beam_size)
     corpus = get_corpus(cfg, split, tokenizer)
     it = make_batches(corpus, cfg.batch_size, cfg.max_len, "optimize",
@@ -63,11 +73,14 @@ def transfer_split(cfg: Config, model, tokenizer, split: str,
             out[int(labels[i])].append(tokenizer.decode(tokens[i].tolist()))
         return out
 
+    group, main = data_group(mesh), is_main()
     with ThreadPoolExecutor(max_workers=3) as ex:
-        chunks = [
-            ex.submit(drain, step_fn(arrays["x"], arrays["labels"]), batch)
-            for batch, arrays in DevicePrefetcher(it, next(model.parameters()).device)
-        ]
+        chunks = []
+        for batch, arrays in DevicePrefetcher(it, next(model.parameters()).device,
+                                              shard_fn=partial(shard_batch, mesh=mesh)):
+            ids = all_gather_rows(step_fn(arrays["x"], arrays["labels"]), group)
+            if main:
+                chunks.append(ex.submit(drain, ids, batch))
         for c in chunks:  # corpus order preserved
             part = c.result()
             routed[0] += part[0]
@@ -75,22 +88,28 @@ def transfer_split(cfg: Config, model, tokenizer, split: str,
     return routed
 
 
+def tsf_paths(cfg: Config, split: str) -> list[str]:
+    return [f"{cfg.run_out_dir}/style.{split}.{label}.tsf" for label in (0, 1)]
+
+
 def write_tsf(cfg: Config, split: str, routed: dict[int, list[str]]) -> list[str]:
     os.makedirs(cfg.run_out_dir, exist_ok=True)
-    paths = []
-    for label in (0, 1):
-        path = f"{cfg.run_out_dir}/style.{split}.{label}.tsf"
+    paths = tsf_paths(cfg, split)
+    for label, path in zip((0, 1), paths):
         with open(path, "w", encoding="utf-8") as f:
             for line in routed[label]:
                 f.write(line + "\n")
-        paths.append(path)
     return paths
 
 
-def run_inference(cfg: Config, model, tokenizer, splits=("train", "test")) -> list[str]:
+def run_inference(cfg: Config, model, tokenizer, splits=("train", "test"),
+                  mesh=None) -> list[str]:
+    """Transfer ``splits`` to ``.tsf`` files (written by rank 0 under a
+    ``mesh``); returns their paths on every rank."""
     step_fn = make_transfer_step(model, cfg.beam_size)
     out_paths: list[str] = []
     for split in splits:
-        routed = transfer_split(cfg, model, tokenizer, split, step_fn=step_fn)
-        out_paths += write_tsf(cfg, split, routed)
+        routed = transfer_split(cfg, model, tokenizer, split, step_fn=step_fn, mesh=mesh)
+        out_paths += write_tsf(cfg, split, routed) if is_main() else tsf_paths(cfg, split)
+    barrier()  # the files are whole before any rank goes on to read them
     return out_paths

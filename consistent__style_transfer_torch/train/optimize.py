@@ -59,29 +59,44 @@ the generators go on where they stopped.
 
 Test mode (``:157-174, 243-255``): the newest ``G_epoch_*``, else the warmup
 G, transfers the train and test splits to ``.tsf`` files.
+
+Under the launcher (``parallel/``) each data rank steps on its rows of every
+batch (axis 1 of a group of k). G's gradient is averaged over the data group
+in ``g_opt.step()``, before the clip; D's gradients are summed locally and
+averaged once, at the apply (a sum of means is the mean of sums). On the
+card the collectives are captured in the step's graphs. With more than one
+data rank the dropout masks come from streams of the rank and the coins
+from a stream alike on every rank (``train/common.py::rank_generators``).
+Validation adds up every rank's masked sums and counts, so every rank takes
+the same stop decision; rank 0 logs and writes the best G and the full
+state, which holds every rank's generator states.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import Config
-from ..data.pipeline import MegaBatches, eval_arrays, make_batches
-from ..data.prefetch import DevicePrefetcher, to_device
+from ..data.pipeline import MegaBatches, make_batches
+from ..data.prefetch import DevicePrefetcher
 from ..models.generator import sched_coins
 from ..ops.losses import (bce_with_logits, cross_entropy, masked_row_mean, mse,
                           softmax_cross_entropy_tokens)
+from ..parallel.mesh import barrier, is_main, rank, world_size
+from ..parallel.sharding import data_group, global_means, replicate, shard_stacked_batch
 from ..utils.io import RunLogger
 from .common import (autocast, build_classifier, build_discriminator, build_generator,
                      build_lm, build_matcher, compute_dtype, generator_call, get_corpus,
-                     get_device, get_tokenizer)
+                     get_device, get_mesh, get_tokenizer, rank_generators)
 from .checkpoint import StateCheckpointer
 from .infer import run_inference
-from .loop import EarlyStopper, Throughput
+from .loop import EarlyStopper, Throughput, validate
 from .state import (AdamWithClip, AsyncSaver, BestKeeper, load_state_dict, newest_checkpoint,
                     params_exist)
 from .warmup import warmup_ckpt_name
@@ -151,18 +166,21 @@ class OptimizeSteps(NamedTuple):
 
 
 def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip,
-                        d_opt: AdamWithClip, copy_weights=None) -> OptimizeSteps:
+                        d_opt: AdamWithClip, copy_weights=None, group=None) -> OptimizeSteps:
     """Steps over ``models`` that update G through ``g_opt`` and D through
     ``d_opt``. ``copy_weights``: optional (V,) style-neutrality weights
     (``data/style_weights.py``) of the ``w_copy`` term; None = uniform.
+    ``group``: the data group of a data-parallel run, over which the
+    weighted ``w_copy`` term, a ratio of sums, takes its denominator.
 
     A ``batch`` is a dict of tensors on the models' device (``x``,
     ``labels``, and for validation an optional ``row_mask``). Randomness
     comes from explicit generators: ``generator`` (G's dropout, the frozen
-    scorers' and the sched coins) and ``d_generator`` (D's dropout and the
-    fresh fake decode's). ``coins`` ((L,) bool) replaces the sched coins of
-    the back-translation and reconstruction decodes, which share one draw a
-    step, as in the JAX package."""
+    scorers' and the sched coins, unless a ``coin_generator`` draws those)
+    and ``d_generator`` (D's dropout and the fresh fake decode's). ``coins``
+    ((L,) bool) replaces the sched coins of the back-translation and
+    reconstruction decodes, which share one draw a step, as in the JAX
+    package."""
     G, CLS, MAT, NT, D = (models.generator, models.classifier, models.matcher,
                           models.nt_checker, models.disc)
     g_params, d_params = list(G.parameters()), list(D.parameters())
@@ -172,6 +190,7 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
     tm = cfg.time_major_probs and cfg.backbone == "lstm"
     # the transformer's teacher-forced decodes draw no sched coins
     draw_coins = cfg.backbone == "lstm"
+    ranks = 1 if group is None else dist.get_world_size(group)
     if copy_weights is not None:
         copy_weights = torch.as_tensor(copy_weights, dtype=torch.float32,
                                        device=g_params[0].device)
@@ -181,7 +200,8 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
                               mode="st", tau=cfg.tau, time_major_out=time_major,
                               generator=generator)
 
-    def g_loss_fn(batch, generator=None, coins=None, copy_scale: float = 1.0):
+    def g_loss_fn(batch, generator=None, coins=None, copy_scale: float = 1.0,
+                  coin_generator=None):
         """(total, aux, sample_p) with the graph of the loss, G and the frozen
         cls and mat in train mode, D in eval mode. sample_p is (L, B, V) with
         ``time_major_probs``, else (B, L, V); every consumer follows it."""
@@ -190,7 +210,7 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
         D.eval()
         x, labels = batch["x"], batch["labels"]
         if coins is None and draw_coins:
-            coins = sched_coins(x.shape[1], generator, x.device)
+            coins = sched_coins(x.shape[1], coin_generator or generator, x.device)
         with autocast(x.device, dtype):
             sample_p = st_decode(batch, generator, tm)
             s_logits = CLS(sample_p, generator, time_major=tm)
@@ -231,15 +251,21 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
                     copy_loss = nll.mean()
                 else:
                     w = copy_weights[src]
-                    copy_loss = (w * nll).sum() / torch.clamp_min(w.sum(), 1e-6)
+                    den = w.sum()
+                    if group is not None:
+                        # a ratio of global sums: this rank's numerator over
+                        # the group's denominator / D, so the mean over the
+                        # ranks (the gradient's all-reduce) is the global one
+                        dist.all_reduce(den, group=group)
+                    copy_loss = (w * nll).sum() / (torch.clamp_min(den, 1e-6) / ranks)
                 total = total + cfg.w_copy * copy_scale * copy_loss
                 aux["COPY"] = copy_loss
         aux["loss"] = total
         return total, aux, sample_p
 
-    def g_step(batch, generator=None, coins=None, copy_scale: float = 1.0):
+    def g_step(batch, generator=None, coins=None, copy_scale: float = 1.0, coin_generator=None):
         """One G update; returns (aux, the decode sample_p without its graph)."""
-        total, aux, sample_p = g_loss_fn(batch, generator, coins, copy_scale)
+        total, aux, sample_p = g_loss_fn(batch, generator, coins, copy_scale, coin_generator)
         g_opt.zero_grad()
         total.backward(inputs=g_params)  # G's gradients only: D's .grad stays as it is
         g_opt.step()
@@ -297,13 +323,13 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
         return nt_loss + s_loss + c_mean
 
     def fused_step(batch, acc: list, do_apply: bool, generator=None, d_generator=None,
-                   copy_scale: float = 1.0, coins=None):
+                   copy_scale: float = 1.0, coins=None, coin_generator=None):
         """One training batch in the reference's order: the G update, then
         D's gradients against the updated G (a fresh decode, or the G step's
         with ``fuse_gan_steps``) summed into ``acc``, then, when
         ``do_apply``, the D update and ``acc`` reset to zero. Returns (aux,
         d_loss)."""
-        aux, sample_p = g_step(batch, generator, coins, copy_scale)
+        aux, sample_p = g_step(batch, generator, coins, copy_scale, coin_generator)
         if cfg.fuse_gan_steps:
             grads, d_loss = d_grads_reuse(sample_p, batch, d_generator)
         else:
@@ -325,22 +351,28 @@ class GraphedFusedStep:
     of its branch; the first call of a branch runs the step eagerly on a
     side stream (a real step, which also creates the lazy state: Adam's
     moments, the library workspaces) and then captures it. A capture that
-    fails raises.
+    fails raises. Each graph keeps its ``cudaGraph_t`` (``keep_graph``), so
+    its nodes can be counted; it is instantiated at its first replay.
 
-    The G and D generators are registered with each graph, so every replay
-    draws new dropout masks and coins from them, the same ones the eager
-    step draws from the same generator states; ``copy_scale`` is a 0-dim
-    tensor on the card that the caller fills (each epoch), not a constant
-    baked into the capture. A call returns the graph's static outputs
+    The G and D generators (and a coin generator, when there is one) are
+    registered with each graph, so every replay draws new dropout masks and
+    coins from them, the same ones the eager step draws from the same
+    generator states. The collectives of a data-parallel step (the
+    optimizers' all-reduces) are captured too: the process group exists
+    before, and the eager first call of a branch runs them on the side
+    stream, which sets up the communicator before the capture.
+    ``copy_scale`` is a 0-dim tensor on the card that the caller fills (each
+    epoch), not a constant baked into the capture. A call returns the graph's static outputs
     ``(aux, d_loss)``, which the next replay of that branch overwrites: copy
     what must outlive it."""
 
     def __init__(self, fused_step: Callable, acc: list, generator: torch.Generator,
                  d_generator: torch.Generator, copy_scale: torch.Tensor,
-                 given_coins: bool = False):
+                 given_coins: bool = False, coin_generator: torch.Generator | None = None):
         self.fused_step = fused_step
         self.acc = acc
         self.generators = (generator, d_generator)
+        self.coin_generator = coin_generator
         self.copy_scale = copy_scale
         self.given_coins = given_coins
         self.static: dict[str, torch.Tensor] | None = None
@@ -351,7 +383,8 @@ class GraphedFusedStep:
 
     def _run(self, do_apply: bool):
         return self.fused_step(self.static, self.acc, do_apply, *self.generators,
-                               copy_scale=self.copy_scale, coins=self.coins)
+                               copy_scale=self.copy_scale, coins=self.coins,
+                               coin_generator=self.coin_generator)
 
     def __call__(self, batch: dict, do_apply: bool, coins: torch.Tensor | None = None):
         if self.static is None:
@@ -372,9 +405,10 @@ class GraphedFusedStep:
         with torch.cuda.stream(side):
             out = self._run(do_apply)
         torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes can be counted
+        for gen in (*self.generators, self.coin_generator):
+            if gen is not None:
+                graph.register_generator_state(gen)
         # other threads (the batch prefetcher) go on copying on their own
         # stream while this one captures
         with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
@@ -389,13 +423,19 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
     if cfg.megastep_k < 1:
         raise ValueError(f"megastep_k must be at least 1, got {cfg.megastep_k}")
     device = get_device(cfg)
+    mesh = get_mesh(cfg, device)
+    group, main = data_group(mesh), is_main()
     tokenizer = get_tokenizer(cfg)
     V = len(tokenizer)
     models = OptimizeModels(cfg, V, device)
     load_frozen(cfg, models)
     load_generator_params(cfg, models.generator)
-    g_opt = AdamWithClip(models.generator.parameters(), cfg.optimize_lr, cfg.optimize_clip)
-    d_opt = AdamWithClip(models.disc.parameters(), cfg.optimize_lr, cfg.optimize_clip)
+    for m in (models.generator, models.classifier, models.matcher, models.nt_checker, models.disc):
+        replicate(m, mesh)
+    g_opt = AdamWithClip(models.generator.parameters(), cfg.optimize_lr, cfg.optimize_clip,
+                         group=group)
+    d_opt = AdamWithClip(models.disc.parameters(), cfg.optimize_lr, cfg.optimize_clip,
+                         group=group)
 
     task_dump = os.path.join(cfg.ds_dump_dir, f"optimize-{cfg.ver}")
     os.makedirs(task_dump, exist_ok=True)
@@ -409,18 +449,20 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
         from ..data.style_weights import style_neutrality_weights
 
         copy_weights = style_neutrality_weights(train_corpus, V)
-    steps = make_optimize_steps(cfg, models, g_opt, d_opt, copy_weights=copy_weights)
+    steps = make_optimize_steps(cfg, models, g_opt, d_opt, copy_weights=copy_weights,
+                                group=group)
 
-    logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "optimize", cfg.ver, config=cfg)
+    logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "optimize", cfg.ver, config=cfg,
+                       enabled=main)
     stopper = EarlyStopper(cfg.optimize_patience)
     # best-G save + previous-best delete on a worker thread, overlapped with
     # the next epoch (the reference's torch.save sits on the critical path)
     saver = AsyncSaver()
-    keeper = BestKeeper(saver=saver)
+    keeper = BestKeeper(saver=saver, write=main)
     thru = Throughput()
     acc = [torch.zeros_like(p) for p in models.disc.parameters()]
-    generator = torch.Generator(device).manual_seed(cfg.seed)
-    d_generator = torch.Generator(device).manual_seed(cfg.seed + 1)
+    generator, coin_generator = rank_generators(cfg.seed, device, mesh)
+    d_generator, _ = rank_generators(cfg.seed + 1, device, mesh)
 
     start_epoch, step = 0, 0
     ckpt = StateCheckpointer(os.path.join(task_dump, "full_state")) if cfg.resume else None
@@ -430,8 +472,7 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
         models.disc.load_state_dict(state["d"], strict=True)
         g_opt.load_state_dict(state["g_opt"])
         d_opt.load_state_dict(state["d_opt"])
-        generator.set_state(state["generator"])
-        d_generator.set_state(state["d_generator"])
+        restore_streams(state, generator, d_generator, coin_generator)
         keeper.best = stopper.best = state["best"]
         keeper.last_path = state["best_path"]
         start_epoch, step = state["epoch"] + 1, state["step"]
@@ -440,19 +481,22 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
     # the epoch's copy_scale lives on the device, so the graphs read it
     copy_scale = torch.ones((), device=device)
     if device.type == "cuda":
-        run_step = GraphedFusedStep(steps.fused_step, acc, generator, d_generator, copy_scale)
+        run_step = GraphedFusedStep(steps.fused_step, acc, generator, d_generator, copy_scale,
+                                    coin_generator=coin_generator)
     else:
         def run_step(batch, do_apply):
-            return steps.fused_step(batch, acc, do_apply, generator, d_generator, copy_scale)
+            return steps.fused_step(batch, acc, do_apply, generator, d_generator, copy_scale,
+                                    coin_generator=coin_generator)
 
     for epoch in range(start_epoch, cfg.epochs):
         copy_scale.fill_(cfg.w_copy_decay ** epoch)  # 1.0 unless a decay is configured
         ep_t0, ep_steps, d_applies = time.time(), 0, 0
-        for _, group in DevicePrefetcher(MegaBatches(train_it, cfg.megastep_k), device):
+        for _, stacked in DevicePrefetcher(MegaBatches(train_it, cfg.megastep_k), device,
+                                           shard_fn=partial(shard_stacked_batch, mesh=mesh)):
             logs = []
-            for i in range(group["x"].shape[0]):
+            for i in range(stacked["x"].shape[0]):
                 do_apply = ep_steps % cfg.d_update_every == 0  # epoch-local index
-                aux, d_loss = run_step({k: v[i] for k, v in group.items()}, do_apply)
+                aux, d_loss = run_step({k: v[i] for k, v in stacked.items()}, do_apply)
                 d_applies += do_apply
                 thru.add(cfg.batch_size)
                 ep_steps += 1
@@ -463,43 +507,79 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)  # once per group of k batches
             for logged_step, metrics in logs:
-                logger.log(logged_step, **metrics, **thru.rates())
+                logger.log(logged_step, **global_means(metrics, group), **thru.rates())
         train_s = time.time() - ep_t0
 
-        # validation; the losses stay on the device until one read
-        totals, weight = [], 0
-        for batch in dev_it:
-            totals.append(steps.val_step(to_device(eval_arrays(batch), device)) * batch.valid)
-            weight += batch.valid
-        val_loss = float(torch.stack(totals).sum()) / max(weight, 1) if totals else 0.0
+        # validation over the real rows (a rank's own rows)
+        val_loss = (validate(dev_it, lambda a: [steps.val_step(a)], device, mesh)  # noqa: B023
+                    or [0.0])[0]
         logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps, train_s=train_s,
                    d_applies=d_applies,
                    epoch_sent_per_s=ep_steps * cfg.batch_size / max(time.time() - ep_t0, 1e-6))
-        if progress:
+        if progress and main:
             print(f"[optimize] epoch {epoch} val_loss {val_loss:.4f} "
                   f"{thru.rates()['sentences_per_sec']:.1f} sent/s")
         keeper.update(val_loss, models.generator,
                       os.path.join(task_dump, f"G_epoch_{epoch}.pth"), delete_previous=True)
         if ckpt is not None:
             saver.wait()  # the best G it names is on disk first
-            ckpt.save(epoch, {
+            payload = {
                 "g": models.generator.state_dict(), "d": models.disc.state_dict(),
                 "g_opt": g_opt.state_dict(), "d_opt": d_opt.state_dict(),
                 "generator": generator.get_state(), "d_generator": d_generator.get_state(),
                 "epoch": epoch, "step": step, "best": keeper.best, "best_path": keeper.last_path,
-            })
+            }
+            streams = gather_streams((generator, d_generator, coin_generator))
+            if streams is not None:  # every rank's streams, for rank 0 to save
+                payload["rank_generators"] = streams
+            if main:
+                ckpt.save(epoch, payload)
+            barrier()
         if stopper.update(val_loss):
             break
 
     saver.close()  # drain the pending best-G writes, re-raising worker errors
     logger.close()
+    barrier()  # the best G is on disk before any rank goes on to read it
     return keeper.last_path
+
+
+def gather_streams(generators) -> list | None:
+    """Every rank's states of ``generators`` (a None stays None), gathered
+    on every rank in rank order (``all_gather_object``); None in one
+    process."""
+    if world_size() == 1:
+        return None
+    streams = [None] * world_size()
+    dist.all_gather_object(streams, [None if g is None else g.get_state() for g in generators])
+    return streams
+
+
+def restore_streams(state: dict, generator, d_generator, coin_generator) -> None:
+    """Set this rank's G, D and coin generators from a full state: the
+    single states of a one-process run, or this rank's entry of
+    ``rank_generators``, which a state saved under the launcher holds. The
+    world size must be the one the state was saved with."""
+    streams = state.get("rank_generators")
+    if streams is None and world_size() == 1:
+        generator.set_state(state["generator"])
+        d_generator.set_state(state["d_generator"])
+        return
+    if streams is None or len(streams) != world_size():
+        raise ValueError(f"the full state was saved by {len(streams or [None])} rank(s); "
+                         f"resume it with that world size, not {world_size()}")
+    for gen, st in zip((generator, d_generator, coin_generator), streams[rank()]):
+        if (gen is None) != (st is None):
+            raise ValueError("the full state's coin stream does not fit this mesh")
+        if gen is not None:
+            gen.set_state(st)
 
 
 def run_test(cfg: Config) -> list[str]:
     """Test mode: transfer the train and test splits to .tsf files."""
     device = get_device(cfg)
+    mesh = get_mesh(cfg, device)
     tokenizer = get_tokenizer(cfg)
     model = build_generator(cfg, len(tokenizer), device)
     load_generator_params(cfg, model)
-    return run_inference(cfg, model, tokenizer)
+    return run_inference(cfg, replicate(model, mesh), tokenizer, mesh=mesh)

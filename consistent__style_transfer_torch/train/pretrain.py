@@ -20,6 +20,12 @@ per-task dumps ``dump/<ds>/pretrain/{cls,mat,dn}.pth`` are resumed from.
 Parameters stay float32; with ``dtype="bfloat16"`` the towers run under
 ``torch.autocast`` in bfloat16. Dropout is on in train steps and off in eval
 steps, its masks drawn from one seeded ``torch.Generator`` on the device.
+
+Under the launcher (``parallel/``) each data rank takes its rows of every
+batch, labels only those pairs (one Sinkhorn launch a batch on ``B/D``
+pairs), and the optimizer averages the gradients over the data group before
+the clip; validation adds up every rank's masked sums and counts, so all
+ranks take the same freeze and stop decisions. Rank 0 saves and logs.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ import time
 import torch
 
 from ..config import Config
-from ..data.pipeline import eval_arrays, make_batches
-from ..data.prefetch import DevicePrefetcher, to_device
+from ..data.pipeline import make_batches
+from ..data.prefetch import DevicePrefetcher
 from ..data.wmd_labels import ExactWmdLabeler, SinkhornWmdLabeler
 from ..ops.losses import cross_entropy, mse, softmax_cross_entropy_tokens
+from ..parallel.mesh import barrier, is_main
+from ..parallel.sharding import batch_sharding, data_group, global_means, replicate
 from ..utils.io import RunLogger
 from .common import (
     build_classifier,
@@ -43,10 +51,12 @@ from .common import (
     compute_dtype,
     get_corpus,
     get_device,
+    get_mesh,
     get_tokenizer,
     get_w2v,
+    rank_generators,
 )
-from .loop import EarlyStopper, Throughput
+from .loop import EarlyStopper, Throughput, validate
 from .state import AdamWithClip, AsyncSaver, load_state_dict, params_exist, save_state_dict
 
 TASKS = ("cls", "mat", "dn")
@@ -106,6 +116,8 @@ def make_pretrain_steps(models: dict, optimizer: AdamWithClip,
 def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
     """Returns {task: best checkpoint path}."""
     device = get_device(cfg)
+    mesh = get_mesh(cfg, device)
+    group, main = data_group(mesh), is_main()
     tokenizer = get_tokenizer(cfg)
     w2v = get_w2v(cfg, tokenizer)
     task_dump = os.path.join(cfg.ds_dump_dir, "pretrain")
@@ -124,12 +136,13 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
     # variants and the WMD label) for every remaining epoch
     flags = {t: True for t in TASKS}
     need_matcher = lambda: flags["mat"]  # noqa: E731
+    rows = batch_sharding(mesh, cfg.batch_size)  # all of them in one process
     train_it = make_batches(train_corpus, cfg.batch_size, cfg.max_len, "pretrain",
                             shuffle=True, seed=cfg.seed, wmd_labeler=labeler,
-                            need_matcher=need_matcher)
+                            need_matcher=need_matcher, rows=rows)
     dev_it = make_batches(dev_corpus, cfg.batch_size, cfg.max_len, "pretrain",
                           shuffle=False, seed=cfg.seed, wmd_labeler=labeler,
-                          need_matcher=need_matcher)
+                          need_matcher=need_matcher, rows=rows)
 
     V = len(tokenizer)
     models = {"cls": build_classifier(cfg, V, device), "mat": build_matcher(cfg, V, device),
@@ -137,14 +150,15 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
     for t in TASKS:  # resume from existing per-task dumps when present
         if params_exist(paths[t]):
             models[t].load_state_dict(load_state_dict(paths[t]), strict=True)
+        replicate(models[t], mesh)
     optimizer = AdamWithClip([p for t in TASKS for p in models[t].parameters()],
-                             cfg.pretrain_lr, cfg.pretrain_clip)
+                             cfg.pretrain_lr, cfg.pretrain_clip, group=group)
     dtype = compute_dtype(cfg)
     train_step, eval_step = make_pretrain_steps(
         models, optimizer, autocast_dtype=dtype if dtype != torch.float32 else None)
-    generator = torch.Generator(device).manual_seed(cfg.seed)
+    generator, _ = rank_generators(cfg.seed, device, mesh)  # dropout only: no coins here
 
-    logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "pretrain", config=cfg)
+    logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "pretrain", config=cfg, enabled=main)
     stopper = EarlyStopper(cfg.pretrain_patience)
     best = {t: float("inf") for t in TASKS}
     thru = Throughput()
@@ -162,23 +176,18 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
             ep_sent += cfg.batch_size
             ep_steps += 1
             if step % 50 == 0:
+                parts = global_means(parts, group)
                 logger.log(step, **{f"{t}_loss": v for t, v in parts.items()}, **thru.rates())
             step += 1
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         train_s = time.time() - ep_t0
 
-        # validation at epoch end: per-task losses stay on the device until
-        # one read per task after the loop
-        totals = {t: [] for t in TASKS}
-        weights = 0
-        for batch in dev_it:
-            parts = eval_step(to_device(eval_arrays(batch), device), ftuple)
-            for t, v in parts.items():
-                totals[t].append(v * batch.valid)
-            weights += batch.valid
-        val = {t: float(torch.stack(totals[t]).sum()) / max(weights, 1)
-               for t in TASKS if flags[t]}
+        # validation at epoch end, over the real rows (a rank's own rows)
+        active = [t for t in TASKS if flags[t]]
+        val = dict(zip(active, validate(
+            dev_it, lambda a: [eval_step(a, ftuple)[t] for t in active],  # noqa: B023
+            device, mesh, shard=False)))
         ep_rate = ep_sent / max(time.time() - ep_t0, 1e-6)  # validation included
         for t in TASKS:
             if not flags[t]:
@@ -187,12 +196,13 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
                 flags[t] = False  # permanent freeze (main_pretrain.py:100-102)
             else:
                 best[t] = val[t]
-                saver.submit(models[t], paths[t])
+                if main:
+                    saver.submit(models[t], paths[t])
         val_loss = sum(v for v in best.values() if v != float("inf"))
         logger.log(step, val_loss=val_loss, epoch=epoch, epoch_sent_per_s=ep_rate,
                    train_steps=ep_steps, train_s=train_s,
                    **{f"val_{t}": val.get(t, float("nan")) for t in TASKS})
-        if progress:
+        if progress and main:
             print(f"[pretrain] epoch {epoch} val_loss {val_loss:.4f} "
                   f"{ep_rate:.1f} sent/s flags {flags}")
         if stopper.update(val_loss):
@@ -200,7 +210,8 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
 
     saver.close()  # drain pending saves, re-raising worker errors
     for t in TASKS:  # artifacts exist even after a degenerate run
-        if not os.path.exists(paths[t]):
+        if main and not os.path.exists(paths[t]):
             save_state_dict(models[t].state_dict(), paths[t])
     logger.close()
+    barrier()  # the dumps are on disk before any rank goes on to read them
     return paths

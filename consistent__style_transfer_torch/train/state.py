@@ -14,6 +14,9 @@ import queue
 import threading
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.sharding import all_reduce_mean, local_tensor
 
 
 class AdamWithClip:
@@ -30,18 +33,27 @@ class AdamWithClip:
     takes an Adam step on zero gradients, moving on its decaying moments, and
     every parameter's step count is the global one, as under optax.
 
-    On the card the Adam is ``capturable``: its step count lives on the
-    device and the update reads nothing back to the host, so a step can run
-    inside a CUDA graph (the optimize stage's ``megastep_k``); eager steps
-    take the same path. On the CPU, where ``capturable`` is refused, it is
-    the plain Adam."""
+    With a data ``group`` (``parallel/sharding.py::data_group``) the step
+    first averages the gradients over it, one all-reduce of one flat bucket,
+    so the clip sees the norm of the global batch's gradient, as the JAX
+    package psums before ``clip_by_global_norm``. Parameters that are
+    DTensors (``parallel/sharding.py::shard_params``) are averaged on their
+    local shards; the norm adds the squares of a ``Shard``ed gradient over
+    its mesh's group and counts a ``Replicate``d one once.
 
-    def __init__(self, params, lr: float, clip: float):
+    On the card the Adam is ``capturable``: its step count lives on the
+    device and the update reads nothing back to the host, so a step, its
+    all-reduce included, can run inside a CUDA graph (the optimize stage);
+    eager steps take the same path. On the CPU, where ``capturable`` is
+    refused, it is the plain Adam."""
+
+    def __init__(self, params, lr: float, clip: float, group=None):
         self.params = list(params)
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.clip = clip
+        self.group = group
         self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                      capturable=self.params[0].is_cuda)
 
@@ -55,10 +67,31 @@ class AdamWithClip:
     def load_state_dict(self, state: dict) -> None:
         self.adam.load_state_dict(state)
 
+    def _global_norm(self, grads: list) -> torch.Tensor:
+        """The norm of the whole gradient: over the local tensors, plus, for
+        DTensor gradients with a ``Shard`` placement, the squares of the
+        other shards, summed over their mesh's group."""
+        sharded = [g for g in grads if any(pl.is_shard() for pl in
+                                           getattr(g, "placements", ()))]
+        if not sharded:
+            return torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm([local_tensor(g) for g in grads])))
+        whole = [local_tensor(g) for g in grads if not any(g is s for s in sharded)]
+        parts = [local_tensor(g) for g in sharded]
+        sq = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(parts))) ** 2
+        dist.all_reduce(sq, group=sharded[0].device_mesh.get_group())
+        if whole:
+            sq = sq + torch.linalg.vector_norm(torch.stack(torch._foreach_norm(whole))) ** 2
+        return sq.sqrt()
+
     @torch.no_grad()
     def step(self) -> None:
-        grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        for p in self.params:  # a DTensor gradient in the parameter's layout
+            if hasattr(p.grad, "placements") and p.grad.placements != p.placements:
+                p.grad = p.grad.redistribute(p.device_mesh, p.placements)
+        grads = [local_tensor(p.grad) for p in self.params]
+        all_reduce_mean(grads, self.group)
+        norm = self._global_norm([p.grad for p in self.params])
         clipped = norm >= self.clip
         torch._foreach_div_(grads, torch.where(clipped, norm, 1.0))
         torch._foreach_mul_(grads, torch.where(clipped, self.clip, 1.0).to(norm))
@@ -151,12 +184,14 @@ class BestKeeper:
     (the optimize stage's ``G_epoch_<n>`` retention,
     ``src/main_optimize.py:144-151``). With ``saver``, the save and the
     delete run on its worker thread, off the epoch-end critical path;
-    without, here."""
+    without, here. With ``write`` false (every rank but 0 of a
+    data-parallel run) it keeps the best and its path but touches no file."""
 
-    def __init__(self, saver: AsyncSaver | None = None):
+    def __init__(self, saver: AsyncSaver | None = None, write: bool = True):
         self.best = float("inf")
         self.last_path: str | None = None
         self._saver = saver
+        self._write = write
 
     def update(self, value: float, module: torch.nn.Module, path: str,
                delete_previous: bool = False) -> bool:
@@ -165,7 +200,9 @@ class BestKeeper:
         self.best = value
         delete = (self.last_path if delete_previous and self.last_path
                   and self.last_path != path else None)
-        if self._saver is not None:
+        if not self._write:
+            pass
+        elif self._saver is not None:
             self._saver.submit(module, path, delete_path=delete)
         else:
             save_state_dict(module.state_dict(), path)

@@ -13,24 +13,34 @@ seeded ``torch.Generator`` on the device draws the train steps' dropout masks
 and sched coins; each validation draws its coins once, from a generator
 seeded by the step count, and every dev batch uses them (as the JAX package's
 ``step_rngs(key, 10_000_000 + step)`` gives every dev batch the same key).
+
+Under the launcher (``parallel/``) each data rank trains on its rows of
+every batch, the gradients averaged over the data group before the clip;
+with more than one data rank the dropout masks come from a stream of the
+rank and the coins from a stream alike on every rank
+(``train/common.py::rank_generators``). Validation adds up every rank's
+masked sums and counts; rank 0 saves and logs.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from functools import partial
 
 import torch
 
 from ..config import Config
-from ..data.pipeline import eval_arrays, make_batches
-from ..data.prefetch import DevicePrefetcher, to_device
+from ..data.pipeline import make_batches
+from ..data.prefetch import DevicePrefetcher
 from ..models.generator import sched_coins
 from ..ops.losses import softmax_cross_entropy_tokens
+from ..parallel.mesh import barrier, is_main
+from ..parallel.sharding import data_group, global_means, replicate, shard_batch
 from ..utils.io import RunLogger
 from .common import (autocast, build_generator, compute_dtype, generator_call, get_corpus,
-                     get_device, get_tokenizer)
-from .loop import EarlyStopper, Throughput
+                     get_device, get_mesh, get_tokenizer, rank_generators)
+from .loop import EarlyStopper, Throughput, validate
 from .state import AdamWithClip, BestKeeper, save_state_dict
 
 EVAL_SEED_OFFSET = 10_000_000
@@ -46,10 +56,11 @@ def warmup_ckpt_name(cfg: Config) -> str:
 def make_warmup_steps(model, optimizer: AdamWithClip, dtype: torch.dtype = torch.float32):
     """(train_step, eval_step) of the denoising objective.
 
-    ``train_step(batch, generator, coins=None)`` runs ``model`` in train mode
-    (dropout and, unless ``coins`` is given, the sched coins from
-    ``generator``), back-propagates the token CE, takes one clipped Adam step
-    and returns the loss from before the update. ``eval_step(batch, coins)``
+    ``train_step(batch, generator, coins=None, coin_generator=None)`` runs
+    ``model`` in train mode (dropout and, unless ``coins`` is given, the
+    sched coins from ``generator``, or drawn first from ``coin_generator``
+    when there is one), back-propagates the token CE, takes one clipped Adam
+    step and returns the loss from before the update. ``eval_step(batch, coins)``
     is the same decode in eval mode, without gradients, its CE over the rows
     of an optional ``row_mask``. ``batch`` holds tensors ``nx``, ``x``,
     ``labels`` on the model's device."""
@@ -61,7 +72,9 @@ def make_warmup_steps(model, optimizer: AdamWithClip, dtype: torch.dtype = torch
                                     coins=coins)
             return softmax_cross_entropy_tokens(logits, batch["x"], row_mask=row_mask)
 
-    def train_step(batch, generator=None, coins=None):
+    def train_step(batch, generator=None, coins=None, coin_generator=None):
+        if coins is None and coin_generator is not None:
+            coins = sched_coins(batch["x"].shape[1], coin_generator, batch["x"].device)
         model.train()
         optimizer.zero_grad()
         value = loss(batch, generator, coins)
@@ -80,6 +93,8 @@ def make_warmup_steps(model, optimizer: AdamWithClip, dtype: torch.dtype = torch
 def run_warmup(cfg: Config, progress: bool = True) -> str:
     """Returns the path of the best generator checkpoint."""
     device = get_device(cfg)
+    mesh = get_mesh(cfg, device)
+    group, main = data_group(mesh), is_main()
     tokenizer = get_tokenizer(cfg)
     task_dump = os.path.join(cfg.ds_dump_dir, "warmup")
     os.makedirs(task_dump, exist_ok=True)
@@ -91,48 +106,47 @@ def run_warmup(cfg: Config, progress: bool = True) -> str:
     dev_it = make_batches(get_corpus(cfg, "dev", tokenizer), bs, cfg.max_len, "warmup",
                           shuffle=False, seed=cfg.seed)
 
-    model = build_generator(cfg, len(tokenizer), device, training=True)
-    optimizer = AdamWithClip(model.parameters(), cfg.warmup_lr, cfg.warmup_clip)
+    model = replicate(build_generator(cfg, len(tokenizer), device, training=True), mesh)
+    optimizer = AdamWithClip(model.parameters(), cfg.warmup_lr, cfg.warmup_clip, group=group)
     train_step, eval_step = make_warmup_steps(model, optimizer, compute_dtype(cfg))
-    generator = torch.Generator(device).manual_seed(cfg.seed)
+    generator, coin_generator = rank_generators(cfg.seed, device, mesh)
 
-    logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "warmup", config=cfg)
+    logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "warmup", config=cfg, enabled=main)
     stopper = EarlyStopper(cfg.warmup_patience)
-    keeper = BestKeeper()
+    keeper = BestKeeper(write=main)
     thru = Throughput()
 
     step = 0
     for epoch in range(cfg.warmup_epochs):
         ep_t0, ep_steps = time.time(), 0
-        for _, arrays in DevicePrefetcher(train_it, device):
-            loss = train_step(arrays, generator)
+        for _, arrays in DevicePrefetcher(train_it, device,
+                                          shard_fn=partial(shard_batch, mesh=mesh)):
+            loss = train_step(arrays, generator, coin_generator=coin_generator)
             thru.add(bs)
             ep_steps += 1
             if step % 50 == 0:
-                logger.log(step, dn_loss=loss, **thru.rates())
+                logger.log(step, **global_means({"dn_loss": loss}, group), **thru.rates())
             step += 1
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         train_s = time.time() - ep_t0
 
-        # validation at epoch end, weighted by each batch's real rows; the
-        # losses stay on the device until one read after the loop
+        # validation at epoch end, over the real rows (a rank's own rows);
+        # every dev batch shares the validation's coins
         eval_gen = torch.Generator(device).manual_seed(cfg.seed + EVAL_SEED_OFFSET + step)
         coins = sched_coins(cfg.max_len, eval_gen, device)
-        totals, weights = [], 0
-        for batch in dev_it:
-            totals.append(eval_step(to_device(eval_arrays(batch), device), coins) * batch.valid)
-            weights += batch.valid
-        val_loss = float(torch.stack(totals).sum()) / max(weights, 1) if totals else 0.0
+        val_loss = (validate(dev_it, lambda a: [eval_step(a, coins)], device, mesh)  # noqa: B023
+                    or [0.0])[0]
         logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps, train_s=train_s)
-        if progress:
+        if progress and main:
             print(f"[warmup] epoch {epoch} val_loss {val_loss:.4f} "
                   f"{thru.rates()['sentences_per_sec']:.1f} sent/s")
         keeper.update(val_loss, model, g_path)
         if stopper.update(val_loss):
             break
 
-    if keeper.last_path is None:  # no validation improvement recorded at all
+    if main and keeper.last_path is None:  # no validation improvement recorded at all
         save_state_dict(model.state_dict(), g_path)
     logger.close()
+    barrier()  # G is on disk before any rank goes on to read it
     return g_path

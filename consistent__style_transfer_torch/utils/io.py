@@ -27,9 +27,14 @@ def write_lines(lines: Iterable[str], path: str) -> None:
 
 
 class RunLogger:
-    """Append-only jsonl metrics stream + hparams snapshot."""
+    """Append-only jsonl metrics stream + hparams snapshot. With ``enabled``
+    false (every rank but 0 of a data-parallel run) it writes nothing."""
 
-    def __init__(self, log_dir: str, stage: str, ver: str | None = None, config=None):
+    def __init__(self, log_dir: str, stage: str, ver: str | None = None, config=None,
+                 enabled: bool = True):
+        self.enabled = enabled
+        if not enabled:
+            return
         name = stage if ver is None else f"{stage}-{ver}"
         self.dir = os.path.join(log_dir, name)
         os.makedirs(self.dir, exist_ok=True)
@@ -42,10 +47,13 @@ class RunLogger:
 
     def log(self, step: int, **metrics) -> None:
         """One event; tensor metrics are read to the host here."""
+        if not self.enabled:
+            return
         rec = {"t": time.time(), "step": step}
         rec.update({k: float(v) for k, v in metrics.items()})
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self.enabled:
+            self._f.close()

@@ -6,12 +6,20 @@ opens, and a step-time summary.
 ``trace`` is on when ``TPUST_TRACE=1`` (or ``enabled=True``), off otherwise,
 and then costs nothing; the trace goes to ``log_dir``, else
 ``$TPUST_TRACE_DIR``, else ``log/trace``. The CLI wraps every command in it.
+
+``report_launches`` (on when ``TPUST_KERNEL_COUNTS=1``) prints, after a CLI
+command, one JSON line to stderr with the rank, the command's seconds and
+the launch counts of the port's kernels in this process: a process started
+by the launcher counts its own launches, which no caller can read
+otherwise.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import sys
 import time
 
 import torch
@@ -70,3 +78,17 @@ class StepTimer:
             "p95_ms": ts[min(int(n * 0.95), n - 1)] * 1e3,
             "mean_ms": sum(ts) / n * 1e3,
         }
+
+
+def report_launches(command: str, seconds: float, rank: int = 0) -> None:
+    """Print ``{"kernel_launches": ...}`` for this process to stderr when
+    ``TPUST_KERNEL_COUNTS=1``; nothing otherwise."""
+    if os.environ.get("TPUST_KERNEL_COUNTS", "0") != "1":
+        return
+    from ..kernels.decode_step import fused_decode_logits
+    from ..kernels.sinkhorn import sinkhorn_cuda
+
+    print(json.dumps({"kernel_launches": {
+        "rank": rank, "command": command, "seconds": seconds,
+        "fused_decode_logits": fused_decode_logits.launches,
+        "sinkhorn": sinkhorn_cuda.launches}}), file=sys.stderr, flush=True)

@@ -1,7 +1,7 @@
 """The port stands alone: it imports every module, decodes (greedy, the
 beam of both backbones, the transformer generator), and runs a tiny
-pretrain, warmup and optimize, and its native text runtime, profiling and
-full-state checkpoints, with jax, flax, optax, orbax, the JAX package,
+pretrain, warmup and optimize, its native text runtime, profiling and
+full-state checkpoints, and its mesh and optimize-on-mesh exercise, with jax, flax, optax, orbax, the JAX package,
 scikit-learn, gensim, fasttext and pyemd blocked (tests/test_torch_eval_cli.py
 runs the eval commands so), names none of them in its sources or in
 chip_smoke.py, builds its native library from ``native/tpust.cc`` into its
@@ -157,6 +157,28 @@ print("BACKBONE OK")
 """
 
 
+_BLOCKED_PARALLEL = r"""
+for name in ("parallel", "parallel.mesh", "parallel.sharding", "parallel.exercise"):
+    assert "consistent__style_transfer_torch." + name in sys.modules, name
+from consistent__style_transfer_torch.parallel import make_mesh, param_shardings, shard_batch
+from consistent__style_transfer_torch.parallel.exercise import optimize_step_on_mesh
+from consistent__style_transfer_torch.parallel.mesh import mesh_shape
+
+torch.set_num_threads(1)
+assert make_mesh(1, 1) is None and mesh_shape(None, 2, 4) == (2, 2)
+try:
+    make_mesh(2, 1)
+    raise AssertionError("a 2 x 1 mesh in one process must raise")
+except ValueError:
+    pass
+out = optimize_step_on_mesh(1, 1, vocab=32, max_len=6, n_steps=1, dtype="float32", p_drop=0.0,
+                            device="cpu")
+assert out["n_steps"] == 1 and all(map(abs, (out["g_loss"], out["d_loss"], out["val"]))), out
+assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
+print("PARALLEL OK")
+"""
+
+
 def _run_blocked(body: str) -> str:
     proc = subprocess.run([sys.executable, "-c", (_BLOCKED_RUN % (BLOCKED,)) + body], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -188,6 +210,11 @@ def test_beam_and_transformer_backbone_run_with_jax_blocked():
 
 def test_native_profiling_checkpoint_run_with_jax_blocked():
     assert "NEW MODULES OK" in _run_blocked("import os\n" + _BLOCKED_NEW_MODULES)
+
+
+def test_parallel_modules_run_with_jax_blocked():
+    """The mesh, the sharding rules and the optimize exercise at (1, 1)."""
+    assert "PARALLEL OK" in _run_blocked(_BLOCKED_PARALLEL)
 
 
 def test_native_wrapper_loads_only_from_its_build_dir(monkeypatch, tmp_path):
