@@ -5,7 +5,8 @@ on one NVIDIA GPU (written for the H100).
     python3 chip_smoke.py        # from the root of a checkout; needs CUDA and nvcc
 
 Phases, in order; any failure exits non-zero before the last line:
-1. the card's name and power limit (nvidia-smi), and the build of every
+1. the card's name and power limit (nvidia-smi), the nvcc version, and
+   the build of every
    kernel from the checkout's sources (``build/torch_kernels/``), one nvcc
    per source, all started together, with ptxas's registers, shared memory
    and spills per kernel and, where cuobjdump is installed, the count of
@@ -23,10 +24,17 @@ Phases, in order; any failure exits non-zero before the last line:
    functions) and its share;
 3. ``serve`` and ``infer`` through the port's CLI on the committed yelp test
    split (BPE trained on the yelp train split, fresh seeded weights saved as a
-   checkpoint), with the decode head's launch count read around each; and
-   the card's greedy ids held against the CPU's on a few sentences in float32;
-4. greedy transfer at the full yelp width (V=10000, L=18, B=256, bf16):
-   ms per batch, sentences/s and a profiler breakdown;
+   checkpoint), each greedy batch one CUDA graph replay but the first, with
+   the decode head's launch count (replayed launches included) and the
+   graphs' replays read around each; and the card's greedy ids (a replay)
+   held against the CPU's on a few sentences in float32, and the test
+   split's lines too;
+4. greedy transfer at the full yelp width (V=10000, L=18, B=256, bf16),
+   graphed beside eager in this run: ms per batch, sentences/s, device ms,
+   device operations, host launch calls, idle share, the graph's nodes,
+   graphed ids against eager ones (equal in float32, at most
+   BF16_TOKEN_SHARE of the tokens apart in bf16), and the decode head's
+   profiled time a call inside the replay beside its graph-timed time;
 5. ``w2v`` through the port's CLI (the native hogwild trainer, its 10
    epochs), then ``pretrain --epochs 1`` at the full yelp width
    (the three scorers at 6 layers / 8 heads / d=512, B=256, L=18, bf16
@@ -35,7 +43,11 @@ Phases, in order; any failure exits non-zero before the last line:
    kernel launched once per labeled batch; then the Sinkhorn on a real label
    batch (checked and timed as in phase 2, with the labeler's host
    times and its device time split into the Sinkhorn, the copies and the
-   rest), ms per step, sentences/s, and a profiler breakdown;
+   rest), ms per step, sentences/s, and a profiler breakdown; the epoch's
+   steps replay one CUDA graph, and the steady step runs eager and graphed;
+   float32 replays of two flag tuples, the second captured after a freeze
+   with a save pending on the saver's thread, against as many eager steps
+   from one saved state (dropout on);
 6. the generator's training at full yelp width on phase 5's BPE dump and
    scorers: ``warmup`` through the CLI (one epoch, B=512, bf16 autocast,
    float32 parameters), ``optimize --epochs 1`` (B=256, the 6-layer / 8-head
@@ -43,10 +55,13 @@ Phases, in order; any failure exits non-zero before the last line:
    it wrote (its steps replaying CUDA graphs of the fused step, one batch
    a group): the checkpoints load strictly, every logged loss is finite, one
    step a batch, D applied ceil(steps / d_update_every) times, the decode
-   head launched 0 times in training and 18 a batch in the infer; then ms
+   head launched 0 times in training and 18 a batch in the infer; the
+   warmup epoch's and the infer's steps replay one CUDA graph each; then ms
    per step and sentences/s over each CLI epoch and over 20 steady steps of
-   the same step function, device ms, idle share and the top device
-   operations (profiler), kernels per step, and peak memory;
+   the same step function (warmup eager and graphed), device ms, idle share
+   and the top device operations (profiler), kernels per step, and peak
+   memory; float32 warmup replays against as many eager steps from one
+   saved state (dropout on);
 7. the eval harness on phase 6's ``.tsf`` files: ``eval-prepare`` through
    the CLI (the fastText classifier fitted on the card, the lexicon, the
    masked word2vec with the native hogwild trainer, the adversarial LR;
@@ -82,11 +97,13 @@ Phases, in order; any failure exits non-zero before the last line:
    --backbone transformer --epochs 1`` (B=256, the graphed step),
    ``infer`` greedy through the CLI and the beam of 4 on the test split
    (checkpoints load strictly, finite losses, one step a batch, D's
-   cadence), graph replays against eager steps in float32 from one saved
-   state, the steady warmup and optimize steps (eager and graphed: ms,
-   device ms, device operations, idle share, peak memory), greedy and
-   beam-4 rates on a batch, and the card's ids against the CPU's. The
-   decode head launches 0 times in the beam and transformer paths;
+   cadence; the warmup epoch's and the greedy infer's steps replaying one
+   graph each), graph replays of the optimize and warmup steps against
+   eager steps in float32 from one saved state, the steady warmup and
+   optimize steps (eager and graphed: ms, device ms, device operations,
+   idle share, peak memory), greedy (graphed and eager) and beam-4 rates on
+   a batch, and the card's ids against the CPU's. The decode head launches
+   0 times in the beam and transformer paths;
 10. data parallelism (``parallel/``) at world size 1, the one card: in
    this process a world-size-1 NCCL group, the graphed optimize steps at
    full yelp width with the group's all-reduces captured held bit for bit
@@ -96,9 +113,10 @@ Phases, in order; any failure exits non-zero before the last line:
    without the group; then ``pretrain``, ``warmup``, ``optimize`` and
    ``infer`` through ``python -m torch.distributed.run --standalone
    --nproc_per_node 1 -m consistent__style_transfer_torch`` in a fresh dump
-   dir: finite losses, one step a batch, the child's own kernel launch
-   counts (``TPUST_KERNEL_COUNTS=1``), its ``.tsf`` files byte-equal to a
-   plain ``infer``'s, and each command's seconds beside its plain run.
+   dir, on the first LAUNCH_LINES lines of each yelp split file: finite
+   losses, one step a batch, the child's own kernel launch counts
+   (``TPUST_KERNEL_COUNTS=1``), its ``.tsf`` files byte-equal to a plain
+   ``infer``'s, and the warmup's seconds beside a fresh process's.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -167,6 +185,15 @@ MEGASTEP_K = 8
 # steps after the two captures (D applies at the first and the fifth)
 BEAM_K, BEAM_CHECK_N, BEAM_SCORE_TOL = 4, 4, 1e-4
 TF_REPLAY_STEPS = 5
+# phases 4 and 9: graphed greedy ids against eager ones under bf16: at most
+# this share of tokens may differ (a product summed in another order, should
+# cuBLAS pick another kernel on the capture stream, moves a logit by a bf16
+# step and can flip a near-tied argmax; a flipped token changes the rest of
+# its row); float32 is held exactly
+BF16_TOKEN_SHARE = 0.01
+# phases 5, 6 and 9: replays of the pretrain and warmup steps against as
+# many eager steps from one saved state, float32, dropout on
+STEP_REPLAYS = 6
 # the host's CUDA runtime calls that put work on the card, as the profiler
 # names them
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -263,6 +290,9 @@ def phase_card_and_build() -> tuple[str, dict]:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()
+    log(nvcc[-1] if nvcc else "nvcc --version printed nothing")
     built, errors = {}, {}
 
     def build(name):
@@ -289,7 +319,8 @@ def phase_card_and_build() -> tuple[str, dict]:
                         "sass_hgmma": sass_count(path, "HGMMA"), "ptxas": ptxas_report(text)}
     hgmma = report["decode_step"]["sass_hgmma"]
     check(hgmma is None or hgmma > 0, "the decode head's library has no HGMMA instruction")
-    print(json.dumps({"build": report, "build_wall_s": round(wall, 3)}), flush=True)
+    print(json.dumps({"build": report, "build_wall_s": round(wall, 3),
+                      "nvcc": nvcc[-1] if nvcc else None}), flush=True)
     return card, report
 
 
@@ -619,6 +650,38 @@ def run_cli(argv: list[str], stdin_text: str = "") -> list[str]:
     return out.getvalue().splitlines()
 
 
+@contextlib.contextmanager
+def watch_graphs():
+    """The ``GraphedStep``\\ s (``train/graphs.py``) that the stages make
+    inside the block, through ``step_runner``: a list, filled as they are
+    made, to read their graphs and replays from."""
+    from consistent__style_transfer_torch.train import graphs
+
+    made, real = [], graphs.GraphedStep
+
+    class Watched(real):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    graphs.GraphedStep = Watched
+    try:
+        yield made
+    finally:
+        graphs.GraphedStep = real
+
+
+def check_replayed(made: list, keys: list, calls: int, what: str) -> dict:
+    """One GraphedStep with the graphs of ``keys`` that replayed every call
+    but the first of each branch."""
+    check(len(made) == 1, f"{what}: {len(made)} graphed steps, want 1")
+    got = sorted(made[0].graphs, key=str)
+    check(got == sorted(keys, key=str), f"{what}: graphs of {got}, want {keys}")
+    want = calls - len(keys)
+    check(made[0].replays == want, f"{what}: {made[0].replays} replays, want {want}")
+    return {"graphs": [str(k) for k in got], "replays": made[0].replays, "calls": calls}
+
+
 def phase_serve_and_infer(work: str) -> dict:
     import numpy as np
     import torch
@@ -629,7 +692,7 @@ def phase_serve_and_infer(work: str) -> dict:
     from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
     from consistent__style_transfer_torch.train.common import build_generator, get_tokenizer
-    from consistent__style_transfer_torch.train.infer import make_transfer_step
+    from consistent__style_transfer_torch.train.infer import make_transfer_step, transfer_split
     from consistent__style_transfer_torch.train.optimize import load_generator_params
 
     dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
@@ -651,13 +714,16 @@ def phase_serve_and_infer(work: str) -> dict:
             requests += [f"{label}\t{line.strip()}" for line in f if line.strip()]
     serve_batches = -(-len(requests) // cfg.batch_size)
 
+    shape = (cfg.batch_size, cfg.max_len)
     fused_decode_logits.launches = 0
     sinkhorn_cuda.launches = 0
     t0 = time.perf_counter()
-    served = run_cli(["serve", *flags], "\n".join(requests) + "\n")
+    with watch_graphs() as made:
+        served = run_cli(["serve", *flags], "\n".join(requests) + "\n")
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     serve_launches = fused_decode_logits.launches
+    serve_graphs = check_replayed(made, [shape], serve_batches, "serve")
     check(sinkhorn_cuda.launches == 0, "serve launched the Sinkhorn")
     check(len(served) == len(requests), f"serve printed {len(served)} lines for {len(requests)}")
     check(serve_launches == cfg.max_len * serve_batches,
@@ -666,7 +732,8 @@ def phase_serve_and_infer(work: str) -> dict:
     fused_decode_logits.launches = 0
     sinkhorn_cuda.launches = 0
     t0 = time.perf_counter()
-    run_cli(["infer", *flags])
+    with watch_graphs() as made:
+        run_cli(["infer", *flags])
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     infer_launches = fused_decode_logits.launches
@@ -687,29 +754,37 @@ def phase_serve_and_infer(work: str) -> dict:
         n_infer += n_split
     check(infer_launches == cfg.max_len * infer_batches,
           f"infer: {infer_launches} kernel launches, want {cfg.max_len} x {infer_batches}")
+    infer_graphs = check_replayed(made, [shape], infer_batches, "infer")
 
-    # reference on a small input: the card's greedy ids (kernel head) equal the
-    # CPU's (plain head) in float32 on the same checkpoint
+    # reference on a small input: the card's greedy ids (kernel head, a
+    # graph replay) equal the CPU's (plain head) in float32 on the same
+    # checkpoint; and the test split's .tsf lines, the card's from a graph
+    # replayed for every batch but the first, equal the CPU's
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg32 = make_config("yelp", dtype="float32", mode="test", **dirs)
     enc = [tokenizer.encode(r.split("\t", 1)[1])[: cfg.max_len] for r in requests[::125]]
     x, _ = align(enc, 0, cfg.max_len)
     labels = np.array([int(r[0]) for r in requests[::125]], np.int32)
-    ids = {}
+    ids, lines = {}, {}
     for dev in ("cuda", "cpu"):
         model = build_generator(cfg32, V, torch.device(dev))
         load_generator_params(cfg32, model)
-        ids[dev] = make_transfer_step(model)(torch.from_numpy(x).to(dev),
-                                             torch.from_numpy(labels).to(dev)).cpu()
+        step = make_transfer_step(model)
+        for _ in range(2):  # on the card: the eager first call, then a replay
+            ids[dev] = step(torch.from_numpy(x).to(dev), torch.from_numpy(labels).to(dev)).cpu()
+        lines[dev] = transfer_split(cfg32, model, tokenizer, "test")
     agree = (ids["cuda"] == ids["cpu"]).float().mean().item()
     check(agree == 1.0, f"f32 greedy ids on the card agree with the CPU on {agree:.3f} of tokens")
+    check(lines["cuda"] == lines["cpu"], "f32 test-split lines on the card differ from the CPU's")
 
     result = {"V": V, "serve_requests": len(requests), "serve_batches": serve_batches,
               "serve_s": serve_s, "serve_sent_per_s": len(requests) / serve_s,
               "serve_launches": serve_launches, "infer_sentences": n_infer,
               "infer_batches": infer_batches, "infer_s": infer_s,
               "infer_sent_per_s": n_infer / infer_s, "infer_launches": infer_launches,
-              "f32_card_vs_cpu_sentences": len(enc), "f32_card_vs_cpu_agree": agree}
+              "serve_graphs": serve_graphs, "infer_graphs": infer_graphs,
+              "f32_card_vs_cpu_sentences": len(enc), "f32_card_vs_cpu_agree": agree,
+              "f32_test_split_lines_equal_cpu": sum(map(len, lines["cpu"].values()))}
     print(json.dumps({"serve_infer": result}), flush=True)
     return result
 
@@ -763,45 +838,93 @@ def profile_breakdown(fn, batches: int = 3, watch: tuple[str, ...] = ()) -> dict
             "watched": [row(n) for n in top if any(w in n for w in watch)]}
 
 
-def phase_full_width(card: str) -> dict:
+def phase_full_width(card: str, head_graph_ms: float) -> dict:
+    """Greedy transfer at the yelp serving shape (V=10000, L=18, B=256,
+    bf16, seeded weights): the graphed step (``make_transfer_step``, one CUDA
+    graph replay a batch) beside the eager decode on the same batch in this
+    run: host ms a batch, device ms, device operations, host launch calls,
+    idle share, and the graph's nodes; the decode head's time inside the
+    replay (profiler kernel time a call) beside its graph-timed time from
+    phase 2 (``head_graph_ms``). Graphed ids equal eager ones in float32; in
+    bf16 at most BF16_TOKEN_SHARE of the tokens differ."""
     import torch
 
     from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
     from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
+    from consistent__style_transfer_torch.train.common import generator_call
     from consistent__style_transfer_torch.train.infer import make_transfer_step
 
-    model = DenoiseSeq2Seq(n_vocab=YELP_V, n_class=2, max_len=YELP_L, seed=0)
-    model = model.to("cuda", torch.bfloat16).eval()
-    step = make_transfer_step(model)
     g = torch.Generator().manual_seed(1)
-    x = torch.randint(3, YELP_V, (YELP_B, YELP_L), generator=g, dtype=torch.int32).cuda()
-    labels = torch.randint(0, 2, (YELP_B,), generator=g, dtype=torch.int32).cuda()
-    for _ in range(3):
-        step(x, labels)
-    torch.cuda.synchronize()
+    xs = [torch.randint(3, YELP_V, (YELP_B, YELP_L), generator=g, dtype=torch.int32).cuda()
+          for _ in range(4)]
+    ls = [torch.randint(0, 2, (YELP_B,), generator=g, dtype=torch.int32).cuda() for _ in xs]
 
-    n = 20
-    fused_decode_logits.launches = 0
-    sinkhorn_cuda.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(n):
-        ids = step(x, labels)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / n
-    launches = fused_decode_logits.launches
-    check(sinkhorn_cuda.launches == 0, "serving launched the Sinkhorn")
-    check(launches == YELP_L * n, f"full width: {launches} launches, want {YELP_L} x {n}")
-    check(ids.shape == (YELP_B, YELP_L) and ids.dtype == torch.int32, "ids shape/dtype")
-    check(bool(((ids >= 0) & (ids < YELP_V)).all()), "ids out of range")
+    def steps(dtype):
+        model = DenoiseSeq2Seq(n_vocab=YELP_V, n_class=2, max_len=YELP_L, seed=0)
+        model = model.to("cuda", dtype).eval()
 
-    breakdown = profile_breakdown(lambda: step(x, labels), watch=("ffn_", "vocab_argmax"))
-    device_ms = breakdown.get("device_ms_per_batch")
-    idle = (1 - device_ms / ms) if isinstance(device_ms, float) else "not measured"
-    result = {"card": card, "dtype": "bfloat16", "V": YELP_V, "L": YELP_L, "B": YELP_B,
-              "ms_per_batch": ms, "sent_per_s": YELP_B * 1e3 / ms,
-              "launches_per_batch": launches / n, "device_idle_share": idle,
-              "profile": breakdown}
+        @torch.inference_mode()
+        def eager(x, labels):
+            return generator_call(model, x, labels, None, 1 - labels, mode="greedy")
+
+        return make_transfer_step(model), eager
+
+    # graphed against eager ids, 4 batches each (the first graphed call is
+    # the eager warm-up and capture, the rest replays)
+    agree = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        graphed, eager = steps(dtype)
+        got = torch.stack([graphed(x, lab).clone() for x, lab in zip(xs, ls)])
+        want = torch.stack([eager(x, lab) for x, lab in zip(xs, ls)])
+        agree[name] = {"batches": len(xs), "tokens": want.numel(),
+                       "differing_share": float((got != want).float().mean())}
+    check(agree["float32"]["differing_share"] == 0.0,
+          f"f32 graphed ids differ from eager on {agree['float32']['differing_share']} of tokens")
+    check(agree["bfloat16"]["differing_share"] <= BF16_TOKEN_SHARE,
+          f"bf16 graphed ids differ from eager on {agree['bfloat16']['differing_share']}")
+
+    graphed, eager = steps(torch.bfloat16)
+    x, labels = xs[0], ls[0]
+    n, result = 20, {"card": card, "dtype": "bfloat16", "V": YELP_V, "L": YELP_L, "B": YELP_B,
+                     "graphed_vs_eager_ids": agree, "bf16_token_share_bound": BF16_TOKEN_SHARE}
+    for name, step in (("eager", eager), ("graphed", graphed)):
+        for _ in range(3):
+            step(x, labels)
+        torch.cuda.synchronize()
+        fused_decode_logits.launches = 0
+        sinkhorn_cuda.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ids = step(x, labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        launches = fused_decode_logits.launches
+        check(sinkhorn_cuda.launches == 0, "serving launched the Sinkhorn")
+        check(launches == YELP_L * n, f"{name}: {launches} launches, want {YELP_L} x {n}")
+        check(ids.shape == (YELP_B, YELP_L) and ids.dtype == torch.int32, "ids shape/dtype")
+        check(bool(((ids >= 0) & (ids < YELP_V)).all()), "ids out of range")
+        prof = profile_breakdown(lambda: step(x, labels), watch=("ffn_", "vocab_argmax"))  # noqa: B023
+        device_ms = prof.get("device_ms_per_batch")
+        result[name] = {
+            "ms_per_batch": ms, "sent_per_s": YELP_B * 1e3 / ms,
+            "launches_per_batch": launches / n, "device_ms_per_batch": device_ms,
+            "device_ops_per_batch": prof.get("kernels_per_batch", "not measured"),
+            "host_calls_per_batch": prof.get("host_calls_per_batch", "not measured"),
+            "device_idle_share": (1 - device_ms / ms) if isinstance(device_ms, float)
+            else "not measured", "profile": prof,
+            **peak_memory(lambda: step(x, labels))}  # noqa: B023
+    result["graphed"]["graph_nodes"] = graph_nodes(graphed.runner.graphs[(YELP_B, YELP_L)])
+    # the decode head inside the replay: its two kernels' profiled time a call
+    watched = result["graphed"]["profile"].get("watched", [])
+    head_calls = sum(r["calls_per_batch"] for r in watched if "ffn_" in r["name"])
+    result["head_in_graph_ms_per_call"] = (
+        sum(r["ms_per_batch"] for r in watched) / head_calls if head_calls else "not measured")
+    result["head_graph_timed_ms_per_call"] = head_graph_ms
+    result["speedup_host"] = result["eager"]["ms_per_batch"] / result["graphed"]["ms_per_batch"]
+    # what the rest of the script reads: the graphed step, as serving runs
+    result.update(ms_per_batch=result["graphed"]["ms_per_batch"],
+                  launches_per_batch=result["graphed"]["launches_per_batch"])
     print(json.dumps({"full_width": result}), flush=True)
     return result
 
@@ -815,7 +938,64 @@ def count_lines(files) -> int:
     return n
 
 
+def replays_against_eager(params: list, state: list, gens: list, eager, graphed, n: int) -> dict:
+    """``n`` eager steps and ``n`` graph replays, each run from the same saved
+    ``state`` (the ``params`` first, then the Adam states; restored in place,
+    as the graphs hold their addresses) and generator states; step i of a
+    run is ``eager(i)`` or ``graphed(i)``, each returning its losses. The
+    losses, the parameters after the run and the generators' states are
+    compared, against phase 8's float32 tolerances."""
+    import torch
+
+    torch.cuda.synchronize()
+    saved = [t.detach().clone() for t in state]
+    saved_gens = [g.get_state() for g in gens]
+    runs = []
+    for step in (eager, graphed):
+        with torch.no_grad():
+            for t, v in zip(state, saved):
+                t.copy_(v)
+        for g, v in zip(gens, saved_gens):
+            g.set_state(v)
+        losses = torch.cat([step(i).float().flatten().clone() for i in range(n)])
+        torch.cuda.synchronize()
+        runs.append((losses, [p.detach().clone() for p in params], [g.get_state() for g in gens]))
+    (l0, p0, g0), (l1, p1, g1) = runs
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p1, p0)])
+    move = torch.cat([(a - b).abs().flatten() for a, b in zip(p0, saved[:len(params)])])
+    return {"steps": n, "loss_max_rel_diff": float(((l1 - l0).abs() / l0.abs().clamp_min(1e-6)).max()),
+            "param_mean_abs_diff": float(diff.mean()), "param_max_abs_diff": float(diff.max()),
+            "param_mean_abs_move": float(move.mean()),
+            "param_share": float(diff.mean() / move.mean().clamp_min(1e-30)),
+            "generator_states_equal": all(torch.equal(a, b) for a, b in zip(g0, g1)),
+            "finite": bool(torch.isfinite(l0).all()), "tolerance": GRAPH_TOL["float32"]}
+
+
+def check_replays(e: dict, what: str) -> None:
+    tol = e["tolerance"]
+    check(e["finite"], f"{what}: non-finite eager losses")
+    check(e["loss_max_rel_diff"] <= tol["loss_rel"],
+          f"{what}: replay losses {e['loss_max_rel_diff']} apart (relative)")
+    check(e["param_share"] <= tol["param_share"],
+          f"{what}: replay parameters {e['param_share']} of their move apart")
+    check(e["generator_states_equal"], f"{what}: replays moved the generators otherwise")
+
+
+def adam_state(params: list, opts) -> list:
+    """``params``, then every Adam state tensor of ``opts``, in a fixed order."""
+    import torch
+
+    return list(params) + [t for o in opts for st in o.adam.state.values()
+                           for t in st.values() if isinstance(t, torch.Tensor)]
+
+
 def phase_pretrain(work: str, card: str) -> dict:
+    """``w2v`` and ``pretrain --epochs 1`` through the CLI (its steps
+    replaying one CUDA graph, of the flags (True, True, True)), then the
+    Sinkhorn on a real label batch; the steady step, eager and graphed;
+    and, in float32 with dropout on, graph replays of two flag tuples (the
+    second captured after a freeze, with a best-weight save still pending
+    on the saver's thread) against as many eager steps from one state."""
     import numpy as np
     import torch
 
@@ -840,8 +1020,13 @@ def phase_pretrain(work: str, card: str) -> dict:
         get_tokenizer,
         get_w2v,
     )
-    from consistent__style_transfer_torch.train.pretrain import TASKS, make_pretrain_steps
-    from consistent__style_transfer_torch.train.state import AdamWithClip
+    from consistent__style_transfer_torch.train.graphs import GraphedStep
+    from consistent__style_transfer_torch.train.pretrain import (
+        TASKS,
+        make_pretrain_steps,
+        step_inputs,
+    )
+    from consistent__style_transfer_torch.train.state import AdamWithClip, AsyncSaver
 
     dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
                 out_dir=os.path.join(work, "output"), log_dir=os.path.join(work, "log"))
@@ -862,7 +1047,8 @@ def phase_pretrain(work: str, card: str) -> dict:
     sinkhorn_cuda.launches = 0
     fused_decode_logits.launches = 0
     t0 = time.perf_counter()
-    run_cli(["pretrain", *flags, "--epochs", "1"])
+    with watch_graphs() as made:
+        run_cli(["pretrain", *flags, "--epochs", "1"])
     torch.cuda.synchronize()
     pretrain_s = time.perf_counter() - t0
     launches = sinkhorn_cuda.launches
@@ -885,6 +1071,7 @@ def phase_pretrain(work: str, card: str) -> dict:
     epoch = [e for e in events if "train_steps" in e][-1]
     check(epoch["train_steps"] == n_train // B, f"trained {epoch['train_steps']} steps")
     ms_per_step = epoch["train_s"] * 1e3 / epoch["train_steps"]
+    cli_graphs = check_replayed(made, [(True, True, True)], epoch["train_steps"], "pretrain")
 
     # the Sinkhorn on one real label batch (after the counts were read)
     labeler = SinkhornWmdLabeler(get_w2v(cfg, tokenizer), tokenizer, max_atoms=L + L // 2,
@@ -948,9 +1135,10 @@ def phase_pretrain(work: str, card: str) -> dict:
     generator = torch.Generator(device).manual_seed(0)
     it = make_batches(corpus, B, L, "pretrain", shuffle=True, seed=1, wmd_labeler=labeler)
     stream = iter(DevicePrefetcher(it, device))
+    full, frozen = (True, True, True), (True, False, True)
     try:
         def step():
-            return train_step(next(stream)[1], (True, True, True), generator)
+            return train_step(next(stream)[1], full, generator)
 
         for _ in range(3):
             step()
@@ -964,11 +1152,79 @@ def phase_pretrain(work: str, card: str) -> dict:
         steady_ms = (time.perf_counter() - t0) * 1e3 / n
         check(all(bool(torch.isfinite(v)) for v in parts.values()), f"non-finite losses {parts}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peak_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
         breakdown = profile_breakdown(step, batches=4, watch=("sinkhorn",))
+        # the same step as the CLI's epoch runs it: one graph replay a step
+        runner = GraphedStep(lambda inputs, flags: train_step(inputs, flags, generator),
+                             (generator,))
+        keys = step_inputs(full)
+
+        def graphed_step():
+            arrays = next(stream)[1]
+            return runner({k: arrays[k] for k in keys}, full)
+
+        graphed = steady_step(graphed_step)
+        graphed["graph_nodes"] = graph_nodes(runner.graphs[full])
+        check(all(bool(torch.isfinite(v)) for v in graphed_step().values()),
+              "non-finite graphed pretrain losses")
     finally:
         stream.close()
+    del runner
     device_ms = breakdown.get("device_ms_per_batch")
     idle = (1 - device_ms / steady_ms) if isinstance(device_ms, float) else "not measured"
+
+    # replays against eager steps: float32 towers from the dumps, dropout
+    # on; the frozen-matcher graph is captured while a save of the matcher
+    # (what a freeze's epoch end leaves) is pending on the saver's thread
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the classifier's convolutions in float32
+    towers = {"cls": build_classifier(cfg, V, device), "mat": build_matcher(cfg, V, device),
+              "dn": build_lm(cfg, V, device)}
+    for t in TASKS:
+        towers[t].load_state_dict(torch.load(os.path.join(cfg.ds_dump_dir, "pretrain", f"{t}.pth"),
+                                             map_location=device, weights_only=True))
+    opt = AdamWithClip([p for t in TASKS for p in towers[t].parameters()], cfg.pretrain_lr,
+                       cfg.pretrain_clip)
+    f32_step, _ = make_pretrain_steps(towers, opt)
+    gen = torch.Generator(device).manual_seed(7)
+    saver, pending = AsyncSaver(), []
+
+    def drain():
+        pending.append(saver._q.unfinished_tasks)
+        saver.wait()
+
+    runner = GraphedStep(lambda inputs, flags: f32_step(inputs, flags, gen), (gen,),
+                         before_capture=drain)
+    stream = iter(DevicePrefetcher(make_batches(corpus, B, L, "pretrain", shuffle=True, seed=2,
+                                                wmd_labeler=labeler), device))
+    try:
+        fixed = [next(stream)[1] for _ in range(STEP_REPLAYS + 2)]
+    finally:
+        stream.close()
+    order = [full, frozen] + [full, frozen, full] + [frozen] * (STEP_REPLAYS - 3)
+
+    def losses(parts):
+        return torch.stack([parts[t] for t in TASKS if t in parts])
+
+    def graphed_call(i):
+        return losses(runner({k: fixed[i][k] for k in step_inputs(order[i])}, order[i]))
+
+    graphed_call(0)
+    saver.submit(towers["mat"], os.path.join(work, "mat_at_freeze.pth"))
+    graphed_call(1)  # drains the pending save, then captures
+    saver.close()
+    check(sorted(runner.graphs) == [frozen, full], f"captured {sorted(runner.graphs)}")
+    replay = replays_against_eager(
+        [p for t in TASKS for p in towers[t].parameters()],
+        adam_state([p for t in TASKS for p in towers[t].parameters()], [opt]), [gen],
+        lambda i: losses(f32_step(fixed[i + 2], order[i + 2], gen)),
+        lambda i: graphed_call(i + 2), STEP_REPLAYS)
+    replay.update(flags=[list(f) for f in order[2:]], pending_saves_at_captures=pending,
+                  graph_nodes={str(k): graph_nodes(g) for k, g in runner.graphs.items()})
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    del towers, opt, runner, fixed
+    print(json.dumps({"pretrain_replay_vs_eager": replay}), flush=True)
+    check_replays(replay, "pretrain")
     result = {"card": card, "dtype": "bfloat16 autocast, float32 parameters", "V": V, "L": L,
               "B": B, "scorer": "6 layers / 8 heads / d=512", "w2v_epochs": 10,
               "w2v_trainer": "native", "w2v_s": w2v_s,
@@ -976,9 +1232,12 @@ def phase_pretrain(work: str, card: str) -> dict:
               "train_steps": epoch["train_steps"], "ms_per_step_epoch": ms_per_step,
               "sent_per_s_epoch": B * 1e3 / ms_per_step, "ms_per_step_steady": steady_ms,
               "sent_per_s_steady": B * 1e3 / steady_ms, "peak_memory_gb_steady": peak_gb,
+              "peak_reserved_gb_steady": peak_reserved_gb,
               "sinkhorn_launches": launches, "labeled_batches": labeled,
               "sinkhorn_label_batch": real, "device_idle_share": idle,
-              "profile_per_step": breakdown,
+              "profile_per_step": breakdown, "graphed": graphed, "cli_graphs": cli_graphs,
+              "replay_vs_eager": replay,
+              "speedup_host": steady_ms / graphed["ms_per_step_steady"],
               "val": {k: v for k, v in epoch.items() if k.startswith("val")}}
     print(json.dumps({"pretrain": result}), flush=True)
     return result
@@ -996,6 +1255,21 @@ def check_finite_losses(events: list[dict], keys: tuple[str, ...], stage: str) -
     bad = {k: v for k, v in seen.items() if not all(math.isfinite(x) for x in v)}
     check(not bad, f"{stage}: non-finite logged losses {bad}")
     return {k: v[-1] for k, v in seen.items()}
+
+
+def peak_memory(fn) -> dict:
+    """Peak allocated and reserved device memory over one fn() call, the
+    allocator's cache emptied first (a CUDA graph's private pool stays
+    reserved)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return {"peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
 
 
 def steady_step(step, batches: int = 20) -> dict:
@@ -1027,6 +1301,43 @@ def steady_step(step, batches: int = 20) -> dict:
             "top_device_ops": prof.get("top", "not measured")}
 
 
+def warmup_replays(cfg, V: int, device, g_path: str, corpus) -> dict:
+    """The warmup step of ``cfg.backbone`` in float32 with dropout on, from
+    ``g_path``: graph replays against as many eager steps from one saved
+    state (``replays_against_eager``), after the eager first call and the
+    capture, at the stage's batch size."""
+    import torch
+
+    from consistent__style_transfer_torch.data.pipeline import make_batches
+    from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
+    from consistent__style_transfer_torch.train.common import build_generator
+    from consistent__style_transfer_torch.train.graphs import GraphedStep
+    from consistent__style_transfer_torch.train.state import AdamWithClip
+    from consistent__style_transfer_torch.train.warmup import WARMUP_INPUTS, make_warmup_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    model = build_generator(cfg, V, device, training=True)
+    model.load_state_dict(torch.load(g_path, map_location=device, weights_only=True), strict=True)
+    opt = AdamWithClip(model.parameters(), cfg.warmup_lr, cfg.warmup_clip)
+    step, _ = make_warmup_steps(model, opt)  # float32
+    gen = torch.Generator(device).manual_seed(8)
+    runner = GraphedStep(lambda inputs, _: step(inputs, gen), (gen,))
+    it = iter(DevicePrefetcher(make_batches(corpus, cfg.warmup_batch_size, cfg.max_len, "warmup",
+                                            shuffle=True, seed=3), device))
+    try:
+        fixed = [{k: next(it)[1][k] for k in WARMUP_INPUTS} for _ in range(STEP_REPLAYS + 1)]
+    finally:
+        it.close()
+    runner(fixed[0])  # the eager step, then the capture
+    params = list(model.parameters())
+    out = replays_against_eager(params, adam_state(params, [opt]), [gen],
+                                lambda i: step(fixed[i + 1], gen),
+                                lambda i: runner(fixed[i + 1]), STEP_REPLAYS)
+    out.update(backbone=cfg.backbone, batch_size=cfg.warmup_batch_size, p_drop=cfg.p_drop,
+               graph_nodes=graph_nodes(runner.graphs[None]))
+    return out
+
+
 def phase_training(work: str, card: str) -> dict:
     import torch
 
@@ -1047,8 +1358,9 @@ def phase_training(work: str, card: str) -> dict:
         load_generator_params,
         make_optimize_steps,
     )
+    from consistent__style_transfer_torch.train.graphs import GraphedStep
     from consistent__style_transfer_torch.train.state import AdamWithClip, newest_checkpoint
-    from consistent__style_transfer_torch.train.warmup import make_warmup_steps
+    from consistent__style_transfer_torch.train.warmup import WARMUP_INPUTS, make_warmup_steps
 
     dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
                 out_dir=os.path.join(work, "output"), log_dir=os.path.join(work, "log"))
@@ -1063,13 +1375,16 @@ def phase_training(work: str, card: str) -> dict:
     # infer below must read what optimize writes
     shutil.rmtree(task, ignore_errors=True)
 
-    def launches_during(argv):
+    def launches_during(argv, made=None):
         fused_decode_logits.launches = 0
         sinkhorn_cuda.launches = 0
         t0 = time.perf_counter()
-        run_cli(argv)
+        with watch_graphs() as graphed:
+            run_cli(argv)
         torch.cuda.synchronize()
         check(sinkhorn_cuda.launches == 0, f"{argv[0]} launched the Sinkhorn")
+        if made is not None:
+            made[:] = graphed
         return fused_decode_logits.launches, time.perf_counter() - t0
 
     def load_strict(path):
@@ -1078,8 +1393,9 @@ def phase_training(work: str, card: str) -> dict:
         DenoiseSeq2Seq(V, cfg.n_class, L).load_state_dict(sd, strict=True)
         check(all(bool(torch.isfinite(v).all()) for v in sd.values()), f"{path}: non-finite weights")
 
-    # 1. warmup, one epoch (the default)
-    head, warmup_s = launches_during(["warmup", *flags])
+    # 1. warmup, one epoch (the default), its steps replaying one graph
+    made = []
+    head, warmup_s = launches_during(["warmup", *flags], made)
     check(head == 0, f"warmup launched the decode head {head} times")
     load_strict(os.path.join(cfg.ds_dump_dir, "warmup", "G.pth"))
     events = read_events(cfg, "warmup")
@@ -1087,6 +1403,7 @@ def phase_training(work: str, card: str) -> dict:
     warm_epoch = [e for e in events if "train_steps" in e][-1]
     want = n_train // cfg.warmup_batch_size
     check(warm_epoch["train_steps"] == want, f"warmup: {warm_epoch['train_steps']} steps, want {want}")
+    warm_graphs = check_replayed(made, [None], want, "warmup")
 
     # 2. optimize, one epoch instead of ten (a stated reduction)
     head, optimize_s = launches_during(["optimize", *flags, "--epochs", "1"])
@@ -1104,11 +1421,12 @@ def phase_training(work: str, card: str) -> dict:
 
     # 3. infer from the checkpoint optimize wrote
     check(newest_checkpoint(task) == best, f"infer would read {newest_checkpoint(task)}")
-    infer_launches, infer_s = launches_during(["infer", *flags])
+    infer_launches, infer_s = launches_during(["infer", *flags], made)
     infer_batches = sum(-(-count_lines(cfg.split_files(s)) // cfg.batch_size)
                         for s in ("train", "test"))
     check(infer_launches == L * infer_batches > 0,
           f"infer: {infer_launches} decode-head launches, want {L} x {infer_batches}")
+    infer_graphs = check_replayed(made, [(cfg.batch_size, L)], infer_batches, "infer")
 
     # 4. steady state of the same step functions, on batches from the
     # prefetcher, from the checkpoints just written
@@ -1125,11 +1443,24 @@ def phase_training(work: str, card: str) -> dict:
     warm_step, _ = make_warmup_steps(model, AdamWithClip(model.parameters(), cfg.warmup_lr,
                                                          cfg.warmup_clip), torch.bfloat16)
     batches = stream("warmup", cfg.warmup_batch_size)
+    runner = GraphedStep(lambda inputs, _: warm_step(inputs, gen), (gen,))
+
+    def graphed_warm():
+        arrays = next(batches)[1]
+        return runner({k: arrays[k] for k in WARMUP_INPUTS})
+
     try:
         warm_steady = steady_step(lambda: warm_step(next(batches)[1], gen))
+        warm_graphed = steady_step(graphed_warm)
+        check(math.isfinite(graphed_warm().item()), "non-finite graphed warmup loss")
     finally:
         batches.close()
-    del model, warm_step
+    warm_graphed["graph_nodes"] = graph_nodes(runner.graphs[None])
+    del model, warm_step, runner
+    warm_replay = warmup_replays(cfg, V, device, os.path.join(cfg.ds_dump_dir, "warmup", "G.pth"),
+                                 corpus)
+    print(json.dumps({"warmup_replay_vs_eager": warm_replay}), flush=True)
+    check_replays(warm_replay, "warmup")
 
     models = OptimizeModels(cfg, V, device)
     load_frozen(cfg, models)
@@ -1167,11 +1498,15 @@ def phase_training(work: str, card: str) -> dict:
     result = {"card": card, "dtype": "bfloat16 autocast, float32 parameters", "V": V, "L": L,
               "train_sentences": n_train, "scorer": "6 layers / 8 heads / d=512",
               "warmup": {"cli_s": warmup_s, **rates(warm_epoch, warm_steady, cfg.warmup_batch_size),
+                         "graphed": warm_graphed, "cli_graphs": warm_graphs,
+                         "speedup_host": warm_steady["ms_per_step_steady"]
+                         / warm_graphed["ms_per_step_steady"],
+                         "replay_vs_eager": warm_replay,
                          "losses": warm_losses, "decode_head_launches": 0},
               "optimize": {"cli_s": optimize_s, "epochs": 1, "d_applies": opt_epoch["d_applies"],
                            **rates(opt_epoch, opt_steady, cfg.batch_size),
                            "losses": opt_losses, "decode_head_launches": 0},
-              "infer": {"s": infer_s, "batches": infer_batches,
+              "infer": {"s": infer_s, "batches": infer_batches, "graphs": infer_graphs,
                         "decode_head_launches": infer_launches}}
     print(json.dumps({"training": result}), flush=True)
     return result
@@ -1696,9 +2031,11 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     from consistent__style_transfer_torch.models.seq2seq_transformer import TransformerSeq2Seq
     from consistent__style_transfer_torch.train.common import (
         build_generator,
+        generator_call,
         get_corpus,
         get_tokenizer,
     )
+    from consistent__style_transfer_torch.train.graphs import GraphedStep
     from consistent__style_transfer_torch.train.infer import make_transfer_step, transfer_split
     from consistent__style_transfer_torch.train.optimize import (
         GraphedFusedStep,
@@ -1708,7 +2045,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
         make_optimize_steps,
     )
     from consistent__style_transfer_torch.train.state import AdamWithClip
-    from consistent__style_transfer_torch.train.warmup import make_warmup_steps
+    from consistent__style_transfer_torch.train.warmup import WARMUP_INPUTS, make_warmup_steps
 
     t_phase = time.perf_counter()
     # phase 8 leaves TF32 on; a fresh process, as a user's CLI run, has it off
@@ -1743,9 +2080,11 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
             "ms_per_batch": ms, "sent_per_s": x.shape[0] * 1e3 / ms,
             "device_ms_per_batch": device_ms,
             "device_ops_per_batch": prof.get("kernels_per_batch", "not measured"),
+            "host_calls_per_batch": prof.get("host_calls_per_batch", "not measured"),
             "device_idle_share": (1 - device_ms / ms) if isinstance(device_ms, float)
             else "not measured",
-            "top_device_ops": prof.get("top", ["not measured"])[:5]}
+            "top_device_ops": prof.get("top", ["not measured"])[:5],
+            **peak_memory(lambda: step(x, labels))}
 
     # 1a. the LSTM beam at the yelp serving shape, beside greedy
     lstm = DenoiseSeq2Seq(n_vocab=YELP_V, n_class=2, max_len=YELP_L, seed=0)
@@ -1830,15 +2169,19 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
         TransformerSeq2Seq(V, tcfg.n_class, L).load_state_dict(sd, strict=True)
         check(all(bool(torch.isfinite(v).all()) for v in sd.values()), f"{path}: non-finite")
 
-    def cli_timed(argv):
+    def cli_timed(argv, made=None):
         zero_counts()
         t0 = time.perf_counter()
-        run_cli(argv)
+        with watch_graphs() as graphed:
+            run_cli(argv)
         torch.cuda.synchronize()
         no_kernel(f"{argv[0]} --backbone transformer")
+        if made is not None:
+            made[:] = graphed
         return time.perf_counter() - t0
 
-    warm_s = cli_timed(["warmup", *tf_flags])
+    made = []
+    warm_s = cli_timed(["warmup", *tf_flags], made)
     warm_path = os.path.join(tcfg.ds_dump_dir, "warmup", "G_transformer.pth")
     load_strict(warm_path)
     check(os.path.exists(os.path.join(tcfg.ds_dump_dir, "warmup", "G.pth")),
@@ -1848,6 +2191,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     warm_epoch = [e for e in events if "train_steps" in e][-1]
     want = n_train // tcfg.warmup_batch_size
     check(warm_epoch["train_steps"] == want, f"transformer warmup: {warm_epoch['train_steps']}")
+    warm_graphs = check_replayed(made, [None], want, "transformer warmup")
 
     opt_s = cli_timed(["optimize", *tf_flags, "--epochs", "1"])
     task = os.path.join(tcfg.ds_dump_dir, f"optimize-{ver}")
@@ -1861,8 +2205,12 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     check(opt_epoch["d_applies"] == math.ceil(want / tcfg.d_update_every),
           f"transformer optimize: D applied {opt_epoch['d_applies']}")
 
-    infer_s = cli_timed(["infer", *tf_flags])
+    infer_s = cli_timed(["infer", *tf_flags], made)
     n_infer = sum(count_lines(tcfg.split_files(s)) for s in ("train", "test"))
+    infer_graphs = check_replayed(
+        made, [(tcfg.batch_size, L)],
+        sum(-(-count_lines(tcfg.split_files(s)) // tcfg.batch_size) for s in ("train", "test")),
+        "transformer infer")
     for split in ("train", "test"):
         for label in (0, 1):
             path = os.path.join(tcfg.run_out_dir, f"style.{split}.{label}.tsf")
@@ -1887,14 +2235,26 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
                                    seed=0)))
     bx = torch.from_numpy(batch["x"]).to(device)
     bl = torch.from_numpy(batch["labels"]).to(device)
-    _, _, tf_greedy = batch_rate(make_transfer_step(model), bx, bl, 5)
+    graphed_greedy = make_transfer_step(model)
+
+    @torch.inference_mode()
+    def eager_greedy(x, labels):
+        return generator_call(model, x, labels, None, 1 - labels, mode="greedy")
+
+    _, _, tf_greedy = batch_rate(graphed_greedy, bx, bl, 5)
+    tf_greedy["graph_nodes"] = graph_nodes(graphed_greedy.runner.graphs[tuple(bx.shape)])
+    _, _, tf_greedy_eager = batch_rate(eager_greedy, bx, bl, 5)
+    check(torch.equal(graphed_greedy(bx, bl), eager_greedy(bx, bl)),
+          "transformer graphed greedy ids differ from eager ones")
     _, _, tf_beam = batch_rate(make_transfer_step(model, K), bx, bl, 2)
     check(fused_decode_logits.launches == 0, "the transformer launched the decode head")
     enc = [tokenizer.encode(r.split("\t", 1)[1])[:L] for r in requests[::125]]
     xs, _ = align(enc, 0, L)
     xs = torch.from_numpy(xs)
     ls = torch.tensor([int(r[0]) for r in requests[::125]], dtype=torch.int32)
-    card = make_transfer_step(model)(xs.to(device), ls.to(device)).cpu()
+    card_step = make_transfer_step(model)
+    for _ in range(2):  # the eager first call, then a replay
+        card = card_step(xs.to(device), ls.to(device)).cpu()
     card_beam = [t.cpu() for t in beam_decode_any(model, xs[:2].to(device), ls[:2].to(device),
                                                   1 - ls[:2].to(device), beam_size=K)]
     cpu_model = build_generator(make_config("yelp", backbone="transformer", device="cpu"), V,
@@ -1939,47 +2299,23 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     runner(fixed[1], False)
     check(sorted(runner.graphs) == [False, True], "both branches were not captured")
     params = [p for m in (models.generator, models.disc) for p in m.parameters()]
-    state = params + acc + [t for o in opts for st in o.adam.state.values()
-                            for t in st.values() if isinstance(t, torch.Tensor)]
-    torch.cuda.synchronize()
-    saved = [t.detach().clone() for t in state]
-    saved_gens = [gen.get_state() for gen in gens]
-    runs = []
-    for graphed in (False, True):
-        with torch.no_grad():
-            for t, v in zip(state, saved):
-                t.copy_(v)
-        for gen, v in zip(gens, saved_gens):
-            gen.set_state(v)
-        losses = []
-        for i, b in enumerate(fixed[2:]):
-            do_apply = i % tcfg.d_update_every == 0
-            aux, d_loss = runner(b, do_apply) if graphed else steps.fused_step(b, acc, do_apply,
-                                                                                *gens, scale)
-            losses.append(torch.stack([aux[k].float() for k in ("loss", "G", "STI", "CP",
-                                                                 "BK")] + [d_loss.float()]))
-        torch.cuda.synchronize()
-        runs.append((torch.stack(losses), [p.detach().clone() for p in params],
-                     [gen.get_state() for gen in gens]))
-    (l0, p0, g0), (l1, p1, g1) = runs
-    tol = GRAPH_TOL["float32"]
-    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p1, p0)])
-    move = torch.cat([(a - b).abs().flatten() for a, b in zip(p0, saved)])
-    replay = {"steps": TF_REPLAY_STEPS, "p_drop": tcfg.p_drop, "dtype": "float32",
-              "loss_max_rel_diff": float(((l1 - l0).abs() / l0.abs().clamp_min(1e-6)).max()),
-              "param_mean_abs_diff": float(diff.mean()), "param_max_abs_diff": float(diff.max()),
-              "param_mean_abs_move": float(move.mean()),
-              "param_share": float(diff.mean() / move.mean().clamp_min(1e-30)),
-              "generator_states_equal": all(torch.equal(a, b) for a, b in zip(g0, g1)),
-              "finite": bool(torch.isfinite(l0).all()), "tolerance": tol}
+
+    def losses(out):
+        aux, d_loss = out
+        return torch.stack([aux[k].float() for k in ("loss", "G", "STI", "CP", "BK")]
+                           + [d_loss.float()])
+
+    def applies(i):
+        return i % tcfg.d_update_every == 0
+
+    replay = replays_against_eager(
+        params, adam_state(params + acc, opts), gens,
+        lambda i: losses(steps.fused_step(fixed[i + 2], acc, applies(i), *gens, scale)),
+        lambda i: losses(runner(fixed[i + 2], applies(i))), TF_REPLAY_STEPS)
+    replay.update(p_drop=tcfg.p_drop, dtype="float32")
     print(json.dumps({"transformer_replay_vs_eager": replay}), flush=True)
-    check(replay["finite"], "transformer: non-finite eager losses")
-    check(replay["loss_max_rel_diff"] <= tol["loss_rel"],
-          f"transformer replays: losses {replay['loss_max_rel_diff']} apart")
-    check(replay["param_share"] <= tol["param_share"],
-          f"transformer replays: parameters {replay['param_share']} of their move apart")
-    check(replay["generator_states_equal"], "transformer replays moved the generators otherwise")
-    del models, steps, opts, acc, runner, state, saved
+    check_replays(replay, "transformer optimize")
+    del models, steps, opts, acc, runner
 
     # steady steps at the CLI's settings (bf16 autocast for the scorers)
     model = build_generator(tcfg, V, device, training=True)
@@ -1988,11 +2324,23 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
                                                          tcfg.warmup_clip), torch.bfloat16)
     gen = torch.Generator(device).manual_seed(1)
     batches = stream("warmup", tcfg.warmup_batch_size)
+    runner = GraphedStep(lambda inputs, _: warm_step(inputs, gen), (gen,))
+
+    def graphed_warm():
+        arrays = next(batches)[1]
+        return runner({k: arrays[k] for k in WARMUP_INPUTS})
+
     try:
         warm_steady = steady_step(lambda: warm_step(next(batches)[1], gen), batches=10)
+        warm_graphed = steady_step(graphed_warm, batches=10)
+        check(math.isfinite(graphed_warm().item()), "non-finite graphed transformer warmup loss")
     finally:
         batches.close()
-    del model, warm_step
+    warm_graphed["graph_nodes"] = graph_nodes(runner.graphs[None])
+    del model, warm_step, runner
+    warm_replay = warmup_replays(tcfg, V, device, warm_path, train_corpus)
+    print(json.dumps({"transformer_warmup_replay_vs_eager": warm_replay}), flush=True)
+    check_replays(warm_replay, "transformer warmup")
 
     models, steps, _, acc, gens = build("bfloat16")
     st = {"i": 0}
@@ -2031,18 +2379,25 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
         "train_sentences": n_train,
         "warmup": {"cli_s": warm_s, "train_steps": warm_epoch["train_steps"],
                    "batch_size": tcfg.warmup_batch_size,
-                   "ms_per_step_epoch": warm_epoch["train_s"] * 1e3 / warm_epoch["train_steps"],
-                   "losses": warm_losses, **warm_steady},
+                   "ms_per_step_epoch_graphed": warm_epoch["train_s"] * 1e3
+                   / warm_epoch["train_steps"],
+                   "losses": warm_losses, **warm_steady, "graphed": warm_graphed,
+                   "speedup_host": warm_steady["ms_per_step_steady"]
+                   / warm_graphed["ms_per_step_steady"],
+                   "cli_graphs": warm_graphs, "replay_vs_eager": warm_replay},
         "optimize": {"cli_s": opt_s, "train_steps": opt_epoch["train_steps"],
                      "d_applies": opt_epoch["d_applies"], "batch_size": tcfg.batch_size,
                      "ms_per_step_epoch_graphed": opt_epoch["train_s"] * 1e3
                      / opt_epoch["train_steps"],
                      "losses": opt_losses, "eager": opt_eager, "graphed": opt_graphed},
         "replay_vs_eager": replay,
-        "infer_greedy": {"s": infer_s, "sentences": n_infer, "sent_per_s": n_infer / infer_s},
+        "infer_greedy": {"s": infer_s, "sentences": n_infer, "sent_per_s": n_infer / infer_s,
+                         "graphs": infer_graphs},
         "beam_test_split": {"s": beam_test_s, "sentences": n_test,
                             "sent_per_s": n_test / beam_test_s},
-        "greedy_batch": tf_greedy, "beam_batch": tf_beam,
+        "greedy_batch": tf_greedy, "greedy_batch_eager": tf_greedy_eager,
+        "greedy_speedup_host": tf_greedy_eager["ms_per_batch"] / tf_greedy["ms_per_batch"],
+        "beam_batch": tf_beam,
         "f32_card_vs_cpu": {"greedy_sentences": len(enc), "beam_sentences": 2,
                             "ids_equal": True, "beam_score_max_abs_diff": tf_score_err},
         "decode_head_launches": 0}
@@ -2055,6 +2410,9 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
 # ------------------------------------------------------------------ phase 10
 LAUNCHER_STEPS = 9  # graphed optimize steps a side: D applies at 0, 4 and 8
 PRE_WARM_STEPS = 3  # warmup and pretrain steps a side
+# the launcher's commands run on the first lines of each yelp split file, a
+# style: 2,000 of 16,000 train, 500 of 2,000 dev, all 500 test
+LAUNCH_LINES = {"train": 2000, "dev": 500, "test": None}
 
 
 def free_port() -> int:
@@ -2074,7 +2432,7 @@ def state_tensors(modules, opts, acc=()) -> list:
     return out + [a.clone() for a in acc]
 
 
-def phase_launcher(work: str, card: str, pre: dict, trained: dict) -> dict:
+def phase_launcher(work: str, card: str) -> dict:
     """Data parallelism (``parallel/``) on the card, at world size 1 (one
     card; NCCL refuses two ranks on one GPU, so this is no multi-GPU
     measurement):
@@ -2091,13 +2449,13 @@ def phase_launcher(work: str, card: str, pre: dict, trained: dict) -> dict:
     2. ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
        consistent__style_transfer_torch`` ``pretrain``, ``warmup``,
        ``optimize`` (one epoch each) and ``infer`` in a fresh dump dir (phase
-       3's BPE and phase 5's word2vec copied in): finite logged losses, one
-       step a batch, D's cadence, the child's own Sinkhorn launches (one a
-       labeled batch) and decode-head launches (18 a batch) from its
+       3's BPE and phase 5's word2vec copied in) on the first LAUNCH_LINES
+       lines of each yelp split file: finite logged losses, one step a
+       batch, D's cadence, the child's own Sinkhorn launches (one a labeled
+       batch) and decode-head launches (18 a batch) from its
        ``TPUST_KERNEL_COUNTS`` line, its ``.tsf`` files byte-equal to a
-       plain ``infer`` of the same G, and each command's seconds in the
-       child beside the same command's plain run in phases 5-6 (in this
-       process) and, for ``warmup``, in a fresh process without the
+       plain ``infer`` of the same G in this process, and the ``warmup``'s
+       seconds in the child beside a fresh process's without the
        launcher."""
     import torch
     import torch.distributed as dist
@@ -2300,11 +2658,20 @@ def phase_launcher(work: str, card: str, pre: dict, trained: dict) -> dict:
         check(e["finite"] and e["losses_equal"] and e["state_equal"],
               f"{key}: steps with the group differ from those without: {e}")
 
-    # 2. the commands under the launcher, in a fresh dump dir
-    fresh = dict(dirs, dump_dir=os.path.join(work, "launch_dump"),
+    # 2. the commands under the launcher, in a fresh dump dir, on the first
+    # LAUNCH_LINES lines of each yelp split file (a cut of depth)
+    fresh = dict(dirs, data_dir=os.path.join(work, "launch_data"),
+                 dump_dir=os.path.join(work, "launch_dump"),
                  out_dir=os.path.join(work, "launch_output"),
                  log_dir=os.path.join(work, "launch_log"))
     lcfg = make_config("yelp", **fresh)
+    os.makedirs(lcfg.ds_data_dir)
+    for split, keep in LAUNCH_LINES.items():
+        for src, dst in zip(cfg.split_files(split), lcfg.split_files(split)):
+            with open(src, encoding="utf-8") as f:
+                lines = f.readlines()
+            with open(dst, "w", encoding="utf-8") as f:
+                f.writelines(lines[:keep])
     os.makedirs(lcfg.ds_dump_dir)
     for path in (*cfg.vocab_paths, cfg.w2v_path):  # phase 3's BPE, phase 5's word2vec
         shutil.copy(path, lcfg.ds_dump_dir)
@@ -2379,10 +2746,7 @@ def phase_launcher(work: str, card: str, pre: dict, trained: dict) -> dict:
         with open(os.path.join(mine, f), "rb") as a, open(os.path.join(theirs, f), "rb") as b:
             check(a.read() == b.read(), f"launcher infer: {f} differs from the plain infer's")
     r["tsf_byte_equal_plain"] = True
-    plain = {"pretrain": pre["pretrain_cli_s"], "warmup": trained["warmup"]["cli_s"],
-             "optimize": trained["optimize"]["cli_s"], "infer": plain_infer_s}
-    for command, seconds in plain.items():
-        runs[command]["plain_command_s"] = seconds
+    r["plain_command_s"] = plain_infer_s
     # the warmup again in a fresh process without the launcher: what a new
     # process costs, apart from the launcher and the group
     t0 = time.perf_counter()
@@ -2418,13 +2782,13 @@ def main() -> int:
     sinkhorn = phase_sinkhorn_vs_plain()
     with tempfile.TemporaryDirectory() as work:
         served = phase_serve_and_infer(work)
-        full = phase_full_width(card)
+        full = phase_full_width(card, timed[f"bfloat16_V{YELP_V}"]["kernel_ms"])
         pre = phase_pretrain(work, card)
         trained = phase_training(work, card)
         evaluated = phase_eval(work, card)
         mega = phase_megastep(work, card, trained["optimize"])
         beams = phase_beam_and_transformer(work, card, full)
-        launch = phase_launcher(work, card, pre, trained)["launcher"]
+        launch = phase_launcher(work, card)["launcher"]
 
     yelp = timed[f"bfloat16_V{YELP_V}"]
     real = pre["sinkhorn_label_batch"]
@@ -2487,6 +2851,8 @@ def main() -> int:
                              "optimize_launcher": 0,
                              "infer_launcher": launch["infer"]["decode_head_launches"]},
         "launches_per_batch": full["launches_per_batch"],
+        "launch_counter": "fused_decode_logits.launches: eager calls, and each replay adds the "
+                          "calls its graph captured",
         "max_abs_err": yelp["max_abs_err_h"],
         "max_abs_err_h": yelp["max_abs_err_h"],
         "ids_mismatch": yelp["ids_mismatch"],
@@ -2507,6 +2873,8 @@ def main() -> int:
         "device_ops_per_call": yelp["kernel_device_ops_per_call"],  # graph nodes, exact
         "profiler_kernels_per_call": yelp["kernel_profiler_kernels_per_call"],
         "library_device_ops_per_call": yelp["library_device_ops_per_call"],
+        # profiled inside serving's graph replay (phase 4), a call
+        "in_serving_graph_ms": full["head_in_graph_ms_per_call"],
         "sass_hgmma": build["decode_step"]["sass_hgmma"],
         "shape": {"B": YELP_B, "Din": DIN, "H": HID, "V": YELP_V, "dtype": "bfloat16"},
         "other_shapes": {k: v for k, v in timed.items() if k != f"bfloat16_V{YELP_V}"},

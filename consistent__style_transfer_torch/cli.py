@@ -204,7 +204,9 @@ def cmd_serve(cfg: Config) -> None:
     """Read ``<style>\\t<text>`` lines (or bare text, style 0) from stdin,
     print each transferred text. Uses the newest optimize checkpoint, else the
     warmup G. Every batch is padded to ``batch_size`` rows, as the JAX package
-    pads to its compiled shape, so each batch decodes at one shape.
+    pads to its compiled shape, so each batch decodes at one shape: on the
+    card a greedy batch replays one CUDA graph of the decode
+    (``train/infer.py::make_transfer_step``), read back before the next.
 
     One process: the JAX ``serve`` feeds the whole batch to every device,
     so a mesh there only repeats the work; under the launcher with more

@@ -9,8 +9,15 @@ logits. On a CUDA tensor :func:`fused_decode_logits` launches that kernel or
 raises; on a CPU tensor it runs :func:`decode_head_reference`, the plain
 version. ``fused_decode_logits.launches`` counts kernel launches: one per
 call, which is two device kernels (the FFN, then the vocab product with the
-argmax in its epilogue) and nothing else on the stream. bfloat16 runs on the
-tensor cores (wgmma on TMA-fed tiles), float32 on the CUDA cores without TF32.
+argmax in its epilogue) and nothing else on the stream. A call on a stream
+that a CUDA graph is capturing counts into ``.captured`` instead, and the
+graph adds its captured calls to ``.launches`` at every replay
+(``train/graphs.py::GraphedStep``), so ``.launches`` counts the calls that
+ran on the card. The launch captures as it is: the vocab kernel, a
+programmatic dependent of the FFN kernel, becomes a programmatic edge of
+the graph, and the per-device shared-memory attribute is set by an eager
+call before any capture. bfloat16 runs on the tensor cores (wgmma on
+TMA-fed tiles), float32 on the CUDA cores without TF32.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from . import count_launch
 from ._build import load_library
 
 _ENTRY = {torch.float32: "decode_head_f32", torch.bfloat16: "decode_head_bf16"}
@@ -101,7 +109,7 @@ def fused_decode_logits(x, w1, b1, w2):
     if err != 0:
         msg = lib.decode_step_error_string(err).decode()
         raise RuntimeError(f"decode head kernel launch failed: CUDA error {err} ({msg})")
-    fused_decode_logits.launches += 1
+    count_launch(fused_decode_logits)
     # each row's argmax key holds its column in its low word (little-endian):
     # the ids are an int32 view of the workspace, one per key
     ids = workspace[: 8 * B].view(torch.int32)[::2]
@@ -109,3 +117,4 @@ def fused_decode_logits(x, w1, b1, w2):
 
 
 fused_decode_logits.launches = 0
+fused_decode_logits.captured = 0

@@ -1,0 +1,122 @@
+"""One-dispatch steps on the card: the port's counterpart of the JAX
+package's ``jax.jit`` of a step (the optimize step, the warmup step, the
+pretrain step per tower-flag tuple, serving's greedy transfer).
+
+:class:`GraphedStep` runs ``fn(inputs, key)`` as CUDA graphs, one per branch
+``key`` (optimize's ``do_apply``, pretrain's ``(cls, mat, dn)`` flags,
+serving's input shape), as the JAX package compiles one program per static
+argument. Each call copies ``inputs`` (a dict of tensors on the card, the
+same names and shapes at every call of a branch) into the branch's static
+buffers and replays its graph. The first call of a branch runs ``fn``
+eagerly on a side stream (a real step, which also creates the lazy state:
+Adam's moments, library workspaces, the decode head's shared-memory
+attribute and tensor maps) and then captures it. A capture that fails
+raises; nothing falls back to eager steps.
+
+The ``torch.Generator``\\ s a step draws from (dropout, sched coins) are
+registered with each graph, so every replay draws new masks and coins from
+them, the same ones an eager step draws from the same generator states. A
+call returns the graph's static outputs, which the next replay of that
+branch overwrites: read or copy what must outlive it. Each graph keeps its
+``cudaGraph_t`` (``keep_graph``), so its nodes can be counted; it is
+instantiated at its first replay.
+
+The captures run in ``thread_local`` error mode: other threads go on
+working on the card while one captures (the batch prefetcher's copies and,
+in pretrain, its WMD labels with the Sinkhorn kernel). A step whose
+capture must not overlap a thread's synchronous copy (pretrain's
+:class:`~.state.AsyncSaver`, which copies the best weights to the host)
+passes ``before_capture`` to drain it first.
+
+The hand-written kernels count their launches (``.launches`` on
+:data:`COUNTED_KERNELS`). A call made while a stream captures launches
+nothing and counts into ``.captured`` instead; a graph notes how many
+calls of each kernel it captured and adds them to ``.launches`` at every
+replay, so ``.launches`` counts the kernels that ran, eager or replayed.
+
+:func:`step_runner` gives a stage one loop for both devices: a
+:class:`GraphedStep` on the card, ``fn`` called eagerly on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Hashable
+
+import torch
+
+from ..kernels.decode_step import fused_decode_logits
+from ..kernels.sinkhorn import sinkhorn_cuda
+
+COUNTED_KERNELS = (fused_decode_logits, sinkhorn_cuda)
+
+
+class GraphedStep:
+    """``fn(inputs, key)`` as one CUDA graph per ``key`` (see the module
+    note). ``generators``: the explicit generators ``fn`` draws from (None
+    entries are skipped). ``before_capture``: called before a branch's
+    eager first call and capture."""
+
+    def __init__(self, fn: Callable, generators=(), before_capture: Callable | None = None):
+        self.fn = fn
+        self.generators = tuple(g for g in generators if g is not None)
+        self.before_capture = before_capture
+        self.static: dict[Hashable, dict[str, torch.Tensor]] = {}
+        self.graphs: dict[Hashable, torch.cuda.CUDAGraph] = {}
+        self.outputs: dict[Hashable, object] = {}
+        # per branch: (kernel wrapper, calls captured) for each counted kernel
+        self.replay_launches: dict[Hashable, tuple] = {}
+        self.replays = 0  # of every branch
+        self.stream: torch.cuda.Stream | None = None
+
+    def __call__(self, inputs: dict, key: Hashable = None):
+        static = self.static.get(key)
+        if static is None:
+            static = self.static[key] = {k: torch.empty_like(v) for k, v in inputs.items()}
+        for k, buf in static.items():
+            if inputs[k].shape != buf.shape:
+                raise ValueError(f"{k} is {tuple(inputs[k].shape)}; the step of {key!r} takes "
+                                 f"{tuple(buf.shape)}")
+            buf.copy_(inputs[k])
+        graph = self.graphs.get(key)
+        if graph is None:
+            return self._first_call(static, key)
+        graph.replay()
+        self.replays += 1
+        for kernel, n in self.replay_launches[key]:
+            kernel.launches += n
+        return self.outputs[key]
+
+    def _first_call(self, static: dict, key: Hashable):
+        if self.before_capture is not None:
+            self.before_capture()
+        device = next(iter(static.values())).device
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        side, current = self.stream, torch.cuda.current_stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self.fn(static, key)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes can be counted
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        before = [k.captured for k in COUNTED_KERNELS]
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            self.outputs[key] = self.fn(static, key)
+        self.replay_launches[key] = tuple(
+            (k, k.captured - b) for k, b in zip(COUNTED_KERNELS, before) if k.captured > b)
+        self.graphs[key] = graph
+        return out
+
+
+def step_runner(fn: Callable, device: torch.device, generators=(),
+                before_capture: Callable | None = None) -> Callable:
+    """``runner(inputs, key=None)``: :class:`GraphedStep` of ``fn`` on a CUDA
+    ``device``; on the CPU ``fn(inputs, key)`` itself, eagerly."""
+    if device.type == "cuda":
+        return GraphedStep(fn, generators, before_capture)
+
+    def eager(inputs: dict, key: Hashable = None):
+        return fn(inputs, key)
+
+    return eager

@@ -9,8 +9,8 @@ route by the *source* label into
 
 The loop keeps the device busy: batch assembly and the host->device copy run
 in the prefetcher's thread, each decode is queued on the stream without
-waiting, and the copy of the ids back to the host plus the BPE decode run in
-a small thread pool.
+waiting (on the card a greedy decode is one CUDA graph replay), and the copy
+of the ids back to the host plus the BPE decode run in a small thread pool.
 
 Under the launcher (``parallel/``) each data rank decodes its rows of every
 batch; the ids are gathered over the data group in rank order, the padding
@@ -33,23 +33,38 @@ from ..models.beam import beam_decode_any
 from ..parallel.mesh import barrier, is_main
 from ..parallel.sharding import all_gather_rows, data_group, shard_batch
 from .common import generator_call, get_corpus
+from .graphs import step_runner
 
 
 def make_transfer_step(model, beam_size: int = 1):
     """step(x (B, L) int, labels (B,) int) -> ids (B, max_len) int32, on the
     model's device: decode to the opposite style (labels -> 1 - labels),
     greedy, or with ``beam_size`` > 1 the beam search of either backbone
-    (``models/beam.py::beam_decode_any``, length penalty 0.6)."""
+    (``models/beam.py::beam_decode_any``, length penalty 0.6).
+
+    On the card the greedy decode of either backbone (the LSTM's with the
+    decode-head kernel in each of its steps) is a CUDA graph, one per input
+    shape (:class:`~.graphs.GraphedStep`; batches are padded to one shape),
+    and the ids it returns are the graph's output buffer, which the next
+    call overwrites: copy them before the next call. The beam, and
+    everything on the CPU, runs eagerly."""
     if beam_size > 1:
         def beam_step(x, labels):
             return beam_decode_any(model, x, labels, 1 - labels, beam_size=beam_size)[0]
 
         return beam_step
 
+    def greedy(inputs, key=None):
+        return generator_call(model, inputs["x"], inputs["labels"], None, 1 - inputs["labels"],
+                              mode="greedy")
+
+    runner = step_runner(greedy, next(model.parameters()).device)
+
     @torch.inference_mode()
     def step(x, labels):
-        return generator_call(model, x, labels, None, 1 - labels, mode="greedy")
+        return runner({"x": x, "labels": labels}, tuple(x.shape))
 
+    step.runner = runner  # its graphs, on the card
     return step
 
 
@@ -78,7 +93,9 @@ def transfer_split(cfg: Config, model, tokenizer, split: str,
         chunks = []
         for batch, arrays in DevicePrefetcher(it, next(model.parameters()).device,
                                               shard_fn=partial(shard_batch, mesh=mesh)):
-            ids = all_gather_rows(step_fn(arrays["x"], arrays["labels"]), group)
+            # a copy on the stream: a graphed step's next call overwrites
+            # its ids while this batch's are still in flight
+            ids = all_gather_rows(step_fn(arrays["x"], arrays["labels"]).clone(), group)
             if main:
                 chunks.append(ex.submit(drain, ids, batch))
         for c in chunks:  # corpus order preserved
@@ -103,10 +120,11 @@ def write_tsf(cfg: Config, split: str, routed: dict[int, list[str]]) -> list[str
 
 
 def run_inference(cfg: Config, model, tokenizer, splits=("train", "test"),
-                  mesh=None) -> list[str]:
+                  mesh=None, step_fn=None) -> list[str]:
     """Transfer ``splits`` to ``.tsf`` files (written by rank 0 under a
-    ``mesh``); returns their paths on every rank."""
-    step_fn = make_transfer_step(model, cfg.beam_size)
+    ``mesh``) with ``step_fn`` (default :func:`make_transfer_step`'s);
+    returns their paths on every rank."""
+    step_fn = step_fn or make_transfer_step(model, cfg.beam_size)
     out_paths: list[str] = []
     for split in splits:
         routed = transfer_split(cfg, model, tokenizer, split, step_fn=step_fn, mesh=mesh)

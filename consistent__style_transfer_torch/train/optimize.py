@@ -95,6 +95,7 @@ from .common import (autocast, build_classifier, build_discriminator, build_gene
                      build_lm, build_matcher, compute_dtype, generator_call, get_corpus,
                      get_device, get_mesh, get_tokenizer, rank_generators)
 from .checkpoint import StateCheckpointer
+from .graphs import GraphedStep
 from .infer import run_inference
 from .loop import EarlyStopper, Throughput, validate
 from .state import (AdamWithClip, AsyncSaver, BestKeeper, load_state_dict, newest_checkpoint,
@@ -344,77 +345,39 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
                          accumulate, val_step, fused_step)
 
 
-class GraphedFusedStep:
-    """``fused_step`` as CUDA graphs, one per ``do_apply`` branch, over static
-    buffers: each call copies the batch's ``x`` and ``labels`` (and, with
-    ``given_coins``, the (L,) sched coins) into them and replays the graph
-    of its branch; the first call of a branch runs the step eagerly on a
-    side stream (a real step, which also creates the lazy state: Adam's
-    moments, the library workspaces) and then captures it. A capture that
-    fails raises. Each graph keeps its ``cudaGraph_t`` (``keep_graph``), so
-    its nodes can be counted; it is instantiated at its first replay.
+class GraphedFusedStep(GraphedStep):
+    """``fused_step`` as CUDA graphs, one per ``do_apply`` branch
+    (:class:`~.graphs.GraphedStep`): each call copies the batch's ``x`` and
+    ``labels`` (and, with ``given_coins``, the (L,) sched coins) into the
+    branch's static buffers and replays its graph; the first call of a
+    branch runs the step eagerly on a side stream and then captures it.
 
     The G and D generators (and a coin generator, when there is one) are
-    registered with each graph, so every replay draws new dropout masks and
-    coins from them, the same ones the eager step draws from the same
-    generator states. The collectives of a data-parallel step (the
+    registered with each graph. The collectives of a data-parallel step (the
     optimizers' all-reduces) are captured too: the process group exists
     before, and the eager first call of a branch runs them on the side
     stream, which sets up the communicator before the capture.
     ``copy_scale`` is a 0-dim tensor on the card that the caller fills (each
-    epoch), not a constant baked into the capture. A call returns the graph's static outputs
-    ``(aux, d_loss)``, which the next replay of that branch overwrites: copy
-    what must outlive it."""
+    epoch), not a constant baked into the capture. A call returns the graph's
+    static outputs ``(aux, d_loss)``, which the next replay of that branch
+    overwrites: copy what must outlive it."""
 
     def __init__(self, fused_step: Callable, acc: list, generator: torch.Generator,
                  d_generator: torch.Generator, copy_scale: torch.Tensor,
                  given_coins: bool = False, coin_generator: torch.Generator | None = None):
-        self.fused_step = fused_step
-        self.acc = acc
-        self.generators = (generator, d_generator)
-        self.coin_generator = coin_generator
-        self.copy_scale = copy_scale
-        self.given_coins = given_coins
-        self.static: dict[str, torch.Tensor] | None = None
-        self.coins: torch.Tensor | None = None
-        self.graphs: dict[bool, torch.cuda.CUDAGraph] = {}
-        self.outputs: dict[bool, tuple] = {}
-        self.stream = torch.cuda.Stream(copy_scale.device)
+        def run(static: dict, do_apply: bool):
+            return fused_step(static, acc, do_apply, generator, d_generator,
+                              copy_scale=copy_scale, coins=static.get("coins"),
+                              coin_generator=coin_generator)
 
-    def _run(self, do_apply: bool):
-        return self.fused_step(self.static, self.acc, do_apply, *self.generators,
-                               copy_scale=self.copy_scale, coins=self.coins,
-                               coin_generator=self.coin_generator)
+        super().__init__(run, (generator, d_generator, coin_generator))
+        self.given_coins = given_coins
 
     def __call__(self, batch: dict, do_apply: bool, coins: torch.Tensor | None = None):
-        if self.static is None:
-            self.static = {k: torch.empty_like(batch[k]) for k in ("x", "labels")}
-            if self.given_coins:
-                self.coins = torch.empty(batch["x"].shape[1], dtype=torch.bool,
-                                         device=batch["x"].device)
-        for k, buf in self.static.items():
-            buf.copy_(batch[k])
+        inputs = {"x": batch["x"], "labels": batch["labels"]}
         if self.given_coins:
-            self.coins.copy_(coins)
-        graph = self.graphs.get(do_apply)
-        if graph is not None:
-            graph.replay()
-            return self.outputs[do_apply]
-        side = self.stream
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            out = self._run(do_apply)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes can be counted
-        for gen in (*self.generators, self.coin_generator):
-            if gen is not None:
-                graph.register_generator_state(gen)
-        # other threads (the batch prefetcher) go on copying on their own
-        # stream while this one captures
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-            self.outputs[do_apply] = self._run(do_apply)
-        self.graphs[do_apply] = graph
-        return out
+            inputs["coins"] = coins
+        return super().__call__(inputs, do_apply)
 
 
 def run_optimize(cfg: Config, progress: bool = True) -> str | None:

@@ -21,6 +21,18 @@ Parameters stay float32; with ``dtype="bfloat16"`` the towers run under
 ``torch.autocast`` in bfloat16. Dropout is on in train steps and off in eval
 steps, its masks drawn from one seeded ``torch.Generator`` on the device.
 
+On the card every train step replays a CUDA graph of the step, one per
+flag tuple (``train/graphs.py::GraphedStep``), as the JAX package compiles
+one program per ``flags``; its static inputs are the batch keys the flags
+read (:func:`step_inputs`), so ``nx1``, ``nx2`` and ``wmd`` go once the
+matcher freezes. The WMD labels, and so the Sinkhorn kernel, stay in the
+collate on the prefetcher's thread, outside the graph. A tower freezes at
+an epoch's end, so the next flag tuple is captured at the next epoch's
+first step, while the per-task best saves of that epoch end may still be
+copying to the host on the saver's thread: the capture waits for them
+first. Validation stays eager. On the CPU the same loop runs the step
+eagerly.
+
 Under the launcher (``parallel/``) each data rank takes its rows of every
 batch, labels only those pairs (one Sinkhorn launch a batch on ``B/D``
 pairs), and the optimizer averages the gradients over the data group before
@@ -30,7 +42,6 @@ ranks take the same freeze and stop decisions. Rank 0 saves and logs.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 
@@ -45,6 +56,7 @@ from ..parallel.mesh import barrier, is_main
 from ..parallel.sharding import batch_sharding, data_group, global_means, replicate
 from ..utils.io import RunLogger
 from .common import (
+    autocast,
     build_classifier,
     build_lm,
     build_matcher,
@@ -56,10 +68,19 @@ from .common import (
     get_w2v,
     rank_generators,
 )
+from .graphs import step_runner
 from .loop import EarlyStopper, Throughput, validate
 from .state import AdamWithClip, AsyncSaver, load_state_dict, params_exist, save_state_dict
 
 TASKS = ("cls", "mat", "dn")
+# the batch keys each tower's loss reads (see make_pretrain_steps)
+TASK_INPUTS = {"cls": ("x", "labels"), "mat": ("nx1", "nx2", "wmd"), "dn": ("nx3", "x")}
+
+
+def step_inputs(flags) -> tuple[str, ...]:
+    """The batch keys a train step with the (cls, mat, dn) ``flags`` reads."""
+    keys = [k for t, on in zip(TASKS, flags) if on for k in TASK_INPUTS[t]]
+    return tuple(dict.fromkeys(keys))
 
 
 def make_pretrain_steps(models: dict, optimizer: AdamWithClip,
@@ -74,16 +95,13 @@ def make_pretrain_steps(models: dict, optimizer: AdamWithClip,
     optional ``row_mask`` keeps padded duplicate rows out of the means.
     ``flags`` is a (cls, mat, dn) tuple of bools."""
     cls_m, mat_m, dn_m = models["cls"], models["mat"], models["dn"]
-
-    def autocast(device: torch.device):
-        if autocast_dtype is None:
-            return contextlib.nullcontext()
-        return torch.autocast(device.type, dtype=autocast_dtype)
+    dtype = torch.float32 if autocast_dtype is None else autocast_dtype
+    device = next(cls_m.parameters()).device
 
     def losses(batch, flags, generator):
         rows = batch.get("row_mask")
         out = {}
-        with autocast(batch["x"].device):
+        with autocast(device, dtype):
             if flags[0]:
                 out["cls"] = cross_entropy(cls_m(batch["x"], generator), batch["labels"],
                                            mask=rows)
@@ -163,6 +181,10 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
     best = {t: float("inf") for t in TASKS}
     thru = Throughput()
     saver = AsyncSaver()  # per-task best saves overlap the next epoch
+    # a new flag tuple is captured after an epoch end's saves: drain them
+    # first, as the saver's host copies must not overlap a capture
+    run_step = step_runner(lambda inputs, flags: train_step(inputs, flags, generator), device,
+                           (generator,), before_capture=saver.wait)
 
     step = 0
     for epoch in range(cfg.epochs):
@@ -170,8 +192,9 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
         if not any(ftuple):
             break
         ep_t0, ep_sent, ep_steps = time.time(), 0, 0
+        keys = step_inputs(ftuple)
         for _, arrays in DevicePrefetcher(train_it, device):
-            parts = train_step(arrays, ftuple, generator)
+            parts = run_step({k: arrays[k] for k in keys}, ftuple)
             thru.add(cfg.batch_size)
             ep_sent += cfg.batch_size
             ep_steps += 1

@@ -14,6 +14,13 @@ and sched coins; each validation draws its coins once, from a generator
 seeded by the step count, and every dev batch uses them (as the JAX package's
 ``step_rngs(key, 10_000_000 + step)`` gives every dev batch the same key).
 
+On the card every train step, of either backbone, replays a CUDA graph of
+the step (``train/graphs.py::GraphedStep``, the JAX package's jitted
+``train_step``), the dropout and coin generators registered with it; the
+first step runs eagerly and captures it. The loss it returns is the
+graph's output, read by the logger before the next replay. Validation
+stays eager. On the CPU the same loop runs the step eagerly.
+
 Under the launcher (``parallel/``) each data rank trains on its rows of
 every batch, the gradients averaged over the data group before the clip;
 with more than one data rank the dropout masks come from a stream of the
@@ -40,10 +47,12 @@ from ..parallel.sharding import data_group, global_means, replicate, shard_batch
 from ..utils.io import RunLogger
 from .common import (autocast, build_generator, compute_dtype, generator_call, get_corpus,
                      get_device, get_mesh, get_tokenizer, rank_generators)
+from .graphs import step_runner
 from .loop import EarlyStopper, Throughput, validate
 from .state import AdamWithClip, BestKeeper, save_state_dict
 
 EVAL_SEED_OFFSET = 10_000_000
+WARMUP_INPUTS = ("nx", "x", "labels")  # what a train step reads of a batch
 
 
 def warmup_ckpt_name(cfg: Config) -> str:
@@ -110,6 +119,9 @@ def run_warmup(cfg: Config, progress: bool = True) -> str:
     optimizer = AdamWithClip(model.parameters(), cfg.warmup_lr, cfg.warmup_clip, group=group)
     train_step, eval_step = make_warmup_steps(model, optimizer, compute_dtype(cfg))
     generator, coin_generator = rank_generators(cfg.seed, device, mesh)
+    run_step = step_runner(
+        lambda inputs, _: train_step(inputs, generator, coin_generator=coin_generator),
+        device, (generator, coin_generator))
 
     logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "warmup", config=cfg, enabled=main)
     stopper = EarlyStopper(cfg.warmup_patience)
@@ -121,7 +133,7 @@ def run_warmup(cfg: Config, progress: bool = True) -> str:
         ep_t0, ep_steps = time.time(), 0
         for _, arrays in DevicePrefetcher(train_it, device,
                                           shard_fn=partial(shard_batch, mesh=mesh)):
-            loss = train_step(arrays, generator, coin_generator=coin_generator)
+            loss = run_step({k: arrays[k] for k in WARMUP_INPUTS})
             thru.add(bs)
             ep_steps += 1
             if step % 50 == 0:

@@ -112,8 +112,12 @@ print("TRAINED")
 
 _BLOCKED_NEW_MODULES = r"""
 import tempfile
-for name in ("text.native", "utils.profiling", "train.checkpoint"):
+for name in ("text.native", "utils.profiling", "train.checkpoint", "train.graphs"):
     assert "consistent__style_transfer_torch." + name in sys.modules, name
+from consistent__style_transfer_torch.train.graphs import GraphedStep, step_runner
+
+eager = step_runner(lambda inputs, key: inputs["a"] + 1, torch.device("cpu"))
+assert not isinstance(eager, GraphedStep) and int(eager({"a": torch.ones(())})) == 2
 from consistent__style_transfer_torch.text.native import native_w2v_train
 from consistent__style_transfer_torch.train.checkpoint import StateCheckpointer
 from consistent__style_transfer_torch.utils.profiling import StepTimer, trace
