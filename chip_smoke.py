@@ -47,7 +47,9 @@ Phases, in order; any failure exits non-zero before the last line:
    steps replay one CUDA graph, and the steady step runs eager and graphed;
    float32 replays of two flag tuples, the second captured after a freeze
    with a save pending on the saver's thread, against as many eager steps
-   from one saved state (dropout on);
+   from one saved state (dropout on); the epoch's validation a graph replay
+   a dev batch but the first, and float32 validation passes of both flag
+   tuples, graphed against eager, with equal losses;
 6. the generator's training at full yelp width on phase 5's BPE dump and
    scorers: ``warmup`` through the CLI (one epoch, B=512, bf16 autocast,
    float32 parameters), ``optimize --epochs 1`` (B=256, the 6-layer / 8-head
@@ -61,7 +63,9 @@ Phases, in order; any failure exits non-zero before the last line:
    the same step function (warmup eager and graphed), device ms, idle share
    and the top device operations (profiler), kernels per step, and peak
    memory; float32 warmup replays against as many eager steps from one
-   saved state (dropout on);
+   saved state (dropout on); the warmup's and the optimize epoch's
+   validation graph replays, and float32 validation passes of both stages,
+   graphed against eager, with equal losses;
 7. the eval harness on phase 6's ``.tsf`` files: ``eval-prepare`` through
    the CLI (the fastText classifier fitted on the card, the lexicon, the
    masked word2vec with the native hogwild trainer, the adversarial LR;
@@ -72,9 +76,7 @@ Phases, in order; any failure exits non-zero before the last line:
    range), its CP within a stated bound of the CP from a one-thread masked
    word2vec; the card's fit held against a CPU fit from the same seed; one
    epoch of the fit profiled (device ms, kernels) and the sequential path's
-   cost an example; then ``run --epochs 1`` under a new version, which
-   writes ``<out_dir>/yelp-<ver>.txt`` and launches the decode head 18 times
-   a batch in its infer;
+   cost an example (phase 11's ``run`` drives the chain of stages);
 8. the optimize stage with ``megastep_k=8`` (its fused step as CUDA graphs,
    one per D-apply branch, as in every optimize run on the card) at full
    yelp width on phases 5-6's dumps: graph replays held against eager
@@ -85,15 +87,19 @@ Phases, in order; any failure exits non-zero before the last line:
    batch, D's cadence, the full state written); the graphed step's steady
    ms per step, device ms, device operations, host launch calls and graph
    replays per step, idle share and peak memory beside phase 6's eager
-   step; a fresh process that resumes at epoch 1 with the saved best; and
+   step; the CLI epoch's validation a graph replay a dev batch but the
+   first; a fresh process that resumes at epoch 1 with the saved best; and
    ``infer`` from the G it keeps, through the decode head;
 9. beam decode and the transformer backbone: the LSTM's stateful beam
-   (K=4) at the yelp serving shape beside greedy on the same batch (ms per
-   batch, sentences/s, device ms, idle share), its float32 ids and scores
-   on the card against the CPU's, ``serve`` and ``infer`` with
+   (K=4) at the yelp serving shape, a CUDA graph replay, beside the eager
+   beam and greedy on the same batch (ms per batch, sentences/s, device ms,
+   idle share; bf16 graphed ids at most BF16_TOKEN_SHARE apart from
+   eager), its float32 ids and scores on the card against the CPU's, and
+   graphed against eager at the full batch (equal), ``serve`` and ``infer`` with
    ``--beam_size 4`` through the CLI on phase 6's G; then the transformer
-   (T5-small widths, float32 compute) on the committed yelp corpus:
-   ``warmup --backbone transformer`` (one epoch, B=512), ``optimize
+   (T5-small widths, float32 compute), through the CLI on the first
+   CUT_LINES lines of each yelp split file: ``warmup --backbone
+   transformer`` (one epoch, B=512), ``optimize
    --backbone transformer --epochs 1`` (B=256, the graphed step),
    ``infer`` greedy through the CLI and the beam of 4 on the test split
    (checkpoints load strictly, finite losses, one step a batch, D's
@@ -101,9 +107,10 @@ Phases, in order; any failure exits non-zero before the last line:
    graph each), graph replays of the optimize and warmup steps against
    eager steps in float32 from one saved state, the steady warmup and
    optimize steps (eager and graphed: ms, device ms, device operations,
-   idle share, peak memory), greedy (graphed and eager) and beam-4 rates on
-   a batch, and the card's ids against the CPU's. The decode head launches
-   0 times in the beam and transformer paths;
+   idle share, peak memory), greedy and beam-4 rates on a batch (graphed
+   and eager; the float32 beam's graphed ids and scores equal to eager),
+   and the card's ids against the CPU's. The decode head launches 0 times
+   in the beam and transformer paths;
 10. data parallelism (``parallel/``) at world size 1, the one card: in
    this process a world-size-1 NCCL group, the graphed optimize steps at
    full yelp width with the group's all-reduces captured held bit for bit
@@ -113,10 +120,22 @@ Phases, in order; any failure exits non-zero before the last line:
    without the group; then ``pretrain``, ``warmup``, ``optimize`` and
    ``infer`` through ``python -m torch.distributed.run --standalone
    --nproc_per_node 1 -m consistent__style_transfer_torch`` in a fresh dump
-   dir, on the first LAUNCH_LINES lines of each yelp split file: finite
+   dir, on the first CUT_LINES lines of each yelp split file: finite
    losses, one step a batch, the child's own kernel launch counts
    (``TPUST_KERNEL_COUNTS=1``), its ``.tsf`` files byte-equal to a plain
-   ``infer``'s, and the warmup's seconds beside a fresh process's.
+   ``infer``'s, and the warmup's seconds beside a fresh process's;
+11. the full yelp pipeline, the JAX package's 16k smoke recipe
+   (``RESULTS.md:1103-1110``), in a fresh dump dir: ``pretrain`` (10
+   epochs), ``warmup --warmup_epochs 10`` and ``run`` (optimize, 10 epochs;
+   ``infer``; ``eval-prepare``; ``eval``) at full width, bf16, seed 0: the
+   epochs each stage ran, its epoch and validation seconds, every train
+   step and dev batch a graph replay but the first of each branch, the
+   Sinkhorn once a labeled batch and the decode head 18 times an infer
+   batch, the prepare timings, the results file's lines (STI, CP, NT),
+   the three validation passes on the trained
+   weights graphed against eager, and the six scores, each held to a band
+   around the JAX package's default-RNG row (``RESULTS.md:315``;
+   ``FULL_RUN_BAND``), the threefry rows printed beside them.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -185,6 +204,10 @@ MEGASTEP_K = 8
 # steps after the two captures (D applies at the first and the fifth)
 BEAM_K, BEAM_CHECK_N, BEAM_SCORE_TOL = 4, 4, 1e-4
 TF_REPLAY_STEPS = 5
+# phases 9 and 10: the transformer's CLI commands and the launcher's run on
+# the first lines of each yelp split file, a style (a cut of depth): 2,000 of
+# 16,000 train, 500 of 2,000 dev, all 500 test
+CUT_LINES = {"train": 2000, "dev": 500, "test": None}
 # phases 4 and 9: graphed greedy ids against eager ones under bf16: at most
 # this share of tokens may differ (a product summed in another order, should
 # cuBLAS pick another kernel on the capture stream, moves a logit by a bf16
@@ -194,6 +217,34 @@ BF16_TOKEN_SHARE = 0.01
 # phases 5, 6 and 9: replays of the pretrain and warmup steps against as
 # many eager steps from one saved state, float32, dropout on
 STEP_REPLAYS = 6
+# phases 5, 6, 9 and 11: each validation pass, graphed and eager, this many
+# times over the same dev batches
+VAL_PASSES = 3
+# phase 11: the JAX package's 16k yelp smoke (RESULTS.md:1103-1110: vocab,
+# w2v, pretrain, warmup --warmup_epochs 10, then run, which chains optimize
+# (10 epochs), infer, eval-prepare and eval), held to the JAX package's scores
+# on that recipe under its default RNG (rng_impl="rbg",
+# consistent__style_transfer_tpu/config.py:75): RESULTS.md:315
+FULL_RUN_WARMUP_EPOCHS, FULL_RUN_VER = 10, "v_full"
+FULL_RUN_JAX = {"STI": 0.996, "CP": 0.282, "NT": 0.159, "ACC": 0.979, "selfBLEU": 20.3,
+                "refBLEU": 9.59}
+# the band's half-widths, from the JAX package's own run-to-run spread on this
+# recipe: the two threefry 16k runs (RESULTS.md:314 against :516) moved STI
+# 0.008, CP 0.001, NT 0.013, self-BLEU 0.4; float32 against bf16 cp_base
+# (:516 against :639-641) STI 0.016, NT 0.009; the 270k threefry/rbg pair
+# that RESULTS.md calls noise (:313 against :312) NT 0.042, self-BLEU 1.7,
+# ref-BLEU 0.91. NT, the noisiest score, gets twice its largest spread
+# (the port gave 0.130-0.228 over seeds 0 and 1 on an NVIDIA H100 80GB HBM3
+# at 700.00 W)
+FULL_RUN_BAND = {"STI": 0.03, "ACC": 0.03, "CP": 0.03, "NT": 0.08, "selfBLEU": 2.5,
+                 "refBLEU": 1.0}
+# printed beside the scores, unchecked: the same recipe's rows from before
+# rbg became the JAX package's default
+FULL_RUN_THREEFRY = {
+    "RESULTS.md:314 (16k smoke, threefry)": {"STI": 0.976, "CP": 0.514, "NT": 0.149,
+                                             "ACC": 0.971, "selfBLEU": 9.5},
+    "RESULTS.md:516 (cp_base, threefry, warmup 40, float32)": {
+        "STI": 0.984, "CP": 0.515, "NT": 0.136, "ACC": 0.973, "selfBLEU": 9.9}}
 # the host's CUDA runtime calls that put work on the card, as the profiler
 # names them
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -232,6 +283,8 @@ def graph_ms(fn, calls: int = 50, replays: int = 10) -> float:
     by the card."""
     import torch
 
+    from consistent__style_transfer_torch.train.graphs import gc_paused
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graphs asks
@@ -239,7 +292,7 @@ def graph_ms(fn, calls: int = 50, replays: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -539,13 +592,15 @@ def graph_nodes_per_call(fn) -> int:
     libcuda's cuGraphGetNodes."""
     import torch
 
+    from consistent__style_transfer_torch.train.graphs import gc_paused
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         fn()
     return graph_nodes(graph)
 
@@ -671,15 +726,148 @@ def watch_graphs():
         graphs.GraphedStep = real
 
 
-def check_replayed(made: list, keys: list, calls: int, what: str) -> dict:
-    """One GraphedStep with the graphs of ``keys`` that replayed every call
-    but the first of each branch."""
-    check(len(made) == 1, f"{what}: {len(made)} graphed steps, want 1")
-    got = sorted(made[0].graphs, key=str)
+def check_replayed(made: list, keys: list, calls: int, what: str, steps: int = 1,
+                   index: int = 0) -> dict:
+    """``steps`` GraphedSteps were made; the one at ``index`` (a stage makes
+    its train step's first, then its eval step's) has the graphs of
+    ``keys`` and replayed every call but the first of each branch."""
+    check(len(made) == steps, f"{what}: {len(made)} graphed steps, want {steps}")
+    got = sorted(made[index].graphs, key=str)
     check(got == sorted(keys, key=str), f"{what}: graphs of {got}, want {keys}")
     want = calls - len(keys)
-    check(made[0].replays == want, f"{what}: {made[0].replays} replays, want {want}")
-    return {"graphs": [str(k) for k in got], "replays": made[0].replays, "calls": calls}
+    check(made[index].replays == want, f"{what}: {made[index].replays} replays, want {want}")
+    return {"graphs": [str(k) for k in got], "replays": made[index].replays, "calls": calls}
+
+
+def validation_passes(cfg, stage: str, device, passes: int = VAL_PASSES) -> dict:
+    """The validation of ``stage`` (pretrain, warmup or optimize) over the
+    yelp dev split, through ``train/loop.py::validate`` with the stage's
+    eval step in ``cfg.dtype`` on the weights in ``cfg``'s dump dir: a
+    ``GraphedStep`` of the step (its first call captures, every later call
+    replays) against the eager step, ``passes`` passes each over the same dev
+    batches (collated once, so pretrain's WMD labels are made once). Per
+    branch: every pass's losses, whether they are equal, ms per pass on the
+    host clock, and the profiler's device ms, device operations, host calls
+    and idle share of one pass each way. Pretrain runs every tower, then the
+    matcher frozen, its inputs left out (a second graph)."""
+    import torch
+
+    from consistent__style_transfer_torch.data.pipeline import make_batches
+    from consistent__style_transfer_torch.data.wmd_labels import SinkhornWmdLabeler
+    from consistent__style_transfer_torch.models.generator import sched_coins
+    from consistent__style_transfer_torch.train.common import (build_classifier, build_generator,
+                                                               build_lm, build_matcher,
+                                                               compute_dtype, get_corpus,
+                                                               get_tokenizer, get_w2v)
+    from consistent__style_transfer_torch.train.graphs import GraphedStep
+    from consistent__style_transfer_torch.train.loop import validate
+    from consistent__style_transfer_torch.train.optimize import (VAL_INPUTS, OptimizeModels,
+                                                                 load_frozen,
+                                                                 load_generator_params,
+                                                                 make_optimize_steps)
+    from consistent__style_transfer_torch.train.pretrain import make_pretrain_steps, step_inputs
+    from consistent__style_transfer_torch.train.state import AdamWithClip
+    from consistent__style_transfer_torch.train.warmup import (EVAL_INPUTS, EVAL_SEED_OFFSET,
+                                                               make_warmup_steps,
+                                                               warmup_ckpt_name)
+
+    tokenizer = get_tokenizer(cfg)
+    V, L, dtype = len(tokenizer), cfg.max_len, compute_dtype(cfg)
+    dev = get_corpus(cfg, "dev", tokenizer)
+    if stage == "pretrain":
+        labeler = SinkhornWmdLabeler(get_w2v(cfg, tokenizer), tokenizer,
+                                     max_atoms=L + L // 2, device=device)
+        batches = list(make_batches(dev, cfg.batch_size, L, "pretrain", shuffle=False,
+                                    seed=cfg.seed, wmd_labeler=labeler))
+        towers = {"cls": build_classifier(cfg, V, device), "mat": build_matcher(cfg, V, device),
+                  "dn": build_lm(cfg, V, device)}
+        for t, m in towers.items():
+            m.load_state_dict(torch.load(os.path.join(cfg.ds_dump_dir, "pretrain", f"{t}.pth"),
+                                         map_location=device, weights_only=True), strict=True)
+        _, eval_step = make_pretrain_steps(towers, AdamWithClip(
+            [p for m in towers.values() for p in m.parameters()], cfg.pretrain_lr,
+            cfg.pretrain_clip), autocast_dtype=None if dtype == torch.float32 else dtype)
+
+        def fn(inputs, flags):
+            return list(eval_step(inputs, flags).values())
+
+        branches = [(f, dict(shard=False, key=f, inputs=(*step_inputs(f), "row_mask")))
+                    for f in ((True, True, True), (True, False, True))]
+    elif stage == "warmup":
+        batches = list(make_batches(dev, cfg.warmup_batch_size, L, "warmup", shuffle=False,
+                                    seed=cfg.seed))
+        model = build_generator(cfg, V, device, training=True)
+        model.load_state_dict(torch.load(os.path.join(cfg.ds_dump_dir, "warmup",
+                                                      warmup_ckpt_name(cfg)),
+                                         map_location=device, weights_only=True), strict=True)
+        _, eval_step = make_warmup_steps(model, AdamWithClip(model.parameters(), cfg.warmup_lr,
+                                                             cfg.warmup_clip), dtype)
+        coins = sched_coins(L, torch.Generator(device).manual_seed(cfg.seed + EVAL_SEED_OFFSET),
+                            device)
+
+        def fn(inputs, _):
+            return [eval_step(inputs, inputs["coins"])]
+
+        branches = [(None, dict(inputs=EVAL_INPUTS, static={"coins": coins}))]
+    else:
+        batches = list(make_batches(dev, cfg.batch_size, L, "optimize", shuffle=False,
+                                    seed=cfg.seed))
+        models = OptimizeModels(cfg, V, device)
+        load_frozen(cfg, models)
+        load_generator_params(cfg, models.generator)
+        steps = make_optimize_steps(
+            cfg, models, AdamWithClip(models.generator.parameters(), cfg.optimize_lr, 1.0),
+            AdamWithClip(models.disc.parameters(), cfg.optimize_lr, 1.0))
+
+        def fn(inputs, _):
+            return [steps.val_step(inputs)]
+
+        branches = [(None, dict(inputs=VAL_INPUTS))]
+
+    graphed = GraphedStep(fn)
+    out = {"stage": stage, "backbone": cfg.backbone, "dtype": cfg.dtype, "batches": len(batches),
+           "passes": passes, "branches": {}}
+    for key, kw in branches:
+        def run(runner):
+            return validate(batches, runner, device, **kw)  # noqa: B023
+
+        run(graphed)  # the eager first call and the capture, then replays
+        rows, losses = {}, {}
+        for name, runner in (("eager", fn), ("graphed", graphed)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[name] = [run(runner) for _ in range(passes)]  # each ends in a read
+            ms = (time.perf_counter() - t0) * 1e3 / passes
+            prof = profile_breakdown(lambda: run(runner), batches=1)  # noqa: B023
+            device_ms = prof.get("device_ms_per_batch")
+            rows[name] = {"ms_per_pass": ms, "device_ms_per_pass": device_ms,
+                          "device_idle_share": (1 - device_ms / ms)
+                          if isinstance(device_ms, float) else "not measured",
+                          "device_ops_per_pass": prof.get("kernels_per_batch", "not measured"),
+                          "host_calls_per_pass": prof.get("host_calls_per_batch",
+                                                          "not measured"),
+                          "losses": losses[name][0]}
+        every = losses["eager"] + losses["graphed"]
+        rel = max(abs(a - b) / max(abs(b), 1e-6) for p in every for a, b in zip(p, every[0]))
+        out["branches"][str(key)] = {**rows, "losses_equal": all(p == every[0] for p in every),
+                                     "loss_max_rel_diff": rel,
+                                     "finite": all(math.isfinite(v) for v in every[0])}
+    out["graphs"] = [str(k) for k in graphed.graphs]
+    out["replays"] = graphed.replays
+    # per branch: the capturing pass, the timed passes and the profiled one
+    want = len(branches) * ((passes + 2) * len(batches) - 1)
+    check(graphed.replays == want, f"{stage} validation: {graphed.replays} graph replays, "
+          f"want {want}")
+    return out
+
+
+def check_validation_equal(v: dict) -> None:
+    """Every pass of every branch finite, graphed and eager losses equal
+    (float32: the same kernels in the same order)."""
+    for key, b in v["branches"].items():
+        check(b["finite"], f"{v['stage']} validation {key}: non-finite losses")
+        check(b["losses_equal"], f"{v['stage']} validation {key}: graphed losses "
+              f"{b['graphed']['losses']} against eager {b['eager']['losses']}")
 
 
 def phase_serve_and_infer(work: str) -> dict:
@@ -1071,7 +1259,12 @@ def phase_pretrain(work: str, card: str) -> dict:
     epoch = [e for e in events if "train_steps" in e][-1]
     check(epoch["train_steps"] == n_train // B, f"trained {epoch['train_steps']} steps")
     ms_per_step = epoch["train_s"] * 1e3 / epoch["train_steps"]
-    cli_graphs = check_replayed(made, [(True, True, True)], epoch["train_steps"], "pretrain")
+    cli_graphs = check_replayed(made, [(True, True, True)], epoch["train_steps"], "pretrain",
+                                steps=2)
+    # its validation: every dev batch a replay of the eval step's graph but the first
+    check(epoch["val_s"] > 0, f"pretrain logged val_s {epoch.get('val_s')}")
+    cli_val_graphs = check_replayed(made, [(True, True, True)], -(-n_dev // B),
+                                    "pretrain validation", steps=2, index=1)
 
     # the Sinkhorn on one real label batch (after the counts were read)
     labeler = SinkhornWmdLabeler(get_w2v(cfg, tokenizer), tokenizer, max_atoms=L + L // 2,
@@ -1225,6 +1418,11 @@ def phase_pretrain(work: str, card: str) -> dict:
     del towers, opt, runner, fixed
     print(json.dumps({"pretrain_replay_vs_eager": replay}), flush=True)
     check_replays(replay, "pretrain")
+    # validation passes, graphed against eager, float32, across a freeze
+    val_replay = validation_passes(make_config("yelp", dtype="float32", **dirs), "pretrain",
+                                   torch.device("cuda"))
+    print(json.dumps({"pretrain_validation_replay_vs_eager": val_replay}), flush=True)
+    check_validation_equal(val_replay)
     result = {"card": card, "dtype": "bfloat16 autocast, float32 parameters", "V": V, "L": L,
               "B": B, "scorer": "6 layers / 8 heads / d=512", "w2v_epochs": 10,
               "w2v_trainer": "native", "w2v_s": w2v_s,
@@ -1236,7 +1434,8 @@ def phase_pretrain(work: str, card: str) -> dict:
               "sinkhorn_launches": launches, "labeled_batches": labeled,
               "sinkhorn_label_batch": real, "device_idle_share": idle,
               "profile_per_step": breakdown, "graphed": graphed, "cli_graphs": cli_graphs,
-              "replay_vs_eager": replay,
+              "replay_vs_eager": replay, "cli_validation_graphs": cli_val_graphs,
+              "validation_replay_vs_eager": val_replay,
               "speedup_host": steady_ms / graphed["ms_per_step_steady"],
               "val": {k: v for k, v in epoch.items() if k.startswith("val")}}
     print(json.dumps({"pretrain": result}), flush=True)
@@ -1403,10 +1602,15 @@ def phase_training(work: str, card: str) -> dict:
     warm_epoch = [e for e in events if "train_steps" in e][-1]
     want = n_train // cfg.warmup_batch_size
     check(warm_epoch["train_steps"] == want, f"warmup: {warm_epoch['train_steps']} steps, want {want}")
-    warm_graphs = check_replayed(made, [None], want, "warmup")
+    warm_graphs = check_replayed(made, [None], want, "warmup", steps=2)
+    n_dev = count_lines(cfg.split_files("dev"))
+    check(warm_epoch["val_s"] > 0, f"warmup logged val_s {warm_epoch.get('val_s')}")
+    warm_val_graphs = check_replayed(made, [None], -(-n_dev // cfg.warmup_batch_size),
+                                     "warmup validation", steps=2, index=1)
 
-    # 2. optimize, one epoch instead of ten (a stated reduction)
-    head, optimize_s = launches_during(["optimize", *flags, "--epochs", "1"])
+    # 2. optimize, one epoch instead of ten (a stated reduction); its fused
+    # step is GraphedFusedStep, its validation a graph through step_runner
+    head, optimize_s = launches_during(["optimize", *flags, "--epochs", "1"], made)
     check(head == 0, f"optimize launched the decode head {head} times")
     best = os.path.join(task, "G_epoch_0.pth")
     load_strict(best)
@@ -1418,6 +1622,9 @@ def phase_training(work: str, card: str) -> dict:
     check(opt_epoch["train_steps"] == want, f"optimize: {opt_epoch['train_steps']} steps, want {want}")
     want = math.ceil(want / cfg.d_update_every)
     check(opt_epoch["d_applies"] == want, f"optimize: D applied {opt_epoch['d_applies']}, want {want}")
+    check(opt_epoch["val_s"] > 0, f"optimize logged val_s {opt_epoch.get('val_s')}")
+    opt_val_graphs = check_replayed(made, [None], -(-n_dev // cfg.batch_size),
+                                    "optimize validation")
 
     # 3. infer from the checkpoint optimize wrote
     check(newest_checkpoint(task) == best, f"infer would read {newest_checkpoint(task)}")
@@ -1488,6 +1695,15 @@ def phase_training(work: str, card: str) -> dict:
         batches.close()
     check(fused_decode_logits.launches == infer_launches and sinkhorn_cuda.launches == 0,
           "a training step launched a kernel")
+    del models, steps, acc
+
+    # validation passes, graphed against eager, float32, from these dumps
+    f32 = make_config("yelp", dtype="float32", **dirs)
+    val_replay = {stage: validation_passes(f32, stage, device) for stage in ("warmup", "optimize")}
+    print(json.dumps({"training_validation_replay_vs_eager": val_replay}), flush=True)
+    for v in val_replay.values():
+        check_validation_equal(v)
+    check(fused_decode_logits.launches == infer_launches, "validation launched the decode head")
 
     def rates(epoch, steady, batch_size):
         ms_epoch = epoch["train_s"] * 1e3 / epoch["train_steps"]
@@ -1502,9 +1718,13 @@ def phase_training(work: str, card: str) -> dict:
                          "speedup_host": warm_steady["ms_per_step_steady"]
                          / warm_graphed["ms_per_step_steady"],
                          "replay_vs_eager": warm_replay,
+                         "cli_validation_graphs": warm_val_graphs, "val_s": warm_epoch["val_s"],
+                         "validation_replay_vs_eager": val_replay["warmup"],
                          "losses": warm_losses, "decode_head_launches": 0},
               "optimize": {"cli_s": optimize_s, "epochs": 1, "d_applies": opt_epoch["d_applies"],
                            **rates(opt_epoch, opt_steady, cfg.batch_size),
+                           "cli_validation_graphs": opt_val_graphs, "val_s": opt_epoch["val_s"],
+                           "validation_replay_vs_eager": val_replay["optimize"],
                            "losses": opt_losses, "decode_head_launches": 0},
               "infer": {"s": infer_s, "batches": infer_batches, "graphs": infer_graphs,
                         "decode_head_launches": infer_launches}}
@@ -1516,8 +1736,8 @@ def phase_training(work: str, card: str) -> dict:
 def phase_eval(work: str, card: str) -> dict:
     """``eval-prepare`` and ``eval`` through the CLI on phase 6's ``.tsf``
     files, the card's fastText fit against a CPU fit from the same seed, the
-    fit's device time and kernels per epoch, the sequential path's cost an
-    example, then ``run --epochs 1`` under a new version."""
+    fit's device time and kernels per epoch, and the sequential path's cost
+    an example. Phase 11's ``run`` drives the chain of stages."""
     import ast
 
     import numpy as np
@@ -1672,26 +1892,6 @@ def phase_eval(work: str, card: str) -> dict:
                                               else "not measured"),
     }
 
-    # 5. run --epochs 1 under a new version: optimize, infer, eval-prepare
-    # (only the new version's adversarial LR), eval, and the results file
-    ver = "v_run"
-    lines, run_s, head, sink = cli_run(["run", *flags, "--epochs", "1", "--ver", ver])
-    check(sink == 0, "run launched the Sinkhorn")
-    infer_batches = sum(-(-count_lines(cfg.split_files(s)) // cfg.batch_size)
-                        for s in ("train", "test"))
-    check(head == cfg.max_len * infer_batches > 0,
-          f"run: {head} decode-head launches, want {cfg.max_len} x {infer_batches}")
-    results_path = os.path.join(cfg.out_dir, f"{cfg.dataset}-{ver}.txt")
-    check(os.path.exists(results_path), f"missing {results_path}")
-    with open(results_path, encoding="utf-8") as f:
-        written = f.read()
-    for label in ("STI (higher is better)", "CP (lower is better)", "NT (higher is better)"):
-        check(label in written, f"{results_path} has no {label} line")
-    run_timings = [ast.literal_eval(line.split("timings: ", 1)[1]) for line in lines
-                   if line.startswith("[prepare] timings: ")]
-    check(run_timings and set(run_timings[0]) == {"adv_lr_s"},
-          f"run's eval-prepare rebuilt more than the new version's LR: {run_timings}")
-
     result = {"card": card, "phase_s": time.perf_counter() - t_phase,
               "eval_prepare_s": prepare_s, "prepare_timings": timings,
               "mask_w2v": {"trainer": "native", "threads": default_threads(),
@@ -1702,10 +1902,7 @@ def phase_eval(work: str, card: str) -> dict:
                            "cp_rel_tol": CP_REL_TOL},
               "eval_s": eval_s, "dev_n": n_dev, "dev_p1": dev_p1, "dev_p1_floor": EVAL_P1_FLOOR,
               "fit_meta": model.fit_meta, "lexicon_words": len(lexicon), "scores": scores,
-              "fasttext": fasttext,
-              "run": {"ver": ver, "s": run_s, "decode_head_launches": head,
-                      "infer_batches": infer_batches, "prepare_timings": run_timings[0],
-                      "results": written.strip().splitlines()}}
+              "fasttext": fasttext}
     print(json.dumps({"eval": result}), flush=True)
     return result
 
@@ -1896,8 +2093,9 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     fused_decode_logits.launches = 0
     sinkhorn_cuda.launches = 0
     t0 = time.perf_counter()
-    run_cli(["optimize", *flags, "--epochs", "1", "--megastep_k", str(MEGASTEP_K),
-             "--resume", "1"])
+    with watch_graphs() as made:
+        run_cli(["optimize", *flags, "--epochs", "1", "--megastep_k", str(MEGASTEP_K),
+                 "--resume", "1"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     check(fused_decode_logits.launches == 0 and sinkhorn_cuda.launches == 0,
@@ -1910,6 +2108,10 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     check(epoch["train_steps"] == want, f"megastep: {epoch['train_steps']} steps, want {want}")
     check(epoch["d_applies"] == math.ceil(want / cfg.d_update_every),
           f"megastep: D applied {epoch['d_applies']}")
+    # its validation, whatever megastep_k groups: a graph through step_runner
+    check(epoch["val_s"] > 0, f"megastep logged val_s {epoch.get('val_s')}")
+    val_graphs = check_replayed(made, [None], -(-count_lines(cfg.split_files("dev")) // B),
+                                "megastep validation")
     state_dir = os.path.join(cfg.ds_dump_dir, f"optimize-{ver}", "full_state")
     saved = StateCheckpointer(state_dir).restore()
     check(saved is not None and saved["epoch"] == 0 and saved["step"] == want,
@@ -1983,6 +2185,7 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
               "cli": {"s": cli_s, "train_steps": epoch["train_steps"],
                       "d_applies": epoch["d_applies"],
                       "ms_per_step_epoch": epoch["train_s"] * 1e3 / epoch["train_steps"],
+                      "val_s": epoch["val_s"], "validation_graphs": val_graphs,
                       "losses": losses},
               "steady": {**graphed, "eager": eager_steady,
                          "speedup_host": eager_steady["ms_per_step_steady"]
@@ -1996,6 +2199,39 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
 
 
 # ------------------------------------------------------------------ phase 9
+def cut_corpus(src, dst) -> None:
+    """The first CUT_LINES lines of each of config ``src``'s yelp split
+    files, a style, written to config ``dst``'s data dir."""
+    os.makedirs(dst.ds_data_dir)
+    for split, keep in CUT_LINES.items():
+        for a, b in zip(src.split_files(split), dst.split_files(split)):
+            with open(a, encoding="utf-8") as f:
+                lines = f.readlines()
+            with open(b, "w", encoding="utf-8") as f:
+                f.writelines(lines[:keep])
+
+
+def beam_graphed_vs_eager(model, x, labels, K: int) -> dict:
+    """The beam of ``model`` in float32 through ``make_transfer_step``'s
+    runner (the eager first call and the capture, then a replay) against
+    ``beam_decode_any`` on the same batch: ids and scores equal."""
+    import torch
+
+    from consistent__style_transfer_torch.models.beam import beam_decode_any
+    from consistent__style_transfer_torch.train.infer import make_transfer_step
+
+    step = make_transfer_step(model, K)
+    for _ in range(2):
+        ids, scores = (t.clone() for t in step.runner({"x": x, "labels": labels},
+                                                      tuple(x.shape)))
+    want_ids, want_scores = beam_decode_any(model, x, labels, 1 - labels, beam_size=K)
+    check(step.runner.replays == 1, f"beam: {step.runner.replays} replays, want 1")
+    check(torch.equal(ids, want_ids), "float32 beam: graphed ids differ from eager ones")
+    check(torch.equal(scores, want_scores), "float32 beam: graphed scores differ from eager ones")
+    return {"B": x.shape[0], "beam_size": K, "dtype": "float32", "replays": 1,
+            "ids_equal": True, "scores_equal": True}
+
+
 def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     """Beam decode and the transformer backbone at full width:
     1. the LSTM's stateful beam (K=4) at the yelp serving shape (V=10000,
@@ -2004,8 +2240,9 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
        ``greedy_full``), device ms and idle share; the card's float32 beam
        ids and scores against the CPU's on a few sentences; then ``serve``
        and ``infer`` with ``--beam_size 4`` through the CLI on phase 6's G;
-    2. the transformer (T5-small widths, float32 compute) on the committed
-       yelp corpus, on phase 3's BPE dump and phase 5's scorers: ``warmup
+    2. the transformer (T5-small widths, float32 compute), its CLI
+       commands on the first CUT_LINES lines of each yelp split file (a cut
+       of depth), on phase 3's BPE dump and phase 5's scorers: ``warmup
        --backbone transformer`` (one epoch, B=512), ``optimize --backbone
        transformer --epochs 1`` (B=256, the graphed fused step), ``infer``
        greedy through the CLI, and the beam of 4 on the test split: the
@@ -2095,14 +2332,30 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     ids, greedy_launches, greedy = batch_rate(make_transfer_step(lstm), x, labels, 10)
     check(greedy_launches == YELP_L * 10, f"greedy: {greedy_launches} decode-head launches")
     result["greedy_beside_beam_launches"] = greedy_launches
-    ids, beam_launches, beam = batch_rate(make_transfer_step(lstm, K), x, labels, 10)
+    # the beam as the transfer step runs it (a CUDA graph replay), beside
+    # the eager beam on the same batch
+    beam_step = make_transfer_step(lstm, K)
+    ids, beam_launches, beam = batch_rate(beam_step, x, labels, 10)
     check(beam_launches == 0, f"the LSTM beam launched the decode head {beam_launches} times")
     check(ids.shape == (YELP_B, YELP_L) and ids.dtype == torch.int32
           and bool(((ids >= 0) & (ids < YELP_V)).all()), "LSTM beam ids shape/range")
+    check(beam_step.runner.replays >= 10, "the LSTM beam did not replay its graph")
+    beam["graph_nodes"] = graph_nodes(beam_step.runner.graphs[tuple(x.shape)])
+
+    def eager_beam(x, labels):
+        return beam_decode_any(lstm, x, labels, 1 - labels, beam_size=K)[0]
+
+    _, eager_launches, beam_eager = batch_rate(eager_beam, x, labels, 10)
+    check(eager_launches == 0, "the eager LSTM beam launched the decode head")
+    apart = float((beam_step(x, labels) != eager_beam(x, labels)).float().mean())
+    check(apart <= BF16_TOKEN_SHARE, f"bf16 LSTM beam: graphed ids {apart} apart from eager")
     result["lstm_yelp_shape"] = {
         "V": YELP_V, "L": YELP_L, "B": YELP_B, "dtype": "bfloat16", "beam": beam,
+        "beam_eager": beam_eager, "beam_graphed_vs_eager_token_share": apart,
+        "beam_speedup_host": beam_eager["ms_per_batch"] / beam["ms_per_batch"],
         "greedy_same_call": greedy, "greedy_phase_4_ms_per_batch": greedy_full["ms_per_batch"],
         "beam_over_greedy_ms": beam["ms_per_batch"] / greedy["ms_per_batch"]}
+    del beam_step
 
     # 1b. float32 beam, card against CPU, a few sentences
     f32 = DenoiseSeq2Seq(n_vocab=YELP_V, n_class=2, max_len=YELP_L, seed=0).eval()
@@ -2116,6 +2369,8 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     check(score_err <= BEAM_SCORE_TOL, f"f32 LSTM beam scores {score_err} apart")
     result["lstm_f32_card_vs_cpu"] = {"sentences": BEAM_CHECK_N, "ids_equal": True,
                                       "score_max_abs_diff": score_err, "tolerance": BEAM_SCORE_TOL}
+    # float32 at the full batch: graph replays against the eager beam
+    result["lstm_f32_graphed_vs_eager"] = beam_graphed_vs_eager(f32, x, labels, K)
     del lstm, f32
 
     # 1c. serve and infer --beam_size 4 through the CLI on phase 6's G
@@ -2157,10 +2412,13 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
                           "infer_sent_per_s": n_infer / infer_s, "decode_head_launches": 0}
     print(json.dumps({"beam_lstm": result}), flush=True)
 
-    # 2. the transformer backbone
+    # 2. the transformer backbone, its CLI commands on the cut corpus
     ver = "v_tf"
-    tf_flags = flags + ["--backbone", "transformer", "--ver", ver]
-    tcfg = make_config("yelp", backbone="transformer", ver=ver, **dirs)
+    tdirs = dict(dirs, data_dir=os.path.join(work, "tf_data"))
+    tf_flags = [a for k, v in tdirs.items() for a in (f"--{k}", v)] + [
+        "--backbone", "transformer", "--ver", ver]
+    tcfg = make_config("yelp", backbone="transformer", ver=ver, **tdirs)
+    cut_corpus(cfg, tcfg)
     n_train = count_lines(tcfg.train_files())
 
     def load_strict(path):
@@ -2191,7 +2449,10 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     warm_epoch = [e for e in events if "train_steps" in e][-1]
     want = n_train // tcfg.warmup_batch_size
     check(warm_epoch["train_steps"] == want, f"transformer warmup: {warm_epoch['train_steps']}")
-    warm_graphs = check_replayed(made, [None], want, "transformer warmup")
+    warm_graphs = check_replayed(made, [None], want, "transformer warmup", steps=2)
+    warm_val_graphs = check_replayed(made, [None], -(-count_lines(tcfg.split_files("dev"))
+                                                    // tcfg.warmup_batch_size),
+                                     "transformer warmup validation", steps=2, index=1)
 
     opt_s = cli_timed(["optimize", *tf_flags, "--epochs", "1"])
     task = os.path.join(tcfg.ds_dump_dir, f"optimize-{ver}")
@@ -2246,7 +2507,14 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     _, _, tf_greedy_eager = batch_rate(eager_greedy, bx, bl, 5)
     check(torch.equal(graphed_greedy(bx, bl), eager_greedy(bx, bl)),
           "transformer graphed greedy ids differ from eager ones")
-    _, _, tf_beam = batch_rate(make_transfer_step(model, K), bx, bl, 2)
+    tf_beam_step = make_transfer_step(model, K)
+    _, _, tf_beam = batch_rate(tf_beam_step, bx, bl, 2)
+    tf_beam["graph_nodes"] = graph_nodes(tf_beam_step.runner.graphs[tuple(bx.shape)])
+    del tf_beam_step
+    _, _, tf_beam_eager = batch_rate(
+        lambda x, labels: beam_decode_any(model, x, labels, 1 - labels, beam_size=K)[0],
+        bx, bl, 1)
+    tf_beam_replay = beam_graphed_vs_eager(model, bx, bl, K)
     check(fused_decode_logits.launches == 0, "the transformer launched the decode head")
     enc = [tokenizer.encode(r.split("\t", 1)[1])[:L] for r in requests[::125]]
     xs, _ = align(enc, 0, L)
@@ -2281,7 +2549,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
         gens = (torch.Generator(device).manual_seed(1), torch.Generator(device).manual_seed(2))
         return models, steps, opts, acc, gens
 
-    train_corpus = get_corpus(tcfg, "train", tokenizer)
+    train_corpus = get_corpus(make_config("yelp", **dirs), "train", tokenizer)
 
     def stream(stage, batch_size):
         return iter(DevicePrefetcher(make_batches(train_corpus, batch_size, L, stage,
@@ -2384,7 +2652,8 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
                    "losses": warm_losses, **warm_steady, "graphed": warm_graphed,
                    "speedup_host": warm_steady["ms_per_step_steady"]
                    / warm_graphed["ms_per_step_steady"],
-                   "cli_graphs": warm_graphs, "replay_vs_eager": warm_replay},
+                   "cli_graphs": warm_graphs, "replay_vs_eager": warm_replay,
+                   "val_s": warm_epoch["val_s"], "cli_validation_graphs": warm_val_graphs},
         "optimize": {"cli_s": opt_s, "train_steps": opt_epoch["train_steps"],
                      "d_applies": opt_epoch["d_applies"], "batch_size": tcfg.batch_size,
                      "ms_per_step_epoch_graphed": opt_epoch["train_s"] * 1e3
@@ -2397,7 +2666,9 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
                             "sent_per_s": n_test / beam_test_s},
         "greedy_batch": tf_greedy, "greedy_batch_eager": tf_greedy_eager,
         "greedy_speedup_host": tf_greedy_eager["ms_per_batch"] / tf_greedy["ms_per_batch"],
-        "beam_batch": tf_beam,
+        "beam_batch": tf_beam, "beam_batch_eager": tf_beam_eager,
+        "beam_speedup_host": tf_beam_eager["ms_per_batch"] / tf_beam["ms_per_batch"],
+        "beam_graphed_vs_eager": tf_beam_replay,
         "f32_card_vs_cpu": {"greedy_sentences": len(enc), "beam_sentences": 2,
                             "ids_equal": True, "beam_score_max_abs_diff": tf_score_err},
         "decode_head_launches": 0}
@@ -2410,9 +2681,6 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
 # ------------------------------------------------------------------ phase 10
 LAUNCHER_STEPS = 9  # graphed optimize steps a side: D applies at 0, 4 and 8
 PRE_WARM_STEPS = 3  # warmup and pretrain steps a side
-# the launcher's commands run on the first lines of each yelp split file, a
-# style: 2,000 of 16,000 train, 500 of 2,000 dev, all 500 test
-LAUNCH_LINES = {"train": 2000, "dev": 500, "test": None}
 
 
 def free_port() -> int:
@@ -2449,7 +2717,7 @@ def phase_launcher(work: str, card: str) -> dict:
     2. ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
        consistent__style_transfer_torch`` ``pretrain``, ``warmup``,
        ``optimize`` (one epoch each) and ``infer`` in a fresh dump dir (phase
-       3's BPE and phase 5's word2vec copied in) on the first LAUNCH_LINES
+       3's BPE and phase 5's word2vec copied in) on the first CUT_LINES
        lines of each yelp split file: finite logged losses, one step a
        batch, D's cadence, the child's own Sinkhorn launches (one a labeled
        batch) and decode-head launches (18 a batch) from its
@@ -2659,19 +2927,13 @@ def phase_launcher(work: str, card: str) -> dict:
               f"{key}: steps with the group differ from those without: {e}")
 
     # 2. the commands under the launcher, in a fresh dump dir, on the first
-    # LAUNCH_LINES lines of each yelp split file (a cut of depth)
+    # CUT_LINES lines of each yelp split file (a cut of depth)
     fresh = dict(dirs, data_dir=os.path.join(work, "launch_data"),
                  dump_dir=os.path.join(work, "launch_dump"),
                  out_dir=os.path.join(work, "launch_output"),
                  log_dir=os.path.join(work, "launch_log"))
     lcfg = make_config("yelp", **fresh)
-    os.makedirs(lcfg.ds_data_dir)
-    for split, keep in LAUNCH_LINES.items():
-        for src, dst in zip(cfg.split_files(split), lcfg.split_files(split)):
-            with open(src, encoding="utf-8") as f:
-                lines = f.readlines()
-            with open(dst, "w", encoding="utf-8") as f:
-                f.writelines(lines[:keep])
+    cut_corpus(cfg, lcfg)
     os.makedirs(lcfg.ds_dump_dir)
     for path in (*cfg.vocab_paths, cfg.w2v_path):  # phase 3's BPE, phase 5's word2vec
         shutil.copy(path, lcfg.ds_dump_dir)
@@ -2768,6 +3030,194 @@ def phase_launcher(work: str, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 11
+def phase_full_run(work: str, card: str) -> dict:
+    """The JAX package's 16k yelp smoke (``RESULTS.md:1103-1110``) end to end
+    on the port, held to the JAX package's scores on that recipe under its
+    default RNG (``RESULTS.md:315``, ``FULL_RUN_BAND``): on the committed
+    yelp corpus, bf16, seed 0 and the port's defaults (equal to the JAX
+    package's), in a fresh dump dir, ``pretrain`` (the preset's 10 epochs,
+    patience 1), ``warmup --warmup_epochs 10``, then ``run`` (optimize, its
+    10 epochs and patience 3, ``infer``, ``eval-prepare``, ``eval``). The
+    BPE and the word2vec are phase 3's and phase 5's, which ``vocab`` and
+    ``w2v`` write for this configuration; the eval runtime's classifier,
+    lexicon and masked word2vec (functions of the corpus alone) are phase
+    7's, so ``eval-prepare`` fits this version's adversarial LR. Checked:
+    finite logged losses, the Sinkhorn once a labeled batch and the decode
+    head 18 times a batch of the infer, every train step and dev batch a
+    graph replay but the first of each branch, and the six scores inside
+    the band. Printed: the epochs each stage ran, its epoch seconds after
+    the first, its validation seconds (graphed), the prepare timings, and
+    the three validation passes, graphed against eager, on the trained
+    weights in bf16."""
+    import ast
+
+    import torch
+
+    from consistent__style_transfer_torch import cli
+    from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.evaluate.run_eval import run_eval
+    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
+    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
+    from consistent__style_transfer_torch.train.common import get_tokenizer
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as a fresh process has it
+    base = os.path.join(work, "full_run")
+    dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(base, "dump"),
+                out_dir=os.path.join(base, "output"), log_dir=os.path.join(base, "log"))
+    flags = [a for k, v in dirs.items() for a in (f"--{k}", v)] + ["--ver", FULL_RUN_VER]
+    cfg = make_config("yelp", ver=FULL_RUN_VER, **dirs)
+    src = make_config("yelp", dump_dir=os.path.join(work, "dump"),
+                      out_dir=os.path.join(work, "output"))
+    os.makedirs(cfg.ds_dump_dir)
+    for path in (*src.vocab_paths, src.w2v_path):
+        shutil.copy(path, cfg.ds_dump_dir)
+    shutil.copytree(cli._eval_dir(src), cli._eval_dir(cfg),
+                    ignore=shutil.ignore_patterns("adv_models"))
+    B, L, device = cfg.batch_size, cfg.max_len, torch.device(cfg.device)
+    n_train, n_dev = count_lines(cfg.train_files()), count_lines(cfg.split_files("dev"))
+    dev_batches = -(-n_dev // B)
+
+    def stage(argv):
+        fused_decode_logits.launches = 0
+        sinkhorn_cuda.launches = 0
+        t0 = time.perf_counter()
+        with watch_graphs() as made:
+            lines = run_cli(argv)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        log(f"phase 11: {argv[0]} in {s:.1f} s")
+        return lines, s, made, fused_decode_logits.launches, sinkhorn_cuda.launches
+
+    def epochs_of(events):
+        return [e for e in events if "train_steps" in e]
+
+    def seconds(epochs):
+        return {"train_s": [e["train_s"] for e in epochs], "val_s": [e["val_s"] for e in epochs],
+                "train_s_after_first": [e["train_s"] for e in epochs[1:]],
+                "val_s_after_first": [e["val_s"] for e in epochs[1:]]}
+
+    # 1. pretrain: the preset's epochs, freeze-on-plateau per tower
+    _, pre_s, made, head, sink = stage(["pretrain", *flags])
+    pre_events = read_events(cfg, "pretrain")
+    pre_losses = check_finite_losses(pre_events, ("cls_loss", "dn_loss", "val_loss"), "pretrain")
+    pre_epochs = epochs_of(pre_events)
+    pre_flags = [tuple(math.isfinite(e[f"val_{t}"]) for t in ("cls", "mat", "dn"))
+                 for e in pre_epochs]
+    # the matcher's inputs, and so its labels, are made while it trains
+    labeled = sum(n_train // B + dev_batches for f in pre_flags if f[1])
+    check(sink == labeled, f"pretrain: {sink} Sinkhorn launches, want {labeled}")
+    check(head == 0, "pretrain launched the decode head")
+    pre_sink = sink
+    check(all(e["train_steps"] == n_train // B for e in pre_epochs), "pretrain: steps an epoch")
+    keys = sorted(set(pre_flags), key=str)
+    pre_graphs = check_replayed(made, keys, len(pre_epochs) * (n_train // B), "pretrain",
+                                steps=2)
+    pre_val_graphs = check_replayed(made, keys, len(pre_epochs) * dev_batches,
+                                    "pretrain validation", steps=2, index=1)
+
+    # 2. warmup, 10 epochs (patience 1)
+    _, warm_s, made, head, sink = stage(["warmup", *flags, "--warmup_epochs",
+                                         str(FULL_RUN_WARMUP_EPOCHS)])
+    check(head == 0 and sink == 0, "warmup launched a kernel of the port")
+    warm_events = read_events(cfg, "warmup")
+    warm_losses = check_finite_losses(warm_events, ("dn_loss", "val_loss"), "warmup")
+    warm_epochs = epochs_of(warm_events)
+    warm_steps = n_train // cfg.warmup_batch_size
+    check(all(e["train_steps"] == warm_steps for e in warm_epochs), "warmup: steps an epoch")
+    warm_graphs = check_replayed(made, [None], len(warm_epochs) * warm_steps, "warmup", steps=2)
+    warm_val_graphs = check_replayed(made, [None], len(warm_epochs)
+                                     * -(-n_dev // cfg.warmup_batch_size),
+                                     "warmup validation", steps=2, index=1)
+
+    # 3. run: optimize (10 epochs, patience 3), infer, eval-prepare, eval
+    lines, run_s, made, head, sink = stage(["run", *flags])
+    check(sink == 0, "run launched the Sinkhorn")
+    infer_batches = sum(-(-count_lines(cfg.split_files(s)) // B) for s in ("train", "test"))
+    check(head == L * infer_batches, f"run: {head} decode-head launches, want {L} x "
+          f"{infer_batches}")
+    opt_events = read_events(cfg, f"optimize-{FULL_RUN_VER}")
+    opt_losses = check_finite_losses(opt_events, ("G", "STI", "CP", "BK", "D", "loss",
+                                                  "val_loss"), "optimize")
+    opt_epochs = epochs_of(opt_events)
+    check(all(e["train_steps"] == n_train // B for e in opt_epochs), "optimize: steps an epoch")
+    # made: the optimize validation's graphed step, then the infer's
+    opt_val_graphs = check_replayed(made, [None], len(opt_epochs) * dev_batches,
+                                    "optimize validation", steps=2)
+    infer_graphs = check_replayed(made, [(B, L)], infer_batches, "infer", steps=2, index=1)
+    timings = [ast.literal_eval(line.split("timings: ", 1)[1]) for line in lines
+               if line.startswith("[prepare] timings: ")]
+    check(len(timings) == 1 and set(timings[0]) == {"adv_lr_s"},
+          f"run's eval-prepare rebuilt more than this version's LR: {timings}")
+    results_path = os.path.join(cfg.out_dir, f"{cfg.dataset}-{FULL_RUN_VER}.txt")
+    check(os.path.exists(results_path), f"missing {results_path}")
+    with open(results_path, encoding="utf-8") as f:
+        written = f.read()
+    for label in ("STI (higher is better)", "CP (lower is better)", "NT (higher is better)"):
+        check(label in written, f"{results_path} has no {label} line")
+    scores = run_eval(cfg.ds_data_dir, cfg.run_out_dir, cli._eval_dir(cfg), cfg.dataset,
+                      cfg.ver, quiet=True)
+    epochs_run = {"pretrain": len(pre_epochs), "warmup": len(warm_epochs),
+                  "optimize": len(opt_epochs)}
+    log(f"phase 11: epochs run: {epochs_run} (configured: pretrain {cfg.epochs}, warmup "
+        f"{FULL_RUN_WARMUP_EPOCHS}, optimize {cfg.epochs})")
+
+    # the band around the JAX package's default-RNG row; the threefry rows
+    # beside it, unchecked
+    band = {k: [FULL_RUN_JAX[k] - w, FULL_RUN_JAX[k] + w] for k, w in FULL_RUN_BAND.items()}
+    outside = [k for k, (lo, hi) in band.items() if not lo <= scores[k] <= hi]
+    for k, (lo, hi) in band.items():
+        print(f"phase 11 {k}: {scores[k]} band [{lo}, {hi}] around the JAX package's "
+              f"{FULL_RUN_JAX[k]} (RESULTS.md:315) {'OUTSIDE' if k in outside else 'inside'}; "
+              + "; ".join(f"{src}: {row.get(k, 'none')}" for src, row in
+                          FULL_RUN_THREEFRY.items()), flush=True)
+
+    # the three validation passes on the trained weights, in the run's bf16
+    val_passes = {s: validation_passes(cfg, s, device) for s in ("pretrain", "warmup",
+                                                                   "optimize")}
+    for v in val_passes.values():
+        for key, b in v["branches"].items():
+            check(b["finite"], f"{v['stage']} validation {key}: non-finite losses")
+            check(b["loss_max_rel_diff"] <= GRAPH_TOL["bfloat16"]["loss_rel"],
+                  f"{v['stage']} validation {key}: bf16 graphed losses "
+                  f"{b['loss_max_rel_diff']} apart")
+
+    result = {
+        "card": card, "recipe": "RESULTS.md:1103-1110 (the JAX package's 16k yelp smoke): "
+        "vocab, w2v, pretrain, warmup --warmup_epochs 10, run (optimize 10 epochs, infer, "
+        "eval-prepare, eval); patience 1 / 1 / 3",
+        "reference": {"row": "RESULTS.md:315 (16k smoke, rng_impl rbg, the JAX default)",
+                      "scores": FULL_RUN_JAX, "band_half_widths": FULL_RUN_BAND, "band": band},
+        "threefry_rows_unchecked": FULL_RUN_THREEFRY,
+        "dtype": cfg.dtype, "seed": cfg.seed, "V": len(get_tokenizer(cfg)),
+        "L": L, "B": B, "train_sentences": n_train, "dev_sentences": n_dev,
+        "dumps": "phase 3's BPE and phase 5's word2vec copied (what vocab and w2v write); "
+                 "phase 7's classifier, lexicon and masked word2vec copied",
+        "scores": scores, "outside_band": outside, "epochs_run": epochs_run,
+        "epochs_configured": {"pretrain": cfg.epochs, "warmup": FULL_RUN_WARMUP_EPOCHS,
+                              "optimize": cfg.epochs},
+        "wall_s": {"pretrain": pre_s, "warmup": warm_s, "run": run_s},
+        "pretrain": {**seconds(pre_epochs), "flags": [list(f) for f in pre_flags],
+                     "val_loss": [e["val_loss"] for e in pre_epochs], "losses": pre_losses,
+                     "sinkhorn_launches": pre_sink, "graphs": pre_graphs,
+                     "validation_graphs": pre_val_graphs},
+        "warmup": {**seconds(warm_epochs), "val_loss": [e["val_loss"] for e in warm_epochs],
+                   "losses": warm_losses, "graphs": warm_graphs,
+                   "validation_graphs": warm_val_graphs},
+        "optimize": {**seconds(opt_epochs), "val_loss": [e["val_loss"] for e in opt_epochs],
+                     "d_applies": [e["d_applies"] for e in opt_epochs], "losses": opt_losses,
+                     "validation_graphs": opt_val_graphs},
+        "infer": {"batches": infer_batches, "decode_head_launches": head,
+                  "graphs": infer_graphs},
+        "prepare_timings": timings[0], "results": written.strip().splitlines(),
+        "validation_passes_bf16": val_passes,
+        "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"full_run": result}), flush=True)
+    check(not outside, f"phase 11: {outside} outside the band: {scores}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2785,10 +3235,11 @@ def main() -> int:
         full = phase_full_width(card, timed[f"bfloat16_V{YELP_V}"]["kernel_ms"])
         pre = phase_pretrain(work, card)
         trained = phase_training(work, card)
-        evaluated = phase_eval(work, card)
+        phase_eval(work, card)
         mega = phase_megastep(work, card, trained["optimize"])
         beams = phase_beam_and_transformer(work, card, full)
         launch = phase_launcher(work, card)["launcher"]
+        full_run = phase_full_run(work, card)
 
     yelp = timed[f"bfloat16_V{YELP_V}"]
     real = pre["sinkhorn_label_batch"]
@@ -2798,9 +3249,11 @@ def main() -> int:
         "source": "consistent__style_transfer_torch/csrc/sinkhorn.cu",
         "replaces": f"consistent__style_transfer_tpu/kernels/sinkhorn.py:{line}",
         # one CUDA kernel behind both names: its launches, through either
-        "launches": pre["sinkhorn_launches"] + launch["pretrain"]["sinkhorn_launches"],
+        "launches": (pre["sinkhorn_launches"] + launch["pretrain"]["sinkhorn_launches"]
+                     + full_run["pretrain"]["sinkhorn_launches"]),
         "launches_by_path": {"pretrain": pre["sinkhorn_launches"],
-                             "pretrain_launcher": launch["pretrain"]["sinkhorn_launches"]},
+                             "pretrain_launcher": launch["pretrain"]["sinkhorn_launches"],
+                             "pretrain_full_run": full_run["pretrain"]["sinkhorn_launches"]},
         "launch_counter": "sinkhorn_cuda.launches (one kernel behind both names)",
         "launches_per_batch": 1,
         "max_abs_err": max(real["max_abs_err"], sinkhorn["max_abs_err"]),
@@ -2832,15 +3285,14 @@ def main() -> int:
         "replaces": "consistent__style_transfer_tpu/kernels/decode_step.py:73",
         "launches": (served["serve_launches"] + served["infer_launches"]
                      + trained["infer"]["decode_head_launches"]
-                     + evaluated["run"]["decode_head_launches"]
                      + mega["infer"]["decode_head_launches"]
                      + beams["greedy_beside_beam_launches"]
-                     + launch["infer"]["decode_head_launches"]),
+                     + launch["infer"]["decode_head_launches"]
+                     + full_run["infer"]["decode_head_launches"]),
         "launches_by_path": {"serve": served["serve_launches"], "infer": served["infer_launches"],
                              "warmup": 0, "optimize": 0,
                              "infer_after_optimize": trained["infer"]["decode_head_launches"],
                              "eval_prepare": 0, "eval": 0,
-                             "run": evaluated["run"]["decode_head_launches"],
                              "optimize_megastep": 0,
                              "infer_after_megastep": mega["infer"]["decode_head_launches"],
                              "serving_greedy_beside_beam": beams["greedy_beside_beam_launches"],
@@ -2849,7 +3301,10 @@ def main() -> int:
                              "infer_transformer": 0, "infer_transformer_beam": 0,
                              "pretrain_launcher": 0, "warmup_launcher": 0,
                              "optimize_launcher": 0,
-                             "infer_launcher": launch["infer"]["decode_head_launches"]},
+                             "infer_launcher": launch["infer"]["decode_head_launches"],
+                             "pretrain_full_run": 0, "warmup_full_run": 0,
+                             "optimize_full_run": 0, "validation": 0,
+                             "run_full": full_run["infer"]["decode_head_launches"]},
         "launches_per_batch": full["launches_per_batch"],
         "launch_counter": "fused_decode_logits.launches: eager calls, and each replay adds the "
                           "calls its graph captured",

@@ -4,7 +4,8 @@
 As in the reference, the token-level cross entropy does NOT mask padding
 (``nn.CrossEntropyLoss`` over flattened (B*L, V)): PAD positions are real
 targets. ``mask`` / ``row_mask`` restrict a mean to the real rows of a padded
-eval batch. Log-softmax runs in float32 whatever the logits' dtype.
+eval batch. Log-softmax runs in float32 whatever the logits' dtype (float64
+stays float64).
 """
 
 from __future__ import annotations
@@ -13,9 +14,14 @@ import torch
 import torch.nn.functional as F
 
 
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in its own dtype when that is wider (float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
     """Mean CE over all elements. logits (..., C), integer labels (...)."""
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(upcast(logits), dim=-1)
     nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
     if mask is None:
         return nll.mean()
@@ -35,7 +41,7 @@ def softmax_cross_entropy_tokens(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
-    err = (pred.float() - target.float()) ** 2
+    err = (upcast(pred) - upcast(target)) ** 2
     if mask is None:
         return err.mean()
     mask = mask.to(err.dtype).expand(err.shape)
@@ -44,7 +50,7 @@ def mse(pred: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
 
 def masked_row_mean(values: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     """Mean of per-row values (B,) over the rows where ``row_mask`` is nonzero."""
-    values = values.float()
+    values = upcast(values)
     row_mask = row_mask.to(values.dtype)
     return (values * row_mask).sum() / torch.clamp_min(row_mask.sum(), 1.0)
 
@@ -53,5 +59,5 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     """Binary cross entropy with logits in the JAX package's stable form,
     ``max(z, 0) - z t + log1p(exp(-|z|))``, mean-reduced (torch
     ``BCEWithLogitsLoss``)."""
-    z = logits.float()
+    z = upcast(logits)
     return (torch.clamp_min(z, 0.0) - z * targets + torch.log1p(torch.exp(-z.abs()))).mean()

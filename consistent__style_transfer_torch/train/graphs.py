@@ -26,7 +26,10 @@ working on the card while one captures (the batch prefetcher's copies and,
 in pretrain, its WMD labels with the Sinkhorn kernel). A step whose
 capture must not overlap a thread's synchronous copy (pretrain's
 :class:`~.state.AsyncSaver`, which copies the best weights to the host)
-passes ``before_capture`` to drain it first.
+passes ``before_capture`` to drain it first. Python's cyclic garbage
+collector is held off during a capture (:func:`gc_paused`): a collection
+there may free a dead graph of an earlier step, and destroying a graph
+while a stream captures invalidates that capture.
 
 The hand-written kernels count their launches (``.launches`` on
 :data:`COUNTED_KERNELS`). A call made while a stream captures launches
@@ -40,6 +43,8 @@ replay, so ``.launches`` counts the kernels that ran, eager or replayed.
 
 from __future__ import annotations
 
+import gc
+from contextlib import contextmanager
 from typing import Callable, Hashable
 
 import torch
@@ -48,6 +53,23 @@ from ..kernels.decode_step import fused_decode_logits
 from ..kernels.sinkhorn import sinkhorn_cuda
 
 COUNTED_KERNELS = (fused_decode_logits, sinkhorn_cuda)
+
+
+@contextmanager
+def gc_paused():
+    """The body runs with Python's automatic garbage collection off; the
+    collector's state is restored after. Wrap a CUDA graph capture in it: a
+    collection inside the capture would free whatever cyclic garbage waits
+    (a dead ``GraphedStep``'s graphs among it; torch does not collect
+    before a capture), and destroying a graph while a stream captures
+    invalidates the capture, which then fails at its end."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class GraphedStep:
@@ -101,7 +123,8 @@ class GraphedStep:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = [k.captured for k in COUNTED_KERNELS]
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        with gc_paused(), torch.cuda.graph(graph, stream=side,
+                                           capture_error_mode="thread_local"):
             self.outputs[key] = self.fn(static, key)
         self.replay_launches[key] = tuple(
             (k, k.captured - b) for k, b in zip(COUNTED_KERNELS, before) if k.captured > b)

@@ -9,8 +9,9 @@ route by the *source* label into
 
 The loop keeps the device busy: batch assembly and the host->device copy run
 in the prefetcher's thread, each decode is queued on the stream without
-waiting (on the card a greedy decode is one CUDA graph replay), and the copy
-of the ids back to the host plus the BPE decode run in a small thread pool.
+waiting (on the card a decode, greedy or beam, is one CUDA graph replay),
+and the copy of the ids back to the host plus the BPE decode run in a small
+thread pool.
 
 Under the launcher (``parallel/``) each data rank decodes its rows of every
 batch; the ids are gathered over the data group in rank order, the padding
@@ -42,27 +43,32 @@ def make_transfer_step(model, beam_size: int = 1):
     greedy, or with ``beam_size`` > 1 the beam search of either backbone
     (``models/beam.py::beam_decode_any``, length penalty 0.6).
 
-    On the card the greedy decode of either backbone (the LSTM's with the
-    decode-head kernel in each of its steps) is a CUDA graph, one per input
-    shape (:class:`~.graphs.GraphedStep`; batches are padded to one shape),
-    and the ids it returns are the graph's output buffer, which the next
-    call overwrites: copy them before the next call. The beam, and
-    everything on the CPU, runs eagerly."""
-    if beam_size > 1:
-        def beam_step(x, labels):
-            return beam_decode_any(model, x, labels, 1 - labels, beam_size=beam_size)[0]
+    On the card the decode, greedy or beam, of either backbone (the LSTM's
+    greedy with the decode-head kernel in each of its steps) is a CUDA
+    graph, one per input shape (:class:`~.graphs.GraphedStep`; batches are
+    padded to one shape), as the JAX package jits its transfer step. Both
+    searches have static shapes and never read the device from the host, so
+    they capture whole; the step's ``inference_mode`` is on around the
+    capture and every replay. The ids it returns are the graph's output
+    buffer, which the next call overwrites: copy them before the next call.
+    On the CPU the same step runs eagerly. ``step.runner(inputs, key)`` is
+    the runner itself: for the beam it returns (ids, scores)."""
+    beam = beam_size > 1
 
-        return beam_step
+    def decode(inputs, key=None):
+        x, labels = inputs["x"], inputs["labels"]
+        if beam:
+            return beam_decode_any(model, x, labels, 1 - labels, beam_size=beam_size)
+        return generator_call(model, x, labels, None, 1 - labels, mode="greedy")
 
-    def greedy(inputs, key=None):
-        return generator_call(model, inputs["x"], inputs["labels"], None, 1 - inputs["labels"],
-                              mode="greedy")
-
-    runner = step_runner(greedy, next(model.parameters()).device)
+    runner = step_runner(decode, next(model.parameters()).device)
 
     @torch.inference_mode()
     def step(x, labels):
-        return runner({"x": x, "labels": labels}, tuple(x.shape))
+        if beam and model.training:  # a replay runs the mode it captured
+            raise ValueError("beam decode runs the model in eval mode (no dropout)")
+        out = runner({"x": x, "labels": labels}, tuple(x.shape))
+        return out[0] if beam else out
 
     step.runner = runner  # its graphs, on the card
     return step

@@ -15,13 +15,21 @@ from ..data.prefetch import to_device
 from ..parallel.sharding import data_group, global_masked_mean, shard_batch
 
 
-def validate(batches, loss_fn, device: torch.device, mesh=None, shard: bool = True
+def validate(batches, runner, device: torch.device, mesh=None, shard: bool = True,
+             key=None, inputs: tuple[str, ...] | None = None, static: dict | None = None
              ) -> list[float] | None:
     """The validation losses of a dev iterator, each over its real rows.
 
-    ``loss_fn(arrays)`` takes a batch's tensors on ``device``, with its
-    ``row_mask``, and returns a list of losses, each a mean over the rows
-    the mask keeps. Each is weighted by the count of those rows, summed on
+    ``runner(batch, key)`` is the stage's eval step through
+    ``train/graphs.py::step_runner`` (a CUDA graph replay on the card, one
+    per ``key``; the step itself on the CPU). ``batch`` holds a dev batch's
+    tensors on ``device``: the keys ``inputs`` (default: all), its
+    ``row_mask`` among them, plus ``static``, tensors on the device that
+    every batch of this validation shares (warmup's sched coins). It returns
+    a list of losses, each a mean over the rows the mask keeps.
+
+    Each loss is weighted by the count of those rows, which the host takes
+    from the batch before it is copied (no read from the device), summed on
     the device and read once after the loop: with a ``mesh``, one
     all-reduce of every rank's masked sums and counts
     (``parallel/sharding.py::global_masked_mean``), so ranks with unequal
@@ -33,8 +41,14 @@ def validate(batches, loss_fn, device: torch.device, mesh=None, shard: bool = Tr
         arrays = eval_arrays(batch)
         if shard:
             arrays = shard_batch(arrays, mesh)
+        if inputs is not None:
+            arrays = {k: arrays[k] for k in inputs}
         real = int(arrays["row_mask"].sum())
-        sums.append([v * real for v in loss_fn(to_device(arrays, device))])
+        losses = runner({**to_device(arrays, device), **(static or {})}, key)
+        # a graph's outputs are static buffers that its next replay
+        # overwrites: the products are queued on the stream now, before that
+        # replay, so the stream orders the two and each keeps its own batch
+        sums.append([v * real for v in losses])
         weight += real
     if not sums:
         return None

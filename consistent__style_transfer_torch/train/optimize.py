@@ -87,7 +87,7 @@ from ..data.pipeline import MegaBatches, make_batches
 from ..data.prefetch import DevicePrefetcher
 from ..models.generator import sched_coins
 from ..ops.losses import (bce_with_logits, cross_entropy, masked_row_mean, mse,
-                          softmax_cross_entropy_tokens)
+                          softmax_cross_entropy_tokens, upcast)
 from ..parallel.mesh import barrier, is_main, rank, world_size
 from ..parallel.sharding import data_group, global_means, replicate, shard_stacked_batch
 from ..utils.io import RunLogger
@@ -95,12 +95,14 @@ from .common import (autocast, build_classifier, build_discriminator, build_gene
                      build_lm, build_matcher, compute_dtype, generator_call, get_corpus,
                      get_device, get_mesh, get_tokenizer, rank_generators)
 from .checkpoint import StateCheckpointer
-from .graphs import GraphedStep
+from .graphs import GraphedStep, step_runner
 from .infer import run_inference
 from .loop import EarlyStopper, Throughput, validate
 from .state import (AdamWithClip, AsyncSaver, BestKeeper, load_state_dict, newest_checkpoint,
                     params_exist)
 from .warmup import warmup_ckpt_name
+
+VAL_INPUTS = ("x", "labels", "row_mask")  # what val_step reads of a dev batch
 
 
 class OptimizeModels:
@@ -193,8 +195,8 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
     draw_coins = cfg.backbone == "lstm"
     ranks = 1 if group is None else dist.get_world_size(group)
     if copy_weights is not None:
-        copy_weights = torch.as_tensor(copy_weights, dtype=torch.float32,
-                                       device=g_params[0].device)
+        copy_weights = torch.as_tensor(copy_weights, device=g_params[0].device).to(
+            torch.promote_types(g_params[0].dtype, torch.float32))
 
     def st_decode(batch, generator, time_major: bool):
         return generator_call(G, batch["x"], batch["labels"], None, 1 - batch["labels"],
@@ -247,7 +249,7 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
                 n = min(sample_p.shape[t_ax], x.shape[1])
                 src = (x[:, :n].t() if tm else x[:, :n]).long()
                 probs = sample_p[:n] if tm else sample_p[:, :n]
-                nll = -torch.log(probs.gather(-1, src[..., None])[..., 0].float() + 1e-9)
+                nll = -torch.log(upcast(probs.gather(-1, src[..., None])[..., 0]) + 1e-9)
                 if copy_weights is None:
                     copy_loss = nll.mean()
                 else:
@@ -451,6 +453,8 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
             return steps.fused_step(batch, acc, do_apply, generator, d_generator, copy_scale,
                                     coin_generator=coin_generator)
 
+    run_val = step_runner(lambda inputs, _: [steps.val_step(inputs)], device)
+
     for epoch in range(start_epoch, cfg.epochs):
         copy_scale.fill_(cfg.w_copy_decay ** epoch)  # 1.0 unless a decay is configured
         ep_t0, ep_steps, d_applies = time.time(), 0, 0
@@ -474,10 +478,10 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
         train_s = time.time() - ep_t0
 
         # validation over the real rows (a rank's own rows)
-        val_loss = (validate(dev_it, lambda a: [steps.val_step(a)], device, mesh)  # noqa: B023
-                    or [0.0])[0]
+        val_t0 = time.time()
+        val_loss = (validate(dev_it, run_val, device, mesh, inputs=VAL_INPUTS) or [0.0])[0]
         logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps, train_s=train_s,
-                   d_applies=d_applies,
+                   val_s=time.time() - val_t0, d_applies=d_applies,
                    epoch_sent_per_s=ep_steps * cfg.batch_size / max(time.time() - ep_t0, 1e-6))
         if progress and main:
             print(f"[optimize] epoch {epoch} val_loss {val_loss:.4f} "

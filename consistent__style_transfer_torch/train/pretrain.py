@@ -185,6 +185,8 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
     # first, as the saver's host copies must not overlap a capture
     run_step = step_runner(lambda inputs, flags: train_step(inputs, flags, generator), device,
                            (generator,), before_capture=saver.wait)
+    run_eval = step_runner(lambda inputs, flags: list(eval_step(inputs, flags).values()), device,
+                           before_capture=saver.wait)
 
     step = 0
     for epoch in range(cfg.epochs):
@@ -206,11 +208,13 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
             torch.cuda.synchronize(device)
         train_s = time.time() - ep_t0
 
-        # validation at epoch end, over the real rows (a rank's own rows)
+        # validation at epoch end, over the real rows (a rank's own rows);
+        # eval_step's losses come in TASKS order
+        val_t0 = time.time()
         active = [t for t in TASKS if flags[t]]
-        val = dict(zip(active, validate(
-            dev_it, lambda a: [eval_step(a, ftuple)[t] for t in active],  # noqa: B023
-            device, mesh, shard=False)))
+        val = dict(zip(active, validate(dev_it, run_eval, device, mesh, shard=False, key=ftuple,
+                                        inputs=(*keys, "row_mask"))))
+        val_s = time.time() - val_t0
         ep_rate = ep_sent / max(time.time() - ep_t0, 1e-6)  # validation included
         for t in TASKS:
             if not flags[t]:
@@ -223,7 +227,7 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
                     saver.submit(models[t], paths[t])
         val_loss = sum(v for v in best.values() if v != float("inf"))
         logger.log(step, val_loss=val_loss, epoch=epoch, epoch_sent_per_s=ep_rate,
-                   train_steps=ep_steps, train_s=train_s,
+                   train_steps=ep_steps, train_s=train_s, val_s=val_s,
                    **{f"val_{t}": val.get(t, float("nan")) for t in TASKS})
         if progress and main:
             print(f"[pretrain] epoch {epoch} val_loss {val_loss:.4f} "

@@ -18,8 +18,11 @@ On the card every train step, of either backbone, replays a CUDA graph of
 the step (``train/graphs.py::GraphedStep``, the JAX package's jitted
 ``train_step``), the dropout and coin generators registered with it; the
 first step runs eagerly and captures it. The loss it returns is the
-graph's output, read by the logger before the next replay. Validation
-stays eager. On the CPU the same loop runs the step eagerly.
+graph's output, read by the logger before the next replay. Every dev batch
+of a validation replays a graph of ``eval_step`` (its jitted ``eval_step``),
+the validation's coins a static input. On the CPU the same loops run the
+steps eagerly. The stage log's epoch line has the seconds of the epoch's
+train steps (``train_s``) and of its validation (``val_s``).
 
 Under the launcher (``parallel/``) each data rank trains on its rows of
 every batch, the gradients averaged over the data group before the clip;
@@ -53,6 +56,7 @@ from .state import AdamWithClip, BestKeeper, save_state_dict
 
 EVAL_SEED_OFFSET = 10_000_000
 WARMUP_INPUTS = ("nx", "x", "labels")  # what a train step reads of a batch
+EVAL_INPUTS = (*WARMUP_INPUTS, "row_mask")  # and an eval step, with the coins
 
 
 def warmup_ckpt_name(cfg: Config) -> str:
@@ -122,6 +126,7 @@ def run_warmup(cfg: Config, progress: bool = True) -> str:
     run_step = step_runner(
         lambda inputs, _: train_step(inputs, generator, coin_generator=coin_generator),
         device, (generator, coin_generator))
+    run_eval = step_runner(lambda inputs, _: [eval_step(inputs, inputs["coins"])], device)
 
     logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "warmup", config=cfg, enabled=main)
     stopper = EarlyStopper(cfg.warmup_patience)
@@ -145,11 +150,13 @@ def run_warmup(cfg: Config, progress: bool = True) -> str:
 
         # validation at epoch end, over the real rows (a rank's own rows);
         # every dev batch shares the validation's coins
+        val_t0 = time.time()
         eval_gen = torch.Generator(device).manual_seed(cfg.seed + EVAL_SEED_OFFSET + step)
         coins = sched_coins(cfg.max_len, eval_gen, device)
-        val_loss = (validate(dev_it, lambda a: [eval_step(a, coins)], device, mesh)  # noqa: B023
-                    or [0.0])[0]
-        logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps, train_s=train_s)
+        val_loss = (validate(dev_it, run_eval, device, mesh, inputs=EVAL_INPUTS,
+                             static={"coins": coins}) or [0.0])[0]
+        logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps, train_s=train_s,
+                   val_s=time.time() - val_t0)
         if progress and main:
             print(f"[warmup] epoch {epoch} val_loss {val_loss:.4f} "
                   f"{thru.rates()['sentences_per_sec']:.1f} sent/s")

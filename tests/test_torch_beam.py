@@ -5,7 +5,8 @@ transformer's prefix-rescoring beam give the same ids and scores within
 1e-5; beam 1 is greedy; the scores are the teacher-forced log-probs of the
 returned ids over L ** 0.6; the search keeps the beams a plain list-based
 search keeps; the transfer step of ``serve`` and ``infer`` takes the
-beam with ``beam_size`` > 1.
+beam with ``beam_size`` > 1, through the runner that replays it as a CUDA
+graph on the card, with the JAX package's ids and scores.
 
 The narrow JAX transformer is made as in test_torch_seq2seq_transformer.py
 (its width constants set for this file's duration, a test-side patch).
@@ -147,6 +148,22 @@ def test_transfer_step_takes_the_beam(models, backbone):
     ids, _ = beam_decode_any(pm, x, li, 1 - li, beam_size=4)
     assert torch.equal(make_transfer_step(pm, 4)(x, li), ids)
     assert torch.equal(make_transfer_step(pm)(x, li), _greedy(pm, x, li))
+
+
+@pytest.mark.parametrize("backbone,K", [("lstm", 4), ("transformer", 3)])
+def test_transfer_step_beam_matches_jax(models, backbone, K):
+    """The beam through ``make_transfer_step(model, K)``'s runner (a CUDA
+    graph per input shape on the card, the same function eagerly here):
+    ids equal the JAX package's ``beam_decode_any``, scores within 1e-5;
+    the step returns the runner's ids."""
+    jm, params, pm = models[backbone]
+    x, li = _inputs(6)
+    want_ids, want_scores = jax_beam(jm, params, x, li, 1 - li, beam_size=K)
+    step = make_transfer_step(pm, K)
+    ids, scores = step.runner({"x": torch.tensor(x), "labels": torch.tensor(li)}, (B, L))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_allclose(scores.numpy(), np.asarray(want_scores), rtol=0, atol=SCORE_TOL)
+    assert torch.equal(step(torch.tensor(x), torch.tensor(li)), ids)
 
 
 def test_beam_search_bookkeeping_against_a_plain_search():

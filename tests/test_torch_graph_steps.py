@@ -9,16 +9,23 @@ them: eagerly, through the same loops that replay CUDA graphs on the card.
   shows on every run, not only when a drain thread happens to be late.
 - ``run_pretrain`` with the matcher frozen after its first epoch: the flag
   tuple changes and the later steps get no ``nx1``, ``nx2`` or ``wmd``.
-- ``run_warmup`` and ``run_pretrain`` call their steps eagerly on the CPU
-  (the parity of those steps with the JAX package's is held in
-  tests/test_torch_warmup.py and tests/test_torch_pretrain.py).
+- ``gc_paused``, around every capture: it holds automatic collection off
+  inside and restores the collector after.
+- ``run_warmup`` and ``run_pretrain`` call their train and eval steps
+  eagerly on the CPU, each through its runner, and log each epoch's
+  validation seconds beside its train seconds (the parity of those steps
+  with the JAX package's is held in tests/test_torch_warmup.py,
+  tests/test_torch_pretrain.py and tests/test_torch_validation.py).
 
 The card's side (replays against eager steps) is
 tests/test_torch_graph_steps_cuda.py.
 """
 
+import contextlib
+import gc
 import json
 import os
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -166,6 +173,38 @@ def test_step_runner_is_eager_on_the_cpu():
     assert calls == [(["a"], (True, False)), (["a"], None)]
 
 
+@pytest.mark.parametrize("enabled", [True, False])
+@pytest.mark.parametrize("raises", [False, True])
+def test_gc_paused_holds_the_collector_off_and_restores_it(enabled, raises):
+    """``gc_paused`` (around every capture): cyclic garbage made in its body
+    outlives the body, though a collection falls due there, and the
+    collector's state is restored after, also when the body raises."""
+    class Node:
+        pass
+
+    was, threshold = gc.isenabled(), gc.get_threshold()
+    (gc.enable if enabled else gc.disable)()
+    gc.set_threshold(1)
+    try:
+        inside = []
+        with pytest.raises(RuntimeError) if raises else contextlib.nullcontext():
+            with graphs.gc_paused():
+                dead = Node()
+                dead.self = dead
+                gone = weakref.ref(dead)
+                del dead
+                junk = [[] for _ in range(100)]  # due for a collection at threshold 1
+                del junk
+                inside.append((gone() is not None, gc.isenabled()))
+                if raises:
+                    raise RuntimeError("the body failed")
+        assert inside == [(True, False)]
+        assert gc.isenabled() == enabled
+    finally:
+        gc.set_threshold(*threshold)
+        (gc.enable if was else gc.disable)()
+
+
 @pytest.mark.parametrize("flags, keys", [
     ((True, True, True), ("x", "labels", "nx1", "nx2", "wmd", "nx3")),
     ((True, False, True), ("x", "labels", "nx3")),
@@ -178,16 +217,19 @@ def test_pretrain_step_inputs_follow_the_flags(flags, keys):
 
 def _record_runners(monkeypatch, module):
     """Wrap ``module.step_runner`` so every step call's input keys and
-    branch key are recorded, and what the stage was given is kept."""
+    branch key are recorded, by runner (the stage makes its train step's
+    first, then its eval step's), and what the stage was given is kept."""
     calls, runners = [], []
     real = graphs.step_runner
 
     def recording(fn, device, *args, **kw):
         run = real(fn, device, *args, **kw)
         runners.append(run)
+        mine = []
+        calls.append(mine)
 
         def call(inputs, key=None):
-            calls.append((tuple(sorted(inputs)), key))
+            mine.append((tuple(sorted(inputs)), key))
             return run(inputs, key)
 
         return call
@@ -216,16 +258,25 @@ def test_pretrain_freeze_changes_the_flags_and_drops_the_matcher_inputs(tiny_cor
     monkeypatch.setattr(pretrain, "validate", planned)
     paths = pretrain.run_pretrain(cfg, progress=False)
     assert all(os.path.exists(p) for p in paths.values())
-    assert len(runners) == 1 and not isinstance(runners[0], graphs.GraphedStep)
+    assert len(runners) == 2 and not any(isinstance(r, graphs.GraphedStep) for r in runners)
+    train, evals = calls
     steps = 12 // 4  # 12 train sentences, B=4, the partial batch dropped
-    assert len(calls) == 3 * steps
+    assert len(train) == 3 * steps
     everything = tuple(sorted(("x", "labels", "nx1", "nx2", "wmd", "nx3")))
-    assert calls[:2 * steps] == [(everything, (True, True, True))] * (2 * steps)
-    assert calls[2 * steps:] == [(("labels", "nx3", "x"), (True, False, True))] * steps
+    assert train[:2 * steps] == [(everything, (True, True, True))] * (2 * steps)
+    assert train[2 * steps:] == [(("labels", "nx3", "x"), (True, False, True))] * steps
+    # validation, through its own runner, takes the epoch's flag tuple as
+    # its key and the same inputs plus the row mask
+    dev = len(evals) // 3
+    assert dev >= 1 and len(evals) == 3 * dev
+    assert evals[:2 * dev] == [(tuple(sorted((*everything, "row_mask"))),
+                                (True, True, True))] * (2 * dev)
+    assert evals[2 * dev:] == [(("labels", "nx3", "row_mask", "x"), (True, False, True))] * dev
     with open(os.path.join(cfg.log_dir, "tiny", "pretrain", "events.jsonl")) as f:
         epochs = [e for e in map(json.loads, f) if "train_steps" in e]
     assert [e["epoch"] for e in epochs] == [0, 1, 2]
     assert np.isnan(epochs[2]["val_mat"]) and all(np.isfinite(e["val_cls"]) for e in epochs)
+    assert all(e["val_s"] > 0 and e["train_s"] > 0 for e in epochs)  # beside, not instead
 
 
 def test_run_warmup_calls_its_step_eagerly_on_the_cpu(tiny_corpus, tmp_path, monkeypatch):
@@ -234,5 +285,12 @@ def test_run_warmup_calls_its_step_eagerly_on_the_cpu(tiny_corpus, tmp_path, mon
                       batch_size=4, vocab_size=120, warmup_batch_size=4, warmup_epochs=2)
     calls, runners = _record_runners(monkeypatch, warmup)
     assert os.path.exists(warmup.run_warmup(cfg, progress=False))
-    assert len(runners) == 1 and not isinstance(runners[0], graphs.GraphedStep)
-    assert calls == [(("labels", "nx", "x"), None)] * (2 * 3)
+    assert len(runners) == 2 and not any(isinstance(r, graphs.GraphedStep) for r in runners)
+    train, evals = calls
+    assert train == [(("labels", "nx", "x"), None)] * (2 * 3)
+    # every dev batch of a validation, the validation's coins a static input
+    assert len(evals) >= 2 and len(evals) % 2 == 0
+    assert evals == [(("coins", "labels", "nx", "row_mask", "x"), None)] * len(evals)
+    with open(os.path.join(cfg.log_dir, "tiny", "warmup", "events.jsonl")) as f:
+        epochs = [e for e in map(json.loads, f) if "train_steps" in e]
+    assert len(epochs) == 2 and all(e["val_s"] > 0 and e["train_s"] > 0 for e in epochs)

@@ -1,15 +1,20 @@
 """The one-dispatch steps (``train/graphs.py::GraphedStep``) on the card:
-greedy serving of both backbones, the warmup step of both backbones and the
-pretrain step (one graph per tower-flag tuple), each replayed against its
-eager step, and the decode head's launch count under replay. Every test
-needs a CUDA device and skips without one. This file imports no JAX, so it
+greedy and beam serving of both backbones, the warmup step of both
+backbones and the pretrain step (one graph per tower-flag tuple), each
+replayed against its eager step, the validation passes of the three stages
+(``train/loop.py::validate`` with a graphed eval step, pretrain's across a
+freeze) against eager passes, the decode head's launch count under
+replay (none in the beam), and a capture during which a collection of a
+dead step's graphs falls due. Every test needs a CUDA device and skips
+without one. This file imports no JAX, so it
 runs on a machine that has only PyTorch (tests/conftest.py imports jax,
 hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_graph_steps_cuda.py
 
 Tolerances:
-- serving ids: equal in float32 (the same kernels in the same order);
+- serving ids, beam scores and validation losses: equal in float32 (the
+  same kernels in the same order);
   under bf16 at most 1% of the tokens differ (a product summed in another
   order, should cuBLAS pick another kernel on the capture stream, moves a
   logit by a bf16 step and can flip a near-tied argmax, and a flipped
@@ -26,30 +31,41 @@ Tolerances:
 
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from consistent__style_transfer_torch.config import make_config  # noqa: E402
+from consistent__style_transfer_torch.data.pipeline import Batch  # noqa: E402
 from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits  # noqa: E402
 from consistent__style_transfer_torch.models import (  # noqa: E402
     DenoiseSeq2Seq,
     PairMatcher,
+    RelGANDiscriminator,
     TextCNN,
     TransformerLM,
     TransformerSeq2Seq,
 )
+from consistent__style_transfer_torch.models.beam import beam_decode_any  # noqa: E402
 from consistent__style_transfer_torch.train import state as state_module  # noqa: E402
 from consistent__style_transfer_torch.train.common import generator_call  # noqa: E402
 from consistent__style_transfer_torch.train.graphs import GraphedStep  # noqa: E402
 from consistent__style_transfer_torch.train.infer import make_transfer_step  # noqa: E402
+from consistent__style_transfer_torch.train.loop import validate  # noqa: E402
+from consistent__style_transfer_torch.train.optimize import VAL_INPUTS, make_optimize_steps  # noqa: E402
 from consistent__style_transfer_torch.train.pretrain import (  # noqa: E402
     make_pretrain_steps,
     step_inputs,
 )
 from consistent__style_transfer_torch.train.state import AdamWithClip, AsyncSaver  # noqa: E402
-from consistent__style_transfer_torch.train.warmup import WARMUP_INPUTS, make_warmup_steps  # noqa: E402
+from consistent__style_transfer_torch.train.warmup import (  # noqa: E402
+    EVAL_INPUTS,
+    WARMUP_INPUTS,
+    make_warmup_steps,
+)
 
 pytestmark = pytest.mark.cuda
 V, B, L = 300, 16, 6
@@ -114,6 +130,41 @@ def test_graph_output_is_overwritten_by_the_next_call(cuda_device):
     c = step(_ints(rng, V, (B, L), cuda_device), _labels(rng, cuda_device))
     # one buffer for every replay: copy the ids before the next call
     assert c.data_ptr() == b.data_ptr() != a.data_ptr()
+
+
+def test_capture_holds_off_a_collection_that_frees_a_dead_graph(cuda_device):
+    """A dead step's graphs in cyclic garbage, and a collection due inside
+    the next capture: ``GraphedStep`` holds the collector off there
+    (``gc_paused``), since destroying a graph while a stream captures
+    invalidates the capture. The new step captures and replays right."""
+    import gc
+
+    dead = GraphedStep(lambda inputs, key: inputs["x"] * 2)
+    x = torch.arange(8.0, device=cuda_device)
+    dead({"x": x})
+    dead({"x": x})  # captured and replayed: an instantiated graph
+    holder = {"dead": dead}
+    del dead
+
+    def fn(inputs, key):
+        if torch.cuda.is_current_stream_capturing() and "dead" in holder:
+            box = [holder.pop("dead")]
+            box.append(box)  # the dead step's only reference, in a new cycle
+            del box
+            junk = [[] for _ in range(100)]  # due for a collection at threshold 1
+            del junk
+        return inputs["x"] + 1
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        step = GraphedStep(fn)
+        first = step({"x": x}).clone()
+        second = step({"x": x * 3}).clone()
+    finally:
+        gc.set_threshold(*threshold)
+    assert "dead" not in holder and step.replays == 1
+    assert torch.equal(first, x + 1) and torch.equal(second, x * 3 + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -255,3 +306,104 @@ def test_pretrain_replays_equal_eager_steps_across_a_freeze(cuda_device, monkeyp
         runs.append((torch.cat(losses), _snapshot(params), [gen.get_state()]))
     _compare(*runs, saved[:len(params)])
 
+
+
+@pytest.mark.parametrize("backbone, K", [("lstm", 4), ("lstm", 2), ("transformer", 4)])
+def test_graphed_beam_equals_eager_and_launches_no_head(cuda_device, backbone, K):
+    """Ids and scores of every call equal the eager beam's in float32, one
+    graph for the one shape; the beam runs the unfused head, so the decode
+    head is neither launched nor captured."""
+    model = _generator(backbone, cuda_device)
+    step = make_transfer_step(model, K)
+    rng = np.random.default_rng(5)
+    launches, captured = fused_decode_logits.launches, fused_decode_logits.captured
+    for _ in range(4):  # the eager first call with its capture, then replays
+        x, labels = _ints(rng, V, (B, L + 2), cuda_device), _labels(rng, cuda_device)
+        ids, scores = (t.clone() for t in step.runner({"x": x, "labels": labels}, (B, L + 2)))
+        want_ids, want_scores = beam_decode_any(model, x, labels, 1 - labels, beam_size=K)
+        assert torch.equal(ids, want_ids) and torch.equal(scores, want_scores)
+    assert torch.equal(step(x, labels), want_ids)
+    torch.cuda.synchronize()
+    assert isinstance(step.runner, GraphedStep) and list(step.runner.graphs) == [(B, L + 2)]
+    assert step.runner.replays == 4
+    assert fused_decode_logits.launches == launches and fused_decode_logits.captured == captured
+
+
+def _dev(rng, shapes, n=4, last_valid=5):
+    """``n`` dev batches on the host ({key: width, "labels" or "wmd"}), the
+    last padded to B with ``last_valid`` real rows."""
+    out = []
+    for i in range(n):
+        arrays = {}
+        for k, kind in shapes.items():
+            if kind == "labels":
+                arrays[k] = rng.integers(0, 2, B).astype(np.int32)
+            elif kind == "wmd":
+                arrays[k] = rng.random(B).astype(np.float32)
+            else:
+                arrays[k] = rng.integers(3, V, (B, kind)).astype(np.int32)
+        out.append(Batch(arrays, last_valid if i == n - 1 else B))
+    return out
+
+
+def _validations(fn, batches, device, passes=3, **kw):
+    """``passes`` validations through a GraphedStep of ``fn`` (the first
+    call captures, every later call replays) and as many eager ones."""
+    graphed = GraphedStep(fn)
+    got = [validate(batches, graphed, device, **kw) for _ in range(passes)]
+    want = [validate(batches, fn, device, **kw) for _ in range(passes)]
+    return graphed, got, want
+
+
+def test_warmup_validation_replays_equal_eager_passes(cuda_device):
+    model = DenoiseSeq2Seq(V, 2, L, p_drop=P_DROP, seed=1).to(cuda_device)
+    _, eval_step = make_warmup_steps(model, AdamWithClip(model.parameters(), 1e-3, 1.0))
+    rng = np.random.default_rng(6)
+    batches = _dev(rng, {"nx": L, "x": L, "labels": "labels"})
+    coins = torch.from_numpy(rng.random(L) < 0.5).to(cuda_device)
+    graphed, got, want = _validations(lambda inputs, _: [eval_step(inputs, inputs["coins"])],
+                                      batches, cuda_device, inputs=EVAL_INPUTS,
+                                      static={"coins": coins})
+    assert got == want and np.isfinite(got).all()
+    assert list(graphed.graphs) == [None] and graphed.replays == 3 * len(batches) - 1
+
+
+def test_optimize_validation_replays_equal_eager_passes(cuda_device):
+    cfg = make_config("tiny", dtype="float32", max_len=L, device="cuda", scorer_layers=2,
+                      scorer_d_model=32, scorer_heads=2)
+    models = SimpleNamespace(
+        generator=DenoiseSeq2Seq(V, 2, L, p_drop=P_DROP, seed=1), classifier=TextCNN(V, seed=2),
+        matcher=PairMatcher(V, seed=3, **SIZE), nt_checker=TransformerLM(V, seed=4, **SIZE),
+        disc=RelGANDiscriminator(V, seed=5))
+    for m in vars(models).values():
+        m.to(cuda_device)
+    steps = make_optimize_steps(cfg, models, AdamWithClip(models.generator.parameters(), 1e-5, 1.0),
+                                AdamWithClip(models.disc.parameters(), 1e-5, 1.0))
+    batches = _dev(np.random.default_rng(7), {"x": L, "labels": "labels"})
+    graphed, got, want = _validations(lambda inputs, _: [steps.val_step(inputs)], batches,
+                                      cuda_device, inputs=VAL_INPUTS)
+    assert got == want and np.isfinite(got).all()
+    assert graphed.replays == 3 * len(batches) - 1
+
+
+def test_pretrain_validation_replays_equal_eager_passes_across_a_freeze(cuda_device):
+    """One graph per flag tuple: every tower, then the matcher frozen, its
+    inputs left out."""
+    towers = {"cls": TextCNN(V, p_drop=P_DROP, seed=2),
+              "mat": PairMatcher(V, p_drop=P_DROP, seed=3, **SIZE),
+              "dn": TransformerLM(V, p_drop=P_DROP, seed=4, **SIZE)}
+    towers = {t: m.to(cuda_device) for t, m in towers.items()}
+    _, eval_step = make_pretrain_steps(towers, AdamWithClip(
+        [p for m in towers.values() for p in m.parameters()], 1e-3, 5.0))
+    nl = L + max(4, L // 2)
+    batches = _dev(np.random.default_rng(8), {"x": L, "labels": "labels", "nx1": nl, "nx2": nl,
+                                              "nx3": L, "wmd": "wmd"})
+    fn = lambda inputs, flags: list(eval_step(inputs, flags).values())  # noqa: E731
+    graphed = GraphedStep(fn)
+    for flags, n_losses in (((True, True, True), 3), ((True, False, True), 2)):
+        kw = dict(shard=False, key=flags, inputs=(*step_inputs(flags), "row_mask"))
+        got = [validate(batches, graphed, cuda_device, **kw) for _ in range(3)]
+        want = [validate(batches, fn, cuda_device, **kw) for _ in range(3)]
+        assert got == want and len(got[0]) == n_losses and np.isfinite(got).all()
+    assert sorted(graphed.graphs) == [(True, False, True), (True, True, True)]
+    assert graphed.replays == 2 * (3 * len(batches) - 1)

@@ -104,7 +104,8 @@ def _assert_same_run(got, want):
     assert ref_state["step"] == 8  # 12 train sentences, B=3: 4 batches an epoch
 
     def strip(evs):  # the host-clock rates differ
-        drop = ("t", "sentences_per_sec", "steps_per_sec", "wall_s", "train_s", "epoch_sent_per_s")
+        drop = ("t", "sentences_per_sec", "steps_per_sec", "wall_s", "train_s", "val_s",
+                "epoch_sent_per_s")
         return [{k: v for k, v in e.items() if k not in drop} for e in evs]
 
     assert strip(events) == strip(ref_events)
