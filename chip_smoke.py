@@ -88,8 +88,7 @@ Phases, in order; any failure exits non-zero before the last line:
    ms per step, device ms, device operations, host launch calls and graph
    replays per step, idle share and peak memory beside phase 6's eager
    step; the CLI epoch's validation a graph replay a dev batch but the
-   first; a fresh process that resumes at epoch 1 with the saved best; and
-   ``infer`` from the G it keeps, through the decode head;
+   first; and ``infer`` from the G it keeps, through the decode head;
 9. beam decode and the transformer backbone: the LSTM's stateful beam
    (K=4) at the yelp serving shape, a CUDA graph replay, beside the eager
    beam and greedy on the same batch (ms per batch, sentences/s, device ms,
@@ -122,8 +121,8 @@ Phases, in order; any failure exits non-zero before the last line:
    --nproc_per_node 1 -m consistent__style_transfer_torch`` in a fresh dump
    dir, on the first CUT_LINES lines of each yelp split file: finite
    losses, one step a batch, the child's own kernel launch counts
-   (``TPUST_KERNEL_COUNTS=1``), its ``.tsf`` files byte-equal to a plain
-   ``infer``'s, and the warmup's seconds beside a fresh process's;
+   (``TPUST_KERNEL_COUNTS=1``), and its ``.tsf`` files byte-equal to a
+   plain ``infer``'s;
 11. the full yelp pipeline, the JAX package's 16k smoke recipe
    (``RESULTS.md:1103-1110``), in a fresh dump dir: ``pretrain`` (10
    epochs), ``warmup --warmup_epochs 10`` and ``run`` (optimize, 10 epochs;
@@ -135,7 +134,22 @@ Phases, in order; any failure exits non-zero before the last line:
    the three validation passes on the trained
    weights graphed against eager, and the six scores, each held to a band
    around the JAX package's default-RNG row (``RESULTS.md:315``;
-   ``FULL_RUN_BAND``), the threefry rows printed beside them.
+   ``FULL_RUN_BAND``), the threefry rows printed beside them;
+12. the book dataset (L=30, B=128, warmup B=512, no human references) on
+   the first BOOK_CUT_LINES lines of each ``data/book`` split file, at
+   book's full widths, in a fresh dump dir: ``vocab``, ``w2v``,
+   ``pretrain --epochs 1``, ``warmup``, ``run --epochs 1`` and ``serve``
+   through the CLI (strict checkpoints, finite losses, one step a batch,
+   D's cadence, every step, dev batch and infer batch a graph replay but
+   the first of each branch, the Sinkhorn once a labeled batch on its
+   45-atom path, the decode head 30 times an infer batch, ``eval``'s
+   scores in range and no ref-BLEU line); the Sinkhorn on a real book
+   label batch against its plain version and the collate's host ms a
+   batch; the graphed steps' ms, device ms, idle share and peak memory;
+   float32 replays of the three steps and validation passes against eager;
+   serving at B=128, the card's float32 greedy ids against the CPU's and
+   the float32 beam of 4 graphed against eager; the decode head at B=128
+   and book's V against its plain version, timed beside the library call.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -208,6 +222,15 @@ TF_REPLAY_STEPS = 5
 # the first lines of each yelp split file, a style (a cut of depth): 2,000 of
 # 16,000 train, 500 of 2,000 dev, all 500 test
 CUT_LINES = {"train": 2000, "dev": 500, "test": None}
+# phase 12: the book corpus (data/book: 40,000 train, 5,000 dev and 5,000
+# test lines a style, no human references) cut to its first lines of each
+# split file, a style (a cut of depth; every width is book's own). 24,000
+# train sentences keep eval-prepare's classifier on the minibatch path, as
+# the whole corpus takes it (the sequential path below 20,001 examples)
+BOOK_CUT_LINES = {"train": 12000, "dev": 1000, "test": 1000}
+# phase 12: book test lines sent to serve (3 batches of B=128, the last
+# padded) and sentences in the float32 card-against-CPU id check
+BOOK_SERVE_LINES, BOOK_CHECK_N = 300, 16
 # phases 4 and 9: graphed greedy ids against eager ones under bf16: at most
 # this share of tokens may differ (a product summed in another order, should
 # cuBLAS pick another kernel on the capture stream, moves a logit by a bf16
@@ -253,6 +276,19 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
+
+
+def laps(phase: str):
+    """A function ``lap(what)`` that logs the seconds since its last call
+    (the first call: since ``laps`` was called) as ``phase: what``."""
+    last = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        log(f"{phase}: {what} in {now - last[0]:.1f} s")
+        last[0] = now
+
+    return lap
 
 
 def check(cond: bool, msg: str) -> None:
@@ -457,14 +493,50 @@ def head_times(x, w1, b1, w2, dtype_name: str, seed: int) -> dict:
     return out
 
 
-def phase_kernel_vs_plain() -> dict:
+def check_head(x, w1, b1, w2, dtype_name: str) -> dict:
+    """The kernel against its plain version on one input: in float32 the
+    same sums in another order (ids exact, h within 1e-4); in bf16 h within
+    2e-2 of the plain bf16 h relative to its size and within 1e-4 of f32
+    math on the same rounded inputs, and a differing id a near-tie (1e-2)
+    of the f32 logits."""
     import torch
-    import torch.nn.functional as F
 
     from consistent__style_transfer_torch.kernels.decode_step import (
         decode_head_reference,
         fused_decode_logits,
     )
+
+    B, V = x.shape[0], w2.shape[0]
+    ids, h = fused_decode_logits(x, w1, b1, w2)
+    ref_ids, ref_h = decode_head_reference(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    check(ids.dtype == torch.int32 and ids.shape == (B,) and h.shape == (B, HID),
+          "kernel output shapes")
+    err_h = (h - ref_h.float()).abs().max().item()
+    mismatch = (ids != ref_ids).nonzero().flatten()
+    # the same function in f32 on the same (rounded) inputs
+    h32 = decode_head_reference(x.float(), w1.float(), b1.float(), w2.float())[1]
+    logits32 = h32 @ w2.float().t()
+    err_h32 = (h - h32).abs().max().item()
+    row = {"dtype": dtype_name, "B": B, "V": V, "max_abs_err_h": err_h,
+           "max_abs_err_h_vs_f32": err_h32, "ids_mismatch": int(mismatch.numel())}
+    if dtype_name == "float32":
+        check(mismatch.numel() == 0, f"f32 ids differ at rows {mismatch.tolist()[:8]}")
+        check(err_h <= 1e-4, f"f32 h differs by {err_h}")
+    else:
+        scale = ref_h.float().abs().max().item()
+        check(err_h <= 2e-2 * scale, f"bf16 h differs by {err_h} (|h| max {scale})")
+        check(err_h32 <= 1e-4, f"bf16-input h differs from f32 math by {err_h32}")
+        if mismatch.numel():
+            rows = mismatch
+            gap = (logits32[rows].max(-1).values - logits32[rows, ids[rows].long()]).max().item()
+            row["max_logit_gap"] = gap
+            check(gap <= 1e-2, f"bf16 id off the f32 max by {gap}")
+    return row
+
+
+def phase_kernel_vs_plain() -> dict:
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain version in full f32
     checks, timed = [], {}
@@ -472,40 +544,12 @@ def phase_kernel_vs_plain() -> dict:
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for seed, (B, V) in enumerate(shapes):
             x, w1, b1, w2 = head_inputs(B, V, dtype, seed)
-            ids, h = fused_decode_logits(x, w1, b1, w2)
-            ref_ids, ref_h = decode_head_reference(x, w1, b1, w2)
-            torch.cuda.synchronize()
-            check(ids.dtype == torch.int32 and ids.shape == (B,) and h.shape == (B, HID),
-                  "kernel output shapes")
-            err_h = (h - ref_h.float()).abs().max().item()
-            mismatch = (ids != ref_ids).nonzero().flatten()
-            # the same function in f32 on the same (rounded) inputs
-            h32 = decode_head_reference(x.float(), w1.float(), b1.float(), w2.float())[1]
-            logits32 = h32 @ w2.float().t()
-            err_h32 = (h - h32).abs().max().item()
-            row = {"dtype": dtype_name, "B": B, "V": V, "max_abs_err_h": err_h,
-                   "max_abs_err_h_vs_f32": err_h32, "ids_mismatch": int(mismatch.numel())}
-            if dtype_name == "float32":
-                # same f32 sums in another order: ids exact, h within 1e-4
-                check(mismatch.numel() == 0, f"f32 ids differ at rows {mismatch.tolist()[:8]}")
-                check(err_h <= 1e-4, f"f32 h differs by {err_h}")
-            else:
-                # bf16: h within 2e-2 of the plain bf16 h relative to its size;
-                # a differing id must be a near-tie of the f32 logits
-                scale = ref_h.float().abs().max().item()
-                check(err_h <= 2e-2 * scale, f"bf16 h differs by {err_h} (|h| max {scale})")
-                check(err_h32 <= 1e-4, f"bf16-input h differs from f32 math by {err_h32}")
-                if mismatch.numel():
-                    rows = mismatch
-                    gap = (logits32[rows].max(-1).values
-                           - logits32[rows, ids[rows].long()]).max().item()
-                    row["max_logit_gap"] = gap
-                    check(gap <= 1e-2, f"bf16 id off the f32 max by {gap}")
+            row = check_head(x, w1, b1, w2, dtype_name)
             checks.append(row)
             if B == YELP_B and V in (YELP_V, 5317):
                 timed[f"{dtype_name}_V{V}"] = head_times(x, w1, b1, w2, dtype_name, seed)
-                timed[f"{dtype_name}_V{V}"].update(max_abs_err_h=err_h,
-                                                    ids_mismatch=int(mismatch.numel()))
+                timed[f"{dtype_name}_V{V}"].update(max_abs_err_h=row["max_abs_err_h"],
+                                                    ids_mismatch=row["ids_mismatch"])
     print(json.dumps({"kernel_checks": checks}), flush=True)
     print(json.dumps({"decode_head_times": timed}), flush=True)
     for name, t in timed.items():
@@ -706,24 +750,59 @@ def run_cli(argv: list[str], stdin_text: str = "") -> list[str]:
 
 
 @contextlib.contextmanager
-def watch_graphs():
-    """The ``GraphedStep``\\ s (``train/graphs.py``) that the stages make
-    inside the block, through ``step_runner``: a list, filled as they are
-    made, to read their graphs and replays from."""
-    from consistent__style_transfer_torch.train import graphs
+def watch_graphs(module=None, name: str = "GraphedStep"):
+    """The instances of ``module.name`` made inside the block: by default
+    the ``GraphedStep``\\ s (``train/graphs.py``) that the stages make
+    through ``step_runner``; ``train/optimize.py``'s ``GraphedFusedStep``
+    is the optimize stage's train step. A list, filled as they are made, to
+    read their graphs and replays from."""
+    if module is None:
+        from consistent__style_transfer_torch.train import graphs as module
 
-    made, real = [], graphs.GraphedStep
+    made, real = [], getattr(module, name)
 
     class Watched(real):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             made.append(self)
 
-    graphs.GraphedStep = Watched
+    setattr(module, name, Watched)
     try:
         yield made
     finally:
-        graphs.GraphedStep = real
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def launches_inside(module, names: tuple):
+    """The decode head's and the Sinkhorn's launches made inside the calls
+    of ``module.<name>``, for each of ``names`` (``run`` calls
+    ``train/optimize.py``'s ``run_optimize`` and then ``run_test``): a dict
+    {name: {"head": n, "sinkhorn": n}}, filled as the calls return."""
+    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
+    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
+
+    counters = {"head": fused_decode_logits, "sinkhorn": sinkhorn_cuda}
+    seen = {n: dict.fromkeys(counters, 0) for n in names}
+    real = {n: getattr(module, n) for n in names}
+
+    def counted(name):
+        def call(*args, **kw):
+            before = {c: k.launches for c, k in counters.items()}
+            try:
+                return real[name](*args, **kw)
+            finally:
+                for c, k in counters.items():
+                    seen[name][c] += k.launches - before[c]
+        return call
+
+    for n in names:
+        setattr(module, n, counted(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(module, n, real[n])
 
 
 def check_replayed(made: list, keys: list, calls: int, what: str, steps: int = 1,
@@ -740,8 +819,8 @@ def check_replayed(made: list, keys: list, calls: int, what: str, steps: int = 1
 
 
 def validation_passes(cfg, stage: str, device, passes: int = VAL_PASSES) -> dict:
-    """The validation of ``stage`` (pretrain, warmup or optimize) over the
-    yelp dev split, through ``train/loop.py::validate`` with the stage's
+    """The validation of ``stage`` (pretrain, warmup or optimize) over
+    ``cfg``'s dev split, through ``train/loop.py::validate`` with the stage's
     eval step in ``cfg.dtype`` on the weights in ``cfg``'s dump dir: a
     ``GraphedStep`` of the step (its first call captures, every later call
     replays) against the eager step, ``passes`` passes each over the same dev
@@ -983,7 +1062,7 @@ def profile_breakdown(fn, batches: int = 3, watch: tuple[str, ...] = ()) -> dict
     the kernels' own device time, user annotations (such as the optimizer's
     ranges) left out; ``watch`` names kernels reported whatever their rank;
     and the host's launch calls (``HOST_LAUNCH_CALLS``: kernel launches,
-    graph launches, copies) per call. Where the profiler gives no device
+    graph launches, copies) per call, with the host time they took. Where the profiler gives no device
     time, the breakdown says "not measured"."""
     import torch
     from torch.autograd import DeviceType
@@ -1000,9 +1079,11 @@ def profile_breakdown(fn, batches: int = 3, watch: tuple[str, ...] = ()) -> dict
 
     by_name: dict[str, list[float]] = {}
     host_calls: dict[str, int] = {}
+    host_us: dict[str, float] = {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name in HOST_LAUNCH_CALLS:
             host_calls[e.name] = host_calls.get(e.name, 0) + 1
+            host_us[e.name] = host_us.get(e.name, 0.0) + e.cpu_time_total
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -1022,6 +1103,7 @@ def profile_breakdown(fn, batches: int = 3, watch: tuple[str, ...] = ()) -> dict
     return {"device_ms_per_batch": total / batches / 1e3,
             "kernels_per_batch": sum(c for _, c in by_name.values()) / batches,
             "host_calls_per_batch": {k: v / batches for k, v in sorted(host_calls.items())},
+            "host_call_ms_per_batch": {k: v / batches / 1e3 for k, v in sorted(host_us.items())},
             "top": [row(n) for n in top[:10]],
             "watched": [row(n) for n in top if any(w in n for w in watch)]}
 
@@ -1177,6 +1259,146 @@ def adam_state(params: list, opts) -> list:
                            for t in st.values() if isinstance(t, torch.Tensor)]
 
 
+def real_label_batch(cfg, labeler, corpus) -> dict:
+    """The Sinkhorn on one real WMD-label batch: the first ``batch_size``
+    train sentences noised twice as the pretrain collate noises them, the
+    labeler's (p, q, D) from them; both names against the plain version
+    (rtol 1e-4, atol 1e-5), the labeler's host times a batch, its device
+    time split into the Sinkhorn, the host-to-device copies and the rest,
+    the valid atoms a side, and ``sinkhorn_times``."""
+    import numpy as np
+    import torch
+
+    from consistent__style_transfer_torch.data.noise import transfer_noise_arrays
+    from consistent__style_transfer_torch.kernels.sinkhorn import (
+        sinkhorn_pallas,
+        sinkhorn_pallas_cr,
+    )
+    from consistent__style_transfer_torch.ops.emd import sinkhorn_ot_cost
+
+    B, L = cfg.batch_size, cfg.max_len
+    rng = np.random.default_rng(0)
+    noise_len = L + max(4, L // 2)
+    ids, lens = corpus.ids[:B], corpus.lengths[:B]
+    nx1, nl1 = transfer_noise_arrays(ids, lens, 0.15, rng, noise_len)
+    nx2, nl2 = transfer_noise_arrays(ids, lens, 0.15, rng, noise_len)
+    p, q, D, _ = labeler.pair_inputs(nx1, nl1, nx2, nl2)
+    ref = sinkhorn_ot_cost(p, q, D)
+    err = 0.0
+    for entry in (sinkhorn_pallas, sinkhorn_pallas_cr):
+        got = entry(p, q, D)
+        err = max(err, (got - ref).abs().max().item())
+        check(bool(torch.allclose(got, ref, rtol=1e-4, atol=1e-5)),
+              f"{entry.__name__} on a label batch: max abs err {err}")
+    for _ in range(2):
+        labeler.label_pairs(nx1, nl1, nx2, nl2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        labeler.pair_inputs(nx1, nl1, nx2, nl2)
+    torch.cuda.synchronize()
+    pair_inputs_ms = (time.perf_counter() - t0) * 1e2
+    t0 = time.perf_counter()
+    for _ in range(10):
+        labeler.label_pairs(nx1, nl1, nx2, nl2)
+    torch.cuda.synchronize()
+    label_pairs_ms = (time.perf_counter() - t0) * 1e2
+    # the labeler's device time by part: the Sinkhorn, the host-to-device
+    # copies, and the rest (the vector gathers and ot_inputs' ground cost)
+    prof = profile_breakdown(lambda: labeler.label_pairs(nx1, nl1, nx2, nl2), batches=5,
+                             watch=("sinkhorn", "Memcpy"))
+    label_device = {"device_ms": prof.get("device_ms_per_batch", "not measured"),
+                    "kernels": prof.get("kernels_per_batch", "not measured"),
+                    "top": prof.get("top", "not measured")}
+    if isinstance(label_device["device_ms"], float):
+        part = {w: sum(r["ms_per_batch"] for r in prof["watched"] if w in r["name"])
+                for w in ("sinkhorn", "Memcpy")}
+        label_device.update(sinkhorn_ms=part["sinkhorn"], memcpy_ms=part["Memcpy"],
+                            ot_inputs_and_rest_ms=label_device["device_ms"] - sum(part.values()))
+    # valid atoms a side: the pair with the most sets the kernel's time; a
+    # side over 32 atoms takes the kernel's exact shared-memory loop
+    n_on, m_on = (p > 0).sum(-1).float(), (q > 0).sum(-1).float()
+    return {"atoms": (p.shape[1], q.shape[1]), "pair_inputs_ms_host": pair_inputs_ms,
+            "valid_atoms": {"mean": [n_on.mean().item(), m_on.mean().item()],
+                            "max": [n_on.max().item(), m_on.max().item()],
+                            "pairs_over_16": int(((n_on > 16) | (m_on > 16)).sum()),
+                            "pairs_over_32": int(((n_on > 32) | (m_on > 32)).sum())},
+            "label_pairs_ms_host": label_pairs_ms, "label_device": label_device,
+            "max_abs_err": err, **sinkhorn_times(p, q, D)}
+
+
+def pretrain_replays(cfg, V: int, corpus, labeler, work: str, what: str = "pretrain") -> dict:
+    """The pretrain step of ``cfg``'s dumps in float32 with dropout on:
+    graph replays of two flag tuples (every tower; the matcher frozen,
+    captured while a save of the matcher, what a freeze's epoch end leaves,
+    is pending on the saver's thread) against as many eager steps from one
+    saved state (``replays_against_eager``), printed and checked."""
+    import torch
+
+    from consistent__style_transfer_torch.data.pipeline import make_batches
+    from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
+    from consistent__style_transfer_torch.train.common import (build_classifier, build_lm,
+                                                               build_matcher)
+    from consistent__style_transfer_torch.train.graphs import GraphedStep
+    from consistent__style_transfer_torch.train.pretrain import (TASKS, make_pretrain_steps,
+                                                                 step_inputs)
+    from consistent__style_transfer_torch.train.state import AdamWithClip, AsyncSaver
+
+    B, L, device = cfg.batch_size, cfg.max_len, torch.device("cuda")
+    full, frozen = (True, True, True), (True, False, True)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the classifier's convolutions in float32
+    towers = {"cls": build_classifier(cfg, V, device), "mat": build_matcher(cfg, V, device),
+              "dn": build_lm(cfg, V, device)}
+    for t in TASKS:
+        towers[t].load_state_dict(torch.load(os.path.join(cfg.ds_dump_dir, "pretrain", f"{t}.pth"),
+                                             map_location=device, weights_only=True))
+    opt = AdamWithClip([p for t in TASKS for p in towers[t].parameters()], cfg.pretrain_lr,
+                       cfg.pretrain_clip)
+    f32_step, _ = make_pretrain_steps(towers, opt)
+    gen = torch.Generator(device).manual_seed(7)
+    saver, pending = AsyncSaver(), []
+
+    def drain():
+        pending.append(saver._q.unfinished_tasks)
+        saver.wait()
+
+    runner = GraphedStep(lambda inputs, flags: f32_step(inputs, flags, gen), (gen,),
+                         before_capture=drain)
+    stream = iter(DevicePrefetcher(make_batches(corpus, B, L, "pretrain", shuffle=True, seed=2,
+                                                wmd_labeler=labeler), device))
+    try:
+        fixed = [next(stream)[1] for _ in range(STEP_REPLAYS + 2)]
+    finally:
+        stream.close()
+    order = [full, frozen] + [full, frozen, full] + [frozen] * (STEP_REPLAYS - 3)
+
+    def losses(parts):
+        return torch.stack([parts[t] for t in TASKS if t in parts])
+
+    def graphed_call(i):
+        return losses(runner({k: fixed[i][k] for k in step_inputs(order[i])}, order[i]))
+
+    graphed_call(0)
+    saver.submit(towers["mat"], os.path.join(work, f"mat_at_freeze_{cfg.dataset}.pth"))
+    graphed_call(1)  # drains the pending save, then captures
+    saver.close()
+    check(sorted(runner.graphs) == [frozen, full], f"captured {sorted(runner.graphs)}")
+    replay = replays_against_eager(
+        [p for t in TASKS for p in towers[t].parameters()],
+        adam_state([p for t in TASKS for p in towers[t].parameters()], [opt]), [gen],
+        lambda i: losses(f32_step(fixed[i + 2], order[i + 2], gen)),
+        lambda i: graphed_call(i + 2), STEP_REPLAYS)
+    replay.update(flags=[list(f) for f in order[2:]], pending_saves_at_captures=pending,
+                  graph_nodes={str(k): graph_nodes(g) for k, g in runner.graphs.items()},
+                  L=L, B=B)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    del towers, opt, runner, fixed
+    print(json.dumps({f"{what}_replay_vs_eager": replay}), flush=True)
+    check_replays(replay, what)
+    return replay
+
+
 def phase_pretrain(work: str, card: str) -> dict:
     """``w2v`` and ``pretrain --epochs 1`` through the CLI (its steps
     replaying one CUDA graph, of the flags (True, True, True)), then the
@@ -1188,18 +1410,12 @@ def phase_pretrain(work: str, card: str) -> dict:
     import torch
 
     from consistent__style_transfer_torch.config import make_config
-    from consistent__style_transfer_torch.data.noise import transfer_noise_arrays
     from consistent__style_transfer_torch.data.pipeline import make_batches
     from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
     from consistent__style_transfer_torch.data.wmd_labels import SinkhornWmdLabeler
     from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import (
-        sinkhorn_cuda,
-        sinkhorn_pallas,
-        sinkhorn_pallas_cr,
-    )
+    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models import PairMatcher, TextCNN, TransformerLM
-    from consistent__style_transfer_torch.ops.emd import sinkhorn_ot_cost
     from consistent__style_transfer_torch.train.common import (
         build_classifier,
         build_lm,
@@ -1214,7 +1430,7 @@ def phase_pretrain(work: str, card: str) -> dict:
         make_pretrain_steps,
         step_inputs,
     )
-    from consistent__style_transfer_torch.train.state import AdamWithClip, AsyncSaver
+    from consistent__style_transfer_torch.train.state import AdamWithClip
 
     dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
                 out_dir=os.path.join(work, "output"), log_dir=os.path.join(work, "log"))
@@ -1270,52 +1486,7 @@ def phase_pretrain(work: str, card: str) -> dict:
     labeler = SinkhornWmdLabeler(get_w2v(cfg, tokenizer), tokenizer, max_atoms=L + L // 2,
                                  device=torch.device("cuda"))
     corpus = get_corpus(cfg, "train", tokenizer)
-    rng = np.random.default_rng(0)
-    noise_len = L + max(4, L // 2)
-    ids, lens = corpus.ids[:B], corpus.lengths[:B]
-    nx1, nl1 = transfer_noise_arrays(ids, lens, 0.15, rng, noise_len)
-    nx2, nl2 = transfer_noise_arrays(ids, lens, 0.15, rng, noise_len)
-    p, q, D, _ = labeler.pair_inputs(nx1, nl1, nx2, nl2)
-    ref = sinkhorn_ot_cost(p, q, D)
-    err = 0.0
-    for entry in (sinkhorn_pallas, sinkhorn_pallas_cr):
-        got = entry(p, q, D)
-        err = max(err, (got - ref).abs().max().item())
-        check(bool(torch.allclose(got, ref, rtol=1e-4, atol=1e-5)),
-              f"{entry.__name__} on a label batch: max abs err {err}")
-    for _ in range(2):
-        labeler.label_pairs(nx1, nl1, nx2, nl2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        labeler.pair_inputs(nx1, nl1, nx2, nl2)
-    torch.cuda.synchronize()
-    pair_inputs_ms = (time.perf_counter() - t0) * 1e2
-    t0 = time.perf_counter()
-    for _ in range(10):
-        labeler.label_pairs(nx1, nl1, nx2, nl2)
-    torch.cuda.synchronize()
-    label_pairs_ms = (time.perf_counter() - t0) * 1e2
-    # the labeler's device time by part: the Sinkhorn, the host-to-device
-    # copies, and the rest (the vector gathers and ot_inputs' ground cost)
-    prof = profile_breakdown(lambda: labeler.label_pairs(nx1, nl1, nx2, nl2), batches=5,
-                             watch=("sinkhorn", "Memcpy"))
-    label_device = {"device_ms": prof.get("device_ms_per_batch", "not measured"),
-                    "kernels": prof.get("kernels_per_batch", "not measured"),
-                    "top": prof.get("top", "not measured")}
-    if isinstance(label_device["device_ms"], float):
-        part = {w: sum(r["ms_per_batch"] for r in prof["watched"] if w in r["name"])
-                for w in ("sinkhorn", "Memcpy")}
-        label_device.update(sinkhorn_ms=part["sinkhorn"], memcpy_ms=part["Memcpy"],
-                            ot_inputs_and_rest_ms=label_device["device_ms"] - sum(part.values()))
-    # valid atoms a side: the pair with the most sets the kernel's time
-    n_on, m_on = (p > 0).sum(-1).float(), (q > 0).sum(-1).float()
-    real = {"atoms": (p.shape[1], q.shape[1]), "pair_inputs_ms_host": pair_inputs_ms,
-            "valid_atoms": {"mean": [n_on.mean().item(), m_on.mean().item()],
-                            "max": [n_on.max().item(), m_on.max().item()],
-                            "pairs_over_16": int(((n_on > 16) | (m_on > 16)).sum())},
-            "label_pairs_ms_host": label_pairs_ms, "label_device": label_device,
-            "max_abs_err": err, **sinkhorn_times(p, q, D)}
+    real = real_label_batch(cfg, labeler, corpus)
 
     # steady state and profile: the same full-width towers and step, on
     # batches from the prefetcher with the labeler, as in the run above
@@ -1366,58 +1537,8 @@ def phase_pretrain(work: str, card: str) -> dict:
     device_ms = breakdown.get("device_ms_per_batch")
     idle = (1 - device_ms / steady_ms) if isinstance(device_ms, float) else "not measured"
 
-    # replays against eager steps: float32 towers from the dumps, dropout
-    # on; the frozen-matcher graph is captured while a save of the matcher
-    # (what a freeze's epoch end leaves) is pending on the saver's thread
-    cudnn_tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False  # the classifier's convolutions in float32
-    towers = {"cls": build_classifier(cfg, V, device), "mat": build_matcher(cfg, V, device),
-              "dn": build_lm(cfg, V, device)}
-    for t in TASKS:
-        towers[t].load_state_dict(torch.load(os.path.join(cfg.ds_dump_dir, "pretrain", f"{t}.pth"),
-                                             map_location=device, weights_only=True))
-    opt = AdamWithClip([p for t in TASKS for p in towers[t].parameters()], cfg.pretrain_lr,
-                       cfg.pretrain_clip)
-    f32_step, _ = make_pretrain_steps(towers, opt)
-    gen = torch.Generator(device).manual_seed(7)
-    saver, pending = AsyncSaver(), []
-
-    def drain():
-        pending.append(saver._q.unfinished_tasks)
-        saver.wait()
-
-    runner = GraphedStep(lambda inputs, flags: f32_step(inputs, flags, gen), (gen,),
-                         before_capture=drain)
-    stream = iter(DevicePrefetcher(make_batches(corpus, B, L, "pretrain", shuffle=True, seed=2,
-                                                wmd_labeler=labeler), device))
-    try:
-        fixed = [next(stream)[1] for _ in range(STEP_REPLAYS + 2)]
-    finally:
-        stream.close()
-    order = [full, frozen] + [full, frozen, full] + [frozen] * (STEP_REPLAYS - 3)
-
-    def losses(parts):
-        return torch.stack([parts[t] for t in TASKS if t in parts])
-
-    def graphed_call(i):
-        return losses(runner({k: fixed[i][k] for k in step_inputs(order[i])}, order[i]))
-
-    graphed_call(0)
-    saver.submit(towers["mat"], os.path.join(work, "mat_at_freeze.pth"))
-    graphed_call(1)  # drains the pending save, then captures
-    saver.close()
-    check(sorted(runner.graphs) == [frozen, full], f"captured {sorted(runner.graphs)}")
-    replay = replays_against_eager(
-        [p for t in TASKS for p in towers[t].parameters()],
-        adam_state([p for t in TASKS for p in towers[t].parameters()], [opt]), [gen],
-        lambda i: losses(f32_step(fixed[i + 2], order[i + 2], gen)),
-        lambda i: graphed_call(i + 2), STEP_REPLAYS)
-    replay.update(flags=[list(f) for f in order[2:]], pending_saves_at_captures=pending,
-                  graph_nodes={str(k): graph_nodes(g) for k, g in runner.graphs.items()})
-    torch.backends.cudnn.allow_tf32 = cudnn_tf32
-    del towers, opt, runner, fixed
-    print(json.dumps({"pretrain_replay_vs_eager": replay}), flush=True)
-    check_replays(replay, "pretrain")
+    # replays against eager steps: float32 towers from the dumps, dropout on
+    replay = pretrain_replays(cfg, V, corpus, labeler, work)
     # validation passes, graphed against eager, float32, across a freeze
     val_replay = validation_passes(make_config("yelp", dtype="float32", **dirs), "pretrain",
                                    torch.device("cuda"))
@@ -1497,6 +1618,7 @@ def steady_step(step, batches: int = 20) -> dict:
             "device_ms_per_step": device_ms, "device_idle_share": idle,
             "kernels_per_step": prof.get("kernels_per_batch", "not measured"),
             "host_calls_per_step": prof.get("host_calls_per_batch", "not measured"),
+            "host_call_ms_per_step": prof.get("host_call_ms_per_batch", "not measured"),
             "top_device_ops": prof.get("top", "not measured")}
 
 
@@ -1537,6 +1659,113 @@ def warmup_replays(cfg, V: int, device, g_path: str, corpus) -> dict:
     return out
 
 
+def build_optimize(c, V: int, device, dropout: bool = True, group=None):
+    """The optimize stage of config ``c`` on its dumps: the frozen scorers,
+    the G that ``load_generator_params`` finds, dropout off in every module
+    unless ``dropout``, an Adam each for G and D (reducing over ``group``),
+    the fused steps, D's accumulator and the two generators (seeds 1 and
+    2): (models, steps, opts, acc, gens)."""
+    import torch
+
+    from consistent__style_transfer_torch.train.optimize import (OptimizeModels, load_frozen,
+                                                                 load_generator_params,
+                                                                 make_optimize_steps)
+    from consistent__style_transfer_torch.train.state import AdamWithClip
+
+    models = OptimizeModels(c, V, device)
+    load_frozen(c, models)
+    load_generator_params(c, models.generator)
+    if not dropout:
+        for m in (models.generator, models.classifier, models.matcher, models.nt_checker,
+                  models.disc):
+            for sub in m.modules():
+                if hasattr(sub, "p_drop"):
+                    sub.p_drop = 0.0
+    opts = (AdamWithClip(models.generator.parameters(), c.optimize_lr, c.optimize_clip,
+                         group=group),
+            AdamWithClip(models.disc.parameters(), c.optimize_lr, c.optimize_clip, group=group))
+    steps = make_optimize_steps(c, models, *opts, group=group)
+    acc = [torch.zeros_like(p) for p in models.disc.parameters()]
+    gens = (torch.Generator(device).manual_seed(1), torch.Generator(device).manual_seed(2))
+    return models, steps, opts, acc, gens
+
+
+def optimize_replays(c, V: int, device, fixed: list, what: str) -> dict:
+    """The fused optimize step of config ``c`` (float32) with dropout on and
+    the coins drawn: both branches captured on ``fixed[0]`` (D applied) and
+    ``fixed[1]``, then ``len(fixed) - 2`` graph replays against as many
+    eager steps from one saved state (``replays_against_eager``; D applied
+    every ``d_update_every``-th), printed as ``<what>_replay_vs_eager`` and
+    checked."""
+    import torch
+
+    from consistent__style_transfer_torch.train.optimize import GraphedFusedStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    models, steps, opts, acc, gens = build_optimize(c, V, device)
+    scale = torch.ones((), device=device)
+    runner = GraphedFusedStep(steps.fused_step, acc, *gens, scale)
+    runner(fixed[0], True)
+    runner(fixed[1], False)
+    check(sorted(runner.graphs) == [False, True], f"{what}: both branches were not captured")
+    params = [p for m in (models.generator, models.disc) for p in m.parameters()]
+
+    def losses(out):
+        aux, d_loss = out
+        return torch.stack([aux[k].float() for k in ("loss", "G", "STI", "CP", "BK")]
+                           + [d_loss.float()])
+
+    def applies(i):
+        return i % c.d_update_every == 0
+
+    replay = replays_against_eager(
+        params, adam_state(params + acc, opts), gens,
+        lambda i: losses(steps.fused_step(fixed[i + 2], acc, applies(i), *gens, scale)),
+        lambda i: losses(runner(fixed[i + 2], applies(i))), len(fixed) - 2)
+    replay.update(p_drop=c.p_drop, dtype=c.dtype, L=c.max_len, B=c.batch_size)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    del models, steps, opts, acc, runner
+    print(json.dumps({f"{what}_replay_vs_eager": replay}), flush=True)
+    check_replays(replay, f"{what} optimize")
+    return replay
+
+
+def optimize_steady(steps, acc: list, gens, d_every: int, stream, graphed: bool = True,
+                    batches: int = 10) -> dict:
+    """``steady_step`` of the fused optimize step on the batches of
+    ``stream`` (a prefetcher's iterator, closed here), D applied every
+    ``d_every``-th: a ``GraphedFusedStep`` replay, or the eager step; one
+    more step's losses checked finite; the graphed step's captured branches
+    and graph nodes."""
+    import torch
+
+    from consistent__style_transfer_torch.train.optimize import GraphedFusedStep
+
+    if graphed:
+        runner = GraphedFusedStep(steps.fused_step, acc, *gens, torch.ones((), device=acc[0].device))
+    st = {"i": 0}
+
+    def step():
+        batch, do_apply = next(stream)[1], st["i"] % d_every == 0
+        st["i"] += 1
+        return runner(batch, do_apply) if graphed else steps.fused_step(batch, acc, do_apply,
+                                                                       *gens)
+
+    try:
+        out = steady_step(step, batches=batches)
+        aux, d_loss = step()
+        check(all(math.isfinite(v.item()) for v in (*aux.values(), d_loss)),
+              f"non-finite {'graphed' if graphed else 'eager'} optimize losses")
+    finally:
+        stream.close()
+    if graphed:
+        out["captured_branches"] = sorted(runner.graphs)
+        out["graph_nodes"] = {str(k): graph_nodes(g) for k, g in runner.graphs.items()}
+    return out
+
+
 def phase_training(work: str, card: str) -> dict:
     import torch
 
@@ -1550,12 +1779,6 @@ def phase_training(work: str, card: str) -> dict:
         build_generator,
         get_corpus,
         get_tokenizer,
-    )
-    from consistent__style_transfer_torch.train.optimize import (
-        OptimizeModels,
-        load_frozen,
-        load_generator_params,
-        make_optimize_steps,
     )
     from consistent__style_transfer_torch.train.graphs import GraphedStep
     from consistent__style_transfer_torch.train.state import AdamWithClip, newest_checkpoint
@@ -1669,30 +1892,9 @@ def phase_training(work: str, card: str) -> dict:
     print(json.dumps({"warmup_replay_vs_eager": warm_replay}), flush=True)
     check_replays(warm_replay, "warmup")
 
-    models = OptimizeModels(cfg, V, device)
-    load_frozen(cfg, models)
-    load_generator_params(cfg, models.generator)
-    steps = make_optimize_steps(
-        cfg, models, AdamWithClip(models.generator.parameters(), cfg.optimize_lr, cfg.optimize_clip),
-        AdamWithClip(models.disc.parameters(), cfg.optimize_lr, cfg.optimize_clip))
-    acc = [torch.zeros_like(p) for p in models.disc.parameters()]
-    d_gen = torch.Generator(device).manual_seed(2)
-    state = {"i": 0}
-
-    def opt_step():
-        aux, d_loss = steps.fused_step(next(batches)[1], acc, state["i"] % cfg.d_update_every == 0,
-                                       gen, d_gen)
-        state["i"] += 1
-        return aux, d_loss
-
-    batches = stream("optimize", cfg.batch_size)
-    try:
-        opt_steady = steady_step(opt_step)
-        aux, d_loss = opt_step()
-        check(all(math.isfinite(v.item()) for v in (*aux.values(), d_loss)),
-              f"non-finite steady losses {aux} {d_loss}")
-    finally:
-        batches.close()
+    models, steps, _, acc, gens = build_optimize(cfg, V, device)
+    opt_steady = optimize_steady(steps, acc, gens, cfg.d_update_every,
+                                 stream("optimize", cfg.batch_size), graphed=False, batches=20)
     check(fused_decode_logits.launches == infer_launches and sinkhorn_cuda.launches == 0,
           "a training step launched a kernel")
     del models, steps, acc
@@ -1922,9 +2124,8 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
        device ms, device operations, the host's launch calls and graph
        replays per step, idle share, peak memory, beside phase 6's eager
        step (``eager_steady``);
-    3. a fresh process with ``--resume 1 --epochs 2``: it starts at epoch 1
-       with the saved best;
-    4. ``infer`` from the G it keeps, through the decode head."""
+    3. ``infer`` from the G it keeps, through the decode head
+       (tests/test_torch_resume.py holds the resume from that state)."""
     import torch
 
     from consistent__style_transfer_torch.config import make_config
@@ -1934,14 +2135,8 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.train.checkpoint import StateCheckpointer
     from consistent__style_transfer_torch.train.common import get_corpus, get_tokenizer
-    from consistent__style_transfer_torch.train.optimize import (
-        GraphedFusedStep,
-        OptimizeModels,
-        load_frozen,
-        load_generator_params,
-        make_optimize_steps,
-    )
-    from consistent__style_transfer_torch.train.state import AdamWithClip, newest_checkpoint
+    from consistent__style_transfer_torch.train.optimize import GraphedFusedStep
+    from consistent__style_transfer_torch.train.state import newest_checkpoint
     from consistent__style_transfer_torch.utils.profiling import StepTimer
 
     t_phase = time.perf_counter()
@@ -1956,23 +2151,9 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     corpus = get_corpus(cfg, "train", tokenizer)
     n_train = count_lines(cfg.train_files())
 
-    def build(dtype: str = "bfloat16", dropout: bool = True):
-        c = make_config("yelp", ver=ver, dtype=dtype, **dirs)
-        models = OptimizeModels(c, V, device)
-        load_frozen(c, models)
-        load_generator_params(c, models.generator)  # phase 6's warmup G
-        if not dropout:
-            for m in (models.generator, models.classifier, models.matcher, models.nt_checker,
-                      models.disc):
-                for sub in m.modules():
-                    if hasattr(sub, "p_drop"):
-                        sub.p_drop = 0.0
-        opts = (AdamWithClip(models.generator.parameters(), c.optimize_lr, c.optimize_clip),
-                AdamWithClip(models.disc.parameters(), c.optimize_lr, c.optimize_clip))
-        steps = make_optimize_steps(c, models, *opts)
-        acc = [torch.zeros_like(p) for p in models.disc.parameters()]
-        gens = (torch.Generator(device).manual_seed(1), torch.Generator(device).manual_seed(2))
-        return models, steps, opts, acc, gens
+    def build(dtype: str = "bfloat16", dropout: bool = True):  # on phase 6's warmup G
+        return build_optimize(make_config("yelp", ver=ver, dtype=dtype, **dirs), V, device,
+                              dropout)
 
     def stream():
         return iter(DevicePrefetcher(make_batches(corpus, B, L, "optimize", shuffle=True, seed=1),
@@ -2147,26 +2328,7 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     del models, steps, acc, runner
     check(graphed["ms_per_step_steady"] > 0, "no graphed step time")
 
-    # 3. a fresh process resumes at epoch 1 with the saved best
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "consistent__style_transfer_torch", "optimize",
-                           *flags, "--epochs", "2", "--megastep_k", str(MEGASTEP_K),
-                           "--resume", "1"], cwd=ROOT, capture_output=True, text=True,
-                          timeout=900)
-    resume_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"resumed optimize exited {proc.returncode}: {proc.stderr[-2000:]}")
-    epochs = [e for e in read_events(cfg, f"optimize-{ver}") if "train_steps" in e]
-    check([e["epoch"] for e in epochs] == [0, 1],
-          f"the resumed run logged epochs {[e['epoch'] for e in epochs]}, want [0, 1]")
-    resumed_logs = [e for e in read_events(cfg, f"optimize-{ver}") if "loss" in e]
-    check(resumed_logs[-1]["step"] >= want, "the resumed run restarted its step counter")
-    final = StateCheckpointer(state_dir).restore()
-    check(final["epoch"] == 1 and final["step"] == 2 * want, "the resumed run's full state")
-    check(final["best"] == min(saved["best"], epochs[1]["val_loss"]),
-          f"best {final['best']}: saved {saved['best']}, epoch 1 {epochs[1]['val_loss']}")
-    check(os.listdir(state_dir) == ["state_1.pt"], f"full_state holds {os.listdir(state_dir)}")
-
-    # 4. infer from the G the run keeps
+    # 3. infer from the G the run keeps
     best = newest_checkpoint(os.path.join(cfg.ds_dump_dir, f"optimize-{ver}"))
     check(best is not None and os.path.basename(best).startswith("G_epoch_"), f"best G {best}")
     fused_decode_logits.launches = 0
@@ -2190,8 +2352,6 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
               "steady": {**graphed, "eager": eager_steady,
                          "speedup_host": eager_steady["ms_per_step_steady"]
                          / graphed["ms_per_step_steady"]},
-              "resume": {"s": resume_s, "saved_best": saved["best"], "final_best": final["best"],
-                         "epoch_1_val_loss": epochs[1]["val_loss"]},
               "infer": {"s": infer_s, "batches": infer_batches,
                         "decode_head_launches": infer_launches}}
     print(json.dumps({"megastep": result}), flush=True)
@@ -2199,16 +2359,21 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
 
 
 # ------------------------------------------------------------------ phase 9
-def cut_corpus(src, dst) -> None:
-    """The first CUT_LINES lines of each of config ``src``'s yelp split
-    files, a style, written to config ``dst``'s data dir."""
+def cut_corpus(src, dst, keep: dict = CUT_LINES) -> None:
+    """The first ``keep[split]`` lines (all of them where None) of each of
+    config ``src``'s split files, a style, written to config ``dst``'s data
+    dir; the human references, where ``src`` has them, copied whole."""
     os.makedirs(dst.ds_data_dir)
-    for split, keep in CUT_LINES.items():
+    for split, n in keep.items():
         for a, b in zip(src.split_files(split), dst.split_files(split)):
             with open(a, encoding="utf-8") as f:
                 lines = f.readlines()
             with open(b, "w", encoding="utf-8") as f:
-                f.writelines(lines[:keep])
+                f.writelines(lines[:n])
+    for k in (0, 1):
+        ref = os.path.join(src.ds_data_dir, f"reference.{k}")
+        if os.path.exists(ref):
+            shutil.copy(ref, dst.ds_data_dir)
 
 
 def beam_graphed_vs_eager(model, x, labels, K: int) -> dict:
@@ -2254,7 +2419,6 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
        memory; greedy and beam-4 rates on a batch; the card's greedy ids
        against the CPU's on a few sentences.
     The decode head launches 0 times in all of it, the Sinkhorn too."""
-    import numpy as np
     import torch
 
     from consistent__style_transfer_torch.config import make_config
@@ -2274,17 +2438,12 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     )
     from consistent__style_transfer_torch.train.graphs import GraphedStep
     from consistent__style_transfer_torch.train.infer import make_transfer_step, transfer_split
-    from consistent__style_transfer_torch.train.optimize import (
-        GraphedFusedStep,
-        OptimizeModels,
-        load_frozen,
-        load_generator_params,
-        make_optimize_steps,
-    )
+    from consistent__style_transfer_torch.train.optimize import load_generator_params
     from consistent__style_transfer_torch.train.state import AdamWithClip
     from consistent__style_transfer_torch.train.warmup import WARMUP_INPUTS, make_warmup_steps
 
     t_phase = time.perf_counter()
+    lap = laps("phase 9")
     # phase 8 leaves TF32 on; a fresh process, as a user's CLI run, has it off
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(make_config("yelp").device)
@@ -2373,6 +2532,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     result["lstm_f32_graphed_vs_eager"] = beam_graphed_vs_eager(f32, x, labels, K)
     del lstm, f32
 
+    lap("the LSTM beam at the serving shape")
     # 1c. serve and infer --beam_size 4 through the CLI on phase 6's G
     dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
                 out_dir=os.path.join(work, "output_beam"), log_dir=os.path.join(work, "log_tf"))
@@ -2412,6 +2572,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
                           "infer_sent_per_s": n_infer / infer_s, "decode_head_launches": 0}
     print(json.dumps({"beam_lstm": result}), flush=True)
 
+    lap("serve and infer with the beam")
     # 2. the transformer backbone, its CLI commands on the cut corpus
     ver = "v_tf"
     tdirs = dict(dirs, data_dir=os.path.join(work, "tf_data"))
@@ -2477,6 +2638,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
             path = os.path.join(tcfg.run_out_dir, f"style.{split}.{label}.tsf")
             check(os.path.exists(path), f"missing {path}")
 
+    lap("the transformer's warmup, optimize and infer commands")
     # beam 4 on the test split, the trained G
     bcfg = make_config("yelp", backbone="transformer", ver=ver, beam_size=K, mode="test", **dirs)
     model = build_generator(bcfg, V, device)
@@ -2536,18 +2698,10 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     check(tf_score_err <= BEAM_SCORE_TOL, f"transformer beam scores {tf_score_err} apart")
     del model, cpu_model
 
+    lap("the transformer's beam and greedy batches, card against CPU")
     # graph replays against eager steps, float32, dropout on, from one state
-    def build(dtype):
-        c = make_config("yelp", backbone="transformer", ver=ver, dtype=dtype, **dirs)
-        models = OptimizeModels(c, V, device)
-        load_frozen(c, models)
-        load_generator_params(c, models.generator)  # the transformer's warmup G
-        opts = (AdamWithClip(models.generator.parameters(), c.optimize_lr, c.optimize_clip),
-                AdamWithClip(models.disc.parameters(), c.optimize_lr, c.optimize_clip))
-        steps = make_optimize_steps(c, models, *opts)
-        acc = [torch.zeros_like(p) for p in models.disc.parameters()]
-        gens = (torch.Generator(device).manual_seed(1), torch.Generator(device).manual_seed(2))
-        return models, steps, opts, acc, gens
+    def opt_cfg(dtype):  # on the transformer's warmup G
+        return make_config("yelp", backbone="transformer", ver=ver, dtype=dtype, **dirs)
 
     train_corpus = get_corpus(make_config("yelp", **dirs), "train", tokenizer)
 
@@ -2560,31 +2714,10 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
         fixed = [next(batches)[1] for _ in range(TF_REPLAY_STEPS + 2)]
     finally:
         batches.close()
-    models, steps, opts, acc, gens = build("float32")
-    scale = torch.ones((), device=device)
-    runner = GraphedFusedStep(steps.fused_step, acc, *gens, scale)
-    runner(fixed[0], True)
-    runner(fixed[1], False)
-    check(sorted(runner.graphs) == [False, True], "both branches were not captured")
-    params = [p for m in (models.generator, models.disc) for p in m.parameters()]
+    replay = optimize_replays(opt_cfg("float32"), V, device, fixed, "transformer")
+    del fixed
 
-    def losses(out):
-        aux, d_loss = out
-        return torch.stack([aux[k].float() for k in ("loss", "G", "STI", "CP", "BK")]
-                           + [d_loss.float()])
-
-    def applies(i):
-        return i % tcfg.d_update_every == 0
-
-    replay = replays_against_eager(
-        params, adam_state(params + acc, opts), gens,
-        lambda i: losses(steps.fused_step(fixed[i + 2], acc, applies(i), *gens, scale)),
-        lambda i: losses(runner(fixed[i + 2], applies(i))), TF_REPLAY_STEPS)
-    replay.update(p_drop=tcfg.p_drop, dtype="float32")
-    print(json.dumps({"transformer_replay_vs_eager": replay}), flush=True)
-    check_replays(replay, "transformer optimize")
-    del models, steps, opts, acc, runner
-
+    lap("the transformer's optimize replays")
     # steady steps at the CLI's settings (bf16 autocast for the scorers)
     model = build_generator(tcfg, V, device, training=True)
     model.load_state_dict(torch.load(warm_path, map_location=device, weights_only=True))
@@ -2610,36 +2743,14 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     print(json.dumps({"transformer_warmup_replay_vs_eager": warm_replay}), flush=True)
     check_replays(warm_replay, "transformer warmup")
 
-    models, steps, _, acc, gens = build("bfloat16")
-    st = {"i": 0}
-
-    def eager():
-        out = steps.fused_step(next(batches)[1], acc, st["i"] % tcfg.d_update_every == 0, *gens)
-        st["i"] += 1
-        return out
-
-    batches = stream("optimize", tcfg.batch_size)
-    try:
-        opt_eager = steady_step(eager, batches=10)
-    finally:
-        batches.close()
-    runner = GraphedFusedStep(steps.fused_step, acc, *gens, torch.ones((), device=device))
-
-    def graphed():
-        out = runner(next(batches)[1], st["i"] % tcfg.d_update_every == 0)
-        st["i"] += 1
-        return out
-
-    batches = stream("optimize", tcfg.batch_size)
-    try:
-        opt_graphed = steady_step(graphed, batches=10)
-        aux, d_loss = graphed()
-        check(all(math.isfinite(v.item()) for v in (*aux.values(), d_loss)),
-              "non-finite graphed transformer losses")
-    finally:
-        batches.close()
+    models, steps, _, acc, gens = build_optimize(opt_cfg("bfloat16"), V, device)
+    opt_eager = optimize_steady(steps, acc, gens, tcfg.d_update_every,
+                                stream("optimize", tcfg.batch_size), graphed=False)
+    opt_graphed = optimize_steady(steps, acc, gens, tcfg.d_update_every,
+                                  stream("optimize", tcfg.batch_size))
     no_kernel("the transformer's steady steps")
-    del models, steps, acc, runner
+    del models, steps, acc
+    lap("the transformer's steady steps and warmup replays")
 
     result["transformer"] = {
         "V": V, "L": L, "widths": "T5-small: d=512, 8 heads, 6+6 layers, ff 2048",
@@ -2721,10 +2832,8 @@ def phase_launcher(work: str, card: str) -> dict:
        lines of each yelp split file: finite logged losses, one step a
        batch, D's cadence, the child's own Sinkhorn launches (one a labeled
        batch) and decode-head launches (18 a batch) from its
-       ``TPUST_KERNEL_COUNTS`` line, its ``.tsf`` files byte-equal to a
-       plain ``infer`` of the same G in this process, and the ``warmup``'s
-       seconds in the child beside a fresh process's without the
-       launcher."""
+       ``TPUST_KERNEL_COUNTS`` line, and its ``.tsf`` files byte-equal to a
+       plain ``infer`` of the same G in this process."""
     import torch
     import torch.distributed as dist
 
@@ -2732,8 +2841,6 @@ def phase_launcher(work: str, card: str) -> dict:
     from consistent__style_transfer_torch.data.pipeline import make_batches
     from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
     from consistent__style_transfer_torch.data.wmd_labels import SinkhornWmdLabeler
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.parallel.mesh import destroy_distributed, make_mesh
     from consistent__style_transfer_torch.parallel.sharding import data_group
     from consistent__style_transfer_torch.train.common import (
@@ -2745,13 +2852,7 @@ def phase_launcher(work: str, card: str) -> dict:
         get_tokenizer,
         get_w2v,
     )
-    from consistent__style_transfer_torch.train.optimize import (
-        GraphedFusedStep,
-        OptimizeModels,
-        load_frozen,
-        load_generator_params,
-        make_optimize_steps,
-    )
+    from consistent__style_transfer_torch.train.optimize import GraphedFusedStep
     from consistent__style_transfer_torch.train.pretrain import TASKS, make_pretrain_steps
     from consistent__style_transfer_torch.train.state import AdamWithClip
     from consistent__style_transfer_torch.train.warmup import make_warmup_steps
@@ -2790,24 +2891,9 @@ def phase_launcher(work: str, card: str) -> dict:
         g = torch.Generator().manual_seed(4)
         coins = [(torch.rand(L, generator=g) < 0.5).to(device) for _ in batches]
 
-        def build(dtype, dropout, grp):
-            c = make_config("yelp", dtype=dtype, **dirs)
-            models = OptimizeModels(c, V, device)
-            load_frozen(c, models)
-            load_generator_params(c, models.generator)  # phase 6's warmup G
-            if not dropout:
-                for m in (models.generator, models.classifier, models.matcher,
-                          models.nt_checker, models.disc):
-                    for sub in m.modules():
-                        if hasattr(sub, "p_drop"):
-                            sub.p_drop = 0.0
-            opts = (AdamWithClip(models.generator.parameters(), c.optimize_lr, c.optimize_clip,
-                                 group=grp),
-                    AdamWithClip(models.disc.parameters(), c.optimize_lr, c.optimize_clip,
-                                 group=grp))
-            steps = make_optimize_steps(c, models, *opts, group=grp)
-            acc = [torch.zeros_like(p) for p in models.disc.parameters()]
-            gens = (torch.Generator(device).manual_seed(1), torch.Generator(device).manual_seed(2))
+        def build(dtype, dropout, grp):  # on phase 6's warmup G
+            models, steps, opts, acc, gens = build_optimize(
+                make_config("yelp", dtype=dtype, **dirs), V, device, dropout, grp)
             runner = GraphedFusedStep(steps.fused_step, acc, *gens, torch.ones((), device=device),
                                       given_coins=not dropout)
             return models, opts, acc, gens, runner
@@ -2912,6 +2998,7 @@ def phase_launcher(work: str, card: str) -> dict:
         result["steady_graphed_bf16"] = steady
     finally:
         destroy_distributed()
+    log(f"phase 10: in process in {time.perf_counter() - t_phase:.1f} s")
     print(json.dumps({"launcher_in_process": result}), flush=True)
     for case, e in result["optimize_group_vs_plain"].items():
         check(e["finite"], f"{case}: non-finite losses")
@@ -2958,6 +3045,7 @@ def phase_launcher(work: str, card: str) -> dict:
         runs[command] = {"wall_s": wall, "command_s": reports[0]["seconds"],
                          "decode_head_launches": reports[0]["fused_decode_logits"],
                          "sinkhorn_launches": reports[0]["sinkhorn"]}
+        log(f"phase 10: launcher {command} in {wall:.1f} s")
     labeled = n_train // B + -(-n_dev // B)
     r = runs["pretrain"]
     check(r["sinkhorn_launches"] == labeled and r["decode_head_launches"] == 0,
@@ -3009,21 +3097,6 @@ def phase_launcher(work: str, card: str) -> dict:
             check(a.read() == b.read(), f"launcher infer: {f} differs from the plain infer's")
     r["tsf_byte_equal_plain"] = True
     r["plain_command_s"] = plain_infer_s
-    # the warmup again in a fresh process without the launcher: what a new
-    # process costs, apart from the launcher and the group
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "consistent__style_transfer_torch", "warmup",
-                           *[a for k, v in dict(fresh, log_dir=os.path.join(work, "fresh_log"))
-                             .items() for a in (f"--{k}", v)]],
-                          cwd=ROOT, capture_output=True, text=True, timeout=900,
-                          env={k: v for k, v in env.items() if k not in
-                               ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")})
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"plain warmup exited {proc.returncode}: {proc.stderr[-3000:]}")
-    report = [json.loads(line)["kernel_launches"] for line in proc.stderr.splitlines()
-              if line.startswith('{"kernel_launches"')]
-    check(len(report) == 1, f"plain warmup: kernel reports {report}")
-    runs["warmup"]["fresh_process_plain"] = {"wall_s": wall, "command_s": report[0]["seconds"]}
     result["launcher"] = runs
     result["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"launcher": result}), flush=True)
@@ -3059,6 +3132,7 @@ def phase_full_run(work: str, card: str) -> dict:
     from consistent__style_transfer_torch.evaluate.run_eval import run_eval
     from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
     from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
+    from consistent__style_transfer_torch.train import optimize as optimize_stage
     from consistent__style_transfer_torch.train.common import get_tokenizer
 
     t_phase = time.perf_counter()
@@ -3109,7 +3183,7 @@ def phase_full_run(work: str, card: str) -> dict:
     labeled = sum(n_train // B + dev_batches for f in pre_flags if f[1])
     check(sink == labeled, f"pretrain: {sink} Sinkhorn launches, want {labeled}")
     check(head == 0, "pretrain launched the decode head")
-    pre_sink = sink
+    pre_sink, pre_head = sink, head
     check(all(e["train_steps"] == n_train // B for e in pre_epochs), "pretrain: steps an epoch")
     keys = sorted(set(pre_flags), key=str)
     pre_graphs = check_replayed(made, keys, len(pre_epochs) * (n_train // B), "pretrain",
@@ -3121,6 +3195,7 @@ def phase_full_run(work: str, card: str) -> dict:
     _, warm_s, made, head, sink = stage(["warmup", *flags, "--warmup_epochs",
                                          str(FULL_RUN_WARMUP_EPOCHS)])
     check(head == 0 and sink == 0, "warmup launched a kernel of the port")
+    warm_head = head
     warm_events = read_events(cfg, "warmup")
     warm_losses = check_finite_losses(warm_events, ("dn_loss", "val_loss"), "warmup")
     warm_epochs = epochs_of(warm_events)
@@ -3132,11 +3207,14 @@ def phase_full_run(work: str, card: str) -> dict:
                                      "warmup validation", steps=2, index=1)
 
     # 3. run: optimize (10 epochs, patience 3), infer, eval-prepare, eval
-    lines, run_s, made, head, sink = stage(["run", *flags])
+    with launches_inside(optimize_stage, ("run_optimize", "run_test")) as inside:
+        lines, run_s, made, head, sink = stage(["run", *flags])
     check(sink == 0, "run launched the Sinkhorn")
     infer_batches = sum(-(-count_lines(cfg.split_files(s)) // B) for s in ("train", "test"))
-    check(head == L * infer_batches, f"run: {head} decode-head launches, want {L} x "
-          f"{infer_batches}")
+    opt_head, head = inside["run_optimize"]["head"], inside["run_test"]["head"]
+    check(opt_head == 0 and head == L * infer_batches,
+          f"run: {opt_head} decode-head launches in optimize, want 0; {head} in infer, want "
+          f"{L} x {infer_batches}; {inside}")
     opt_events = read_events(cfg, f"optimize-{FULL_RUN_VER}")
     opt_losses = check_finite_losses(opt_events, ("G", "STI", "CP", "BK", "D", "loss",
                                                   "val_loss"), "optimize")
@@ -3200,14 +3278,14 @@ def phase_full_run(work: str, card: str) -> dict:
         "wall_s": {"pretrain": pre_s, "warmup": warm_s, "run": run_s},
         "pretrain": {**seconds(pre_epochs), "flags": [list(f) for f in pre_flags],
                      "val_loss": [e["val_loss"] for e in pre_epochs], "losses": pre_losses,
-                     "sinkhorn_launches": pre_sink, "graphs": pre_graphs,
-                     "validation_graphs": pre_val_graphs},
+                     "sinkhorn_launches": pre_sink, "decode_head_launches": pre_head,
+                     "graphs": pre_graphs, "validation_graphs": pre_val_graphs},
         "warmup": {**seconds(warm_epochs), "val_loss": [e["val_loss"] for e in warm_epochs],
                    "losses": warm_losses, "graphs": warm_graphs,
-                   "validation_graphs": warm_val_graphs},
+                   "validation_graphs": warm_val_graphs, "decode_head_launches": warm_head},
         "optimize": {**seconds(opt_epochs), "val_loss": [e["val_loss"] for e in opt_epochs],
                      "d_applies": [e["d_applies"] for e in opt_epochs], "losses": opt_losses,
-                     "validation_graphs": opt_val_graphs},
+                     "validation_graphs": opt_val_graphs, "decode_head_launches": opt_head},
         "infer": {"batches": infer_batches, "decode_head_launches": head,
                   "graphs": infer_graphs},
         "prepare_timings": timings[0], "results": written.strip().splitlines(),
@@ -3215,6 +3293,442 @@ def phase_full_run(work: str, card: str) -> dict:
         "phase_s": time.perf_counter() - t_phase}
     print(json.dumps({"full_run": result}), flush=True)
     check(not outside, f"phase 11: {outside} outside the band: {scores}")
+    return result
+
+
+# ------------------------------------------------------------------ phase 12
+def phase_book(work: str, card: str) -> dict:
+    """The book dataset (``data/book``: L=30, B=128, warmup B=512, no human
+    references) end to end through the port's CLI, on the first
+    BOOK_CUT_LINES lines of each split file (a cut of depth; every width is
+    book's own: BPE ``vocab_size=10000``, the 6-layer / 8-head / d=512
+    scorers, the generator's widths, bf16 autocast over float32 parameters,
+    seed 0), in a fresh dump dir:
+    1. ``vocab``, ``w2v``, ``pretrain --epochs 1``, ``warmup`` (one epoch)
+       and ``run --epochs 1`` (optimize, ``infer``, ``eval-prepare``,
+       ``eval``): checkpoints load strictly, every logged loss is finite,
+       one step a batch, D applied ceil(steps / d_update_every) times, every
+       train step, dev batch and infer batch a graph replay but the first
+       of each branch, the Sinkhorn once a labeled pretrain batch, the
+       decode head 0 times in training and L times an infer batch, and
+       ``eval``'s STI, CP, NT, ACC and self-BLEU finite and in range, with
+       no ref-BLEU line; then ``serve`` on BOOK_SERVE_LINES test lines;
+    2. the Sinkhorn on a real book label batch (45 atoms a side) against
+       its plain version, graph-timed beside the labeler's host time, and
+       the collate's host ms a batch (noise and labels, as the prefetcher's
+       thread runs it);
+    3. the graphed pretrain, warmup and optimize steps at the CLI's
+       settings: ms per step, device ms, idle share, peak memory;
+    4. float32 replays of the pretrain (two flag tuples), warmup and
+       optimize steps against eager steps from one state (dropout on), and
+       the three stages' validation passes graphed against eager, with
+       equal losses;
+    5. greedy serving at B=128 on the trained G (bf16, graphed; ms per
+       batch, sentences/s, device ms, idle share), the card's float32 greedy
+       ids against the CPU's on BOOK_CHECK_N test sentences, and the float32
+       beam of 4 on one book batch, graphed against eager;
+    6. the decode head at B=128 and book's V in bf16 and float32 against
+       its plain version, graph-timed beside the plain version and the
+       library call, with its bound."""
+    import ast
+
+    import numpy as np
+    import torch
+
+    from consistent__style_transfer_torch import cli
+    from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.data.pipeline import make_batches
+    from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
+    from consistent__style_transfer_torch.data.wmd_labels import SinkhornWmdLabeler
+    from consistent__style_transfer_torch.evaluate.prepare import eval_paths
+    from consistent__style_transfer_torch.evaluate.run_eval import run_eval
+    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
+    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
+    from consistent__style_transfer_torch.models import PairMatcher, TextCNN, TransformerLM
+    from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
+    from consistent__style_transfer_torch.text.fasttext_cls import FastTextClassifier
+    from consistent__style_transfer_torch.train import optimize as optimize_stage
+    from consistent__style_transfer_torch.train.common import (build_classifier,
+                                                               build_generator, build_lm,
+                                                               build_matcher, get_corpus,
+                                                               get_tokenizer, get_w2v)
+    from consistent__style_transfer_torch.train.graphs import GraphedStep
+    from consistent__style_transfer_torch.train.infer import make_transfer_step
+    from consistent__style_transfer_torch.train.optimize import load_generator_params
+    from consistent__style_transfer_torch.train.pretrain import (TASKS, make_pretrain_steps,
+                                                                 step_inputs)
+    from consistent__style_transfer_torch.train.state import AdamWithClip, newest_checkpoint
+    from consistent__style_transfer_torch.train.warmup import WARMUP_INPUTS, make_warmup_steps
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as a fresh process has it
+    base = os.path.join(work, "book")
+    dirs = dict(data_dir=os.path.join(base, "data"), dump_dir=os.path.join(base, "dump"),
+                out_dir=os.path.join(base, "output"), log_dir=os.path.join(base, "log"))
+    flags = ["--dataset", "book"] + [a for k, v in dirs.items() for a in (f"--{k}", v)]
+    cfg = make_config("book", **dirs)
+    cut_corpus(make_config("book", data_dir=os.path.join(ROOT, "data")), cfg, BOOK_CUT_LINES)
+    B, L, WB, device = cfg.batch_size, cfg.max_len, cfg.warmup_batch_size, torch.device("cuda")
+    check((L, B, WB) == (30, 128, 512), f"book's preset: L={L}, B={B}, warmup B={WB}")
+    check(not any(os.path.exists(os.path.join(cfg.ds_data_dir, f"reference.{k}"))
+                  for k in (0, 1)), "the book corpus has human references")
+    n_train, n_dev = count_lines(cfg.train_files()), count_lines(cfg.split_files("dev"))
+    n_test = count_lines(cfg.split_files("test"))
+    dev_batches = -(-n_dev // B)
+    cli_s = {}
+
+    def stage(argv, stdin_text=""):
+        fused_decode_logits.launches = 0
+        sinkhorn_cuda.launches = 0
+        t0 = time.perf_counter()
+        with watch_graphs() as made, watch_graphs(optimize_stage, "GraphedFusedStep") as fused:
+            lines = run_cli(argv, stdin_text)
+        torch.cuda.synchronize()
+        cli_s[argv[0]] = time.perf_counter() - t0
+        log(f"phase 12: {argv[0]} in {cli_s[argv[0]]:.1f} s")
+        return lines, made, fused, fused_decode_logits.launches, sinkhorn_cuda.launches
+
+    def no_kernel(what, head, sink):
+        check(head == 0 and sink == 0, f"book {what} launched a kernel: head {head}, "
+              f"Sinkhorn {sink}")
+
+    def epoch_of(stage_name, steps):
+        events = read_events(cfg, stage_name)
+        epochs = [e for e in events if "train_steps" in e]
+        check(len(epochs) == 1 and epochs[0]["train_steps"] == steps,
+              f"book {stage_name}: epochs {epochs}, want one of {steps} steps")
+        check(epochs[0]["val_s"] > 0, f"book {stage_name} logged val_s {epochs[0]['val_s']}")
+        return events, epochs[0]
+
+    # 1. the CLI chain
+    _, _, _, head, sink = stage(["vocab", *flags])
+    no_kernel("vocab", head, sink)
+    tokenizer = get_tokenizer(cfg)
+    V = len(tokenizer)
+    log(f"phase 12: book BPE at vocab_size {cfg.vocab_size}: V={V}")
+    _, _, _, head, sink = stage(["w2v", *flags])
+    no_kernel("w2v", head, sink)
+    check(os.path.exists(cfg.w2v_path), f"w2v wrote no {cfg.w2v_path}")
+
+    _, made, _, pre_head, pre_sink = stage(["pretrain", *flags, "--epochs", "1"])
+    labeled = n_train // B + dev_batches  # train drops its last partial batch
+    check(pre_sink == labeled, f"book pretrain: {pre_sink} Sinkhorn launches, want one per "
+          f"labeled batch = {labeled}")
+    check(pre_head == 0, "book pretrain launched the decode head")
+    for task, cls in (("cls", TextCNN), ("mat", PairMatcher), ("dn", TransformerLM)):
+        path = os.path.join(cfg.ds_dump_dir, "pretrain", f"{task}.pth")
+        check(os.path.exists(path), f"missing {path}")
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        cls(V).load_state_dict(sd, strict=True)
+        check(all(bool(torch.isfinite(v).all()) for v in sd.values()), f"{path}: non-finite")
+    events, pre_epoch = epoch_of("pretrain", n_train // B)
+    pre_losses = check_finite_losses(events, ("cls_loss", "mat_loss", "dn_loss", "val_loss"),
+                                     "book pretrain")
+    full, frozen = (True, True, True), (True, False, True)
+    pre_graphs = check_replayed(made, [full], n_train // B, "book pretrain", steps=2)
+    pre_val_graphs = check_replayed(made, [full], dev_batches, "book pretrain validation",
+                                    steps=2, index=1)
+
+    def load_g(path):
+        check(os.path.exists(path), f"missing {path}")
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        DenoiseSeq2Seq(V, cfg.n_class, L).load_state_dict(sd, strict=True)
+        check(all(bool(torch.isfinite(v).all()) for v in sd.values()), f"{path}: non-finite")
+
+    _, made, _, warm_head, sink = stage(["warmup", *flags])
+    no_kernel("warmup", warm_head, sink)
+    warm_path = os.path.join(cfg.ds_dump_dir, "warmup", "G.pth")
+    load_g(warm_path)
+    events, warm_epoch = epoch_of("warmup", n_train // WB)
+    warm_losses = check_finite_losses(events, ("dn_loss", "val_loss"), "book warmup")
+    warm_graphs = check_replayed(made, [None], n_train // WB, "book warmup", steps=2)
+    warm_val_graphs = check_replayed(made, [None], -(-n_dev // WB), "book warmup validation",
+                                     steps=2, index=1)
+
+    with launches_inside(optimize_stage, ("run_optimize", "run_test")) as inside:
+        lines, made, fused, _, sink = stage(["run", *flags, "--epochs", "1"])
+    check(sink == 0, "book run launched the Sinkhorn")
+    infer_batches = -(-n_train // B) + -(-n_test // B)
+    opt_head, run_head = inside["run_optimize"]["head"], inside["run_test"]["head"]
+    check(opt_head == 0 and run_head == L * infer_batches,
+          f"book run: {opt_head} decode-head launches in optimize, want 0; {run_head} in "
+          f"infer, want {L} x {infer_batches}; {inside}")
+    task = os.path.join(cfg.ds_dump_dir, f"optimize-{cfg.ver}")
+    best = newest_checkpoint(task)
+    check(best == os.path.join(task, "G_epoch_0.pth"), f"book optimize kept {best}")
+    load_g(best)
+    events, opt_epoch = epoch_of(f"optimize-{cfg.ver}", n_train // B)
+    opt_losses = check_finite_losses(events, ("G", "STI", "CP", "BK", "D", "loss", "val_loss"),
+                                     "book optimize")
+    want = math.ceil(opt_epoch["train_steps"] / cfg.d_update_every)
+    check(opt_epoch["d_applies"] == want, f"book optimize: D applied {opt_epoch['d_applies']}, "
+          f"want {want}")
+    opt_graphs = check_replayed(fused, [True, False], n_train // B, "book optimize")
+    opt_val_graphs = check_replayed(made, [None], dev_batches, "book optimize validation",
+                                    steps=2)
+    infer_graphs = check_replayed(made, [(B, L)], infer_batches, "book infer", steps=2, index=1)
+    for split in ("train", "test"):
+        for k, src in enumerate(cfg.split_files(split)):
+            path = os.path.join(cfg.run_out_dir, f"style.{split}.{k}.tsf")
+            with open(path, encoding="utf-8") as f:
+                got = len(f.read().splitlines())
+            check(got == count_lines([src]), f"{path}: {got} lines, want {count_lines([src])}")
+    timings = [ast.literal_eval(line.split("timings: ", 1)[1]) for line in lines
+               if line.startswith("[prepare] timings: ")]
+    check(len(timings) == 1 and set(timings[0]) == {"classifier_s", "lexicon_s", "mask_s",
+                                                     "mask_w2v_s", "adv_lr_s"},
+          f"book eval-prepare timings: {timings}")
+    fit_meta = FastTextClassifier.load_model(
+        eval_paths(cli._eval_dir(cfg), cfg.dataset, cfg.ver)["classifier"]).fit_meta
+    check(fit_meta.get("sgd_path") == "minibatch" and fit_meta.get("retries") == 0,
+          f"book classifier fit_meta {fit_meta}")
+    scores = run_eval(cfg.ds_data_dir, cfg.run_out_dir, cli._eval_dir(cfg), cfg.dataset,
+                      cfg.ver, quiet=True)
+    printed = "\n".join(lines)
+    for key, label, fmt in (("STI", "STI (higher is better)", "%.4f"),
+                            ("CP", "CP (lower is better)", "%.4f"),
+                            ("NT", "NT (higher is better)", "%.4f"),
+                            ("ACC", "ACC (transfer accuracy)", "%.4f"),
+                            ("selfBLEU", "self-BLEU", "%.2f")):
+        check(key in scores and f"{label}: {fmt % scores[key]}" in printed,
+              f"book eval printed no {label} line equal to {scores.get(key)}")
+    samples = []
+    for k in (0, 1):
+        with open(cfg.split_files("test")[k], encoding="utf-8") as a, \
+                open(os.path.join(cfg.run_out_dir, f"style.test.{k}.tsf"), encoding="utf-8") as b:
+            samples += [[src.strip(), out.strip()] for src, out, _ in zip(a, b, range(2))]
+    check("refBLEU" not in scores and "ref-BLEU" not in printed,
+          "book eval printed a ref-BLEU line without references")
+    check(-1 <= scores["STI"] <= 1 and math.isfinite(scores["CP"]) and scores["CP"] >= 0
+          and 0 <= scores["NT"] <= 1 and 0 <= scores["ACC"] <= 1
+          and math.isfinite(scores["selfBLEU"]) and 0 <= scores["selfBLEU"] <= 100,
+          f"book scores out of range: {scores}")
+    results_path = os.path.join(cfg.out_dir, f"{cfg.dataset}-{cfg.ver}.txt")
+    with open(results_path, encoding="utf-8") as f:
+        written = f.read()
+    check("STI (higher is better)" in written and "ref-BLEU" not in written,
+          f"{results_path}: {written}")
+
+    requests = []
+    for label in (0, 1):
+        with open(os.path.join(cfg.ds_data_dir, f"style.test.{label}"), encoding="utf-8") as f:
+            requests += [f"{label}\t{line.strip()}" for line in f if line.strip()]
+    requests = requests[:: max(1, len(requests) // BOOK_SERVE_LINES)][:BOOK_SERVE_LINES]
+    served, made, _, serve_head, sink = stage(["serve", *flags], "\n".join(requests) + "\n")
+    serve_batches = -(-len(requests) // B)
+    check(sink == 0 and serve_head == L * serve_batches,
+          f"book serve: {serve_head} decode-head launches, want {L} x {serve_batches}")
+    check(len(served) == len(requests), f"book serve printed {len(served)} of {len(requests)}")
+    serve_graphs = check_replayed(made, [(B, L)], serve_batches, "book serve")
+
+    lap = laps("phase 12")
+    # 2. the Sinkhorn on a real book label batch, and the collate's pace
+    labeler = SinkhornWmdLabeler(get_w2v(cfg, tokenizer), tokenizer, max_atoms=L + L // 2,
+                                 device=device)
+    check(labeler.max_atoms == 45, f"book labeler capacity {labeler.max_atoms}")
+    corpus = get_corpus(cfg, "train", tokenizer)
+    real = real_label_batch(cfg, labeler, corpus)
+    check(max(real["atoms"]) == 45, f"book label batch atoms {real['atoms']}")
+    print(json.dumps({"book_sinkhorn_label_batch": real}), flush=True)
+    collate = iter(make_batches(corpus, B, L, "pretrain", shuffle=True, seed=1,
+                                wmd_labeler=labeler))
+    next(collate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        next(collate)
+    collate_ms = (time.perf_counter() - t0) * 1e3 / 20  # the host's; the labels stay queued
+    torch.cuda.synchronize()
+    del collate
+
+    lap("the real label batch and the collate")
+    # 3. the graphed steps at the CLI's settings
+    towers = {"cls": build_classifier(cfg, V, device), "mat": build_matcher(cfg, V, device),
+              "dn": build_lm(cfg, V, device)}
+    pre_step, _ = make_pretrain_steps(
+        towers, AdamWithClip([p for t in TASKS for p in towers[t].parameters()],
+                             cfg.pretrain_lr, cfg.pretrain_clip), autocast_dtype=torch.bfloat16)
+    gen = torch.Generator(device).manual_seed(0)
+    runner = GraphedStep(lambda inputs, f: pre_step(inputs, f, gen), (gen,))
+    stream = iter(DevicePrefetcher(make_batches(corpus, B, L, "pretrain", shuffle=True, seed=1,
+                                                wmd_labeler=labeler), device))
+
+    def graphed_pre():
+        arrays = next(stream)[1]
+        return runner({k: arrays[k] for k in step_inputs(full)}, full)
+
+    try:
+        pre_steady = steady_step(graphed_pre, batches=10)
+        check(all(bool(torch.isfinite(v)) for v in graphed_pre().values()),
+              "non-finite graphed book pretrain losses")
+    finally:
+        stream.close()
+    pre_steady["graph_nodes"] = graph_nodes(runner.graphs[full])
+    del towers, pre_step, runner
+    fused_decode_logits.launches = 0
+    sinkhorn_cuda.launches = 0
+
+    def stream_of(stage_name, batch_size, seed=1):
+        return iter(DevicePrefetcher(make_batches(corpus, batch_size, L, stage_name, shuffle=True,
+                                                  seed=seed), device))
+
+    model = build_generator(cfg, V, device, training=True)
+    model.load_state_dict(torch.load(warm_path, map_location=device, weights_only=True))
+    warm_step, _ = make_warmup_steps(model, AdamWithClip(model.parameters(), cfg.warmup_lr,
+                                                         cfg.warmup_clip), torch.bfloat16)
+    runner = GraphedStep(lambda inputs, _: warm_step(inputs, gen), (gen,))
+    batches = stream_of("warmup", WB)
+
+    def graphed_warm():
+        arrays = next(batches)[1]
+        return runner({k: arrays[k] for k in WARMUP_INPUTS})
+
+    try:
+        warm_steady = steady_step(graphed_warm, batches=10)
+        check(math.isfinite(graphed_warm().item()), "non-finite graphed book warmup loss")
+    finally:
+        batches.close()
+    warm_steady["graph_nodes"] = graph_nodes(runner.graphs[None])
+    del model, warm_step, runner
+
+    # on the run's G_epoch_0
+    models, steps, _, acc, gens = build_optimize(cfg, V, device)
+    opt_steady = optimize_steady(steps, acc, gens, cfg.d_update_every, stream_of("optimize", B),
+                                 batches=12)
+    del models, steps, acc
+    check(fused_decode_logits.launches == 0 and sinkhorn_cuda.launches == 0,
+          "a graphed book warmup or optimize step launched a kernel of the port")
+
+    lap("the graphed steps' steady times")
+    # 4. float32 replays against eager steps, and validation passes
+    f32 = make_config("book", dtype="float32", **dirs)
+    pre_replay = pretrain_replays(f32, V, corpus, labeler, work, what="book_pretrain")
+    warm_replay = warmup_replays(f32, V, device, warm_path, corpus)
+    print(json.dumps({"book_warmup_replay_vs_eager": warm_replay}), flush=True)
+    check_replays(warm_replay, "book warmup")
+    batches = stream_of("optimize", B, seed=3)
+    try:
+        fixed = [next(batches)[1] for _ in range(TF_REPLAY_STEPS + 2)]
+    finally:
+        batches.close()
+    opt_replay = optimize_replays(f32, V, device, fixed, "book")
+    del fixed
+    torch.backends.cudnn.allow_tf32 = True
+    lap("the float32 step replays")
+    val_replay = {s: validation_passes(f32, s, device, passes=1)
+                  for s in ("pretrain", "warmup", "optimize")}
+    print(json.dumps({"book_validation_replay_vs_eager": val_replay}), flush=True)
+    for v in val_replay.values():
+        check_validation_equal(v)
+
+    lap("the validation passes")
+    # 5. serving at B=128 on the trained G; float32 ids against the CPU's;
+    # the float32 beam of 4, graphed against eager
+    test = get_corpus(cfg, "test", tokenizer)
+    rows = np.linspace(0, len(test) - 1, B).astype(int)  # both styles
+    x = torch.from_numpy(test.ids[rows]).to(device)
+    labels = torch.from_numpy(test.labels[rows]).to(device)
+    check(tuple(x.shape) == (B, L), f"book test batch {tuple(x.shape)}")
+    serving = build_generator(cfg, V, device)  # bf16 serving weights, as serve loads them
+    load_generator_params(cfg, serving)
+    step = make_transfer_step(serving)
+    for _ in range(3):
+        step(x, labels)
+    torch.cuda.synchronize()
+    fused_decode_logits.launches = 0
+    n = 20
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(x, labels)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3 / n
+    check(fused_decode_logits.launches == L * n, f"book serving: "
+          f"{fused_decode_logits.launches} head launches, want {L} x {n}")
+    prof = profile_breakdown(lambda: step(x, labels), watch=("ffn_", "vocab_argmax"))
+    device_ms = prof.get("device_ms_per_batch")
+    serving_row = {"dtype": cfg.dtype, "B": B, "L": L, "V": V, "ms_per_batch": serve_ms,
+                   "sent_per_s": B * 1e3 / serve_ms, "device_ms_per_batch": device_ms,
+                   "device_idle_share": (1 - device_ms / serve_ms)
+                   if isinstance(device_ms, float) else "not measured",
+                   "head_launches_per_batch": L, "watched": prof.get("watched", "not measured"),
+                   "graph_nodes": graph_nodes(step.runner.graphs[(B, L)]),
+                   **peak_memory(lambda: step(x, labels))}
+    del serving, step
+    cfg32 = make_config("book", dtype="float32", mode="test", **dirs)
+    rows = np.linspace(0, len(test) - 1, BOOK_CHECK_N).astype(int)
+    xs, ls = test.ids[rows], test.labels[rows]
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        model = build_generator(cfg32, V, torch.device(dev))
+        load_generator_params(cfg32, model)
+        transfer = make_transfer_step(model)
+        for _ in range(2):  # on the card: the eager first call, then a replay
+            ids[dev] = transfer(torch.from_numpy(xs).to(dev), torch.from_numpy(ls).to(dev)).cpu()
+        if dev == "cuda":
+            beam = beam_graphed_vs_eager(model, x, labels, BEAM_K)
+        del model, transfer
+    agree = (ids["cuda"] == ids["cpu"]).float().mean().item()
+    check(agree == 1.0, f"book f32 greedy ids on the card agree with the CPU on {agree:.3f}")
+
+    lap("serving, the card against the CPU and the beam")
+    # 6. the decode head at B=128 and book's V
+    head_checks, head_timed = [], {}
+    for seed, (dtype_name, dtype) in enumerate((("bfloat16", torch.bfloat16),
+                                                ("float32", torch.float32))):
+        hx, w1, b1, w2 = head_inputs(B, V, dtype, 40 + seed)
+        row = check_head(hx, w1, b1, w2, dtype_name)
+        head_checks.append(row)
+        head_timed[dtype_name] = {**head_times(hx, w1, b1, w2, dtype_name, 40 + seed),
+                                  "max_abs_err_h": row["max_abs_err_h"],
+                                  "ids_mismatch": row["ids_mismatch"]}
+        check(head_timed[dtype_name]["kernel_device_ops_per_call"] == 2,
+              f"book decode head {dtype_name}: device operations per call")
+    print(json.dumps({"book_decode_head": {"checks": head_checks, "times": head_timed}}),
+          flush=True)
+    lap("the decode head")
+
+    idle = pre_steady["device_idle_share"]
+    result = {
+        "card": card, "corpus": f"data/book, the first {BOOK_CUT_LINES} lines a style",
+        "dtype": "bfloat16 autocast, float32 parameters", "seed": cfg.seed, "V": V, "L": L,
+        "B": B, "warmup_B": WB, "scorer": "6 layers / 8 heads / d=512", "vocab_size": cfg.vocab_size,
+        "train_sentences": n_train, "dev_sentences": n_dev, "test_sentences": n_test,
+        "cli_s": cli_s, "prepare_timings": timings[0], "classifier_fit": fit_meta,
+        "scores": scores, "test_transfers": samples,
+        "results": written.strip().splitlines(),
+        "pretrain": {"sinkhorn_launches": pre_sink, "labeled_batches": labeled,
+                     "decode_head_launches": pre_head,
+                     "train_steps": pre_epoch["train_steps"], "train_s": pre_epoch["train_s"],
+                     "val_s": pre_epoch["val_s"],
+                     "ms_per_step_epoch": pre_epoch["train_s"] * 1e3 / pre_epoch["train_steps"],
+                     "graphs": pre_graphs, "validation_graphs": pre_val_graphs,
+                     "losses": pre_losses, "graphed": pre_steady,
+                     "collate_host_ms_per_batch": collate_ms,
+                     "collate_sets_the_pace": (isinstance(idle, float)
+                                               and collate_ms > pre_steady["device_ms_per_step"]),
+                     "replay_vs_eager": pre_replay},
+        "warmup": {"train_steps": warm_epoch["train_steps"], "train_s": warm_epoch["train_s"],
+                   "val_s": warm_epoch["val_s"], "graphs": warm_graphs,
+                   "decode_head_launches": warm_head,
+                   "validation_graphs": warm_val_graphs, "losses": warm_losses,
+                   "graphed": warm_steady, "replay_vs_eager": warm_replay},
+        "optimize": {"train_steps": opt_epoch["train_steps"], "train_s": opt_epoch["train_s"],
+                     "val_s": opt_epoch["val_s"], "d_applies": opt_epoch["d_applies"],
+                     "graphs": opt_graphs, "validation_graphs": opt_val_graphs,
+                     "losses": opt_losses, "graphed": opt_steady,
+                     "replay_vs_eager": opt_replay, "decode_head_launches": opt_head},
+        "infer": {"batches": infer_batches, "decode_head_launches": run_head,
+                  "graphs": infer_graphs},
+        "serve": {"requests": len(requests), "batches": serve_batches,
+                  "decode_head_launches": serve_head, "graphs": serve_graphs},
+        "serving": serving_row,
+        "sinkhorn_label_batch": real,
+        "validation_replay_vs_eager": val_replay,
+        "f32_card_vs_cpu": {"sentences": BOOK_CHECK_N, "agree": agree},
+        "beam_graphed_vs_eager": beam,
+        "decode_head": head_timed,
+        "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"book": result}), flush=True)
     return result
 
 
@@ -3227,22 +3741,34 @@ def main() -> int:
     import consistent__style_transfer_torch  # noqa: F401  (fails outside a checkout)
 
     t_start = time.perf_counter()
-    card, build = phase_card_and_build()
-    timed = phase_kernel_vs_plain()
-    sinkhorn = phase_sinkhorn_vs_plain()
+    phase_s = {}
+
+    def phase(n, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[n] = time.perf_counter() - t0
+        log(f"phase {n} passed in {phase_s[n]:.1f} s")
+        return out
+
+    card, build = phase("1", phase_card_and_build)
+    timed = phase("2, decode head", phase_kernel_vs_plain)
+    sinkhorn = phase("2, Sinkhorn", phase_sinkhorn_vs_plain)
     with tempfile.TemporaryDirectory() as work:
-        served = phase_serve_and_infer(work)
-        full = phase_full_width(card, timed[f"bfloat16_V{YELP_V}"]["kernel_ms"])
-        pre = phase_pretrain(work, card)
-        trained = phase_training(work, card)
-        phase_eval(work, card)
-        mega = phase_megastep(work, card, trained["optimize"])
-        beams = phase_beam_and_transformer(work, card, full)
-        launch = phase_launcher(work, card)["launcher"]
-        full_run = phase_full_run(work, card)
+        served = phase("3", phase_serve_and_infer, work)
+        full = phase("4", phase_full_width, card, timed[f"bfloat16_V{YELP_V}"]["kernel_ms"])
+        pre = phase("5", phase_pretrain, work, card)
+        trained = phase("6", phase_training, work, card)
+        phase("7", phase_eval, work, card)
+        mega = phase("8", phase_megastep, work, card, trained["optimize"])
+        beams = phase("9", phase_beam_and_transformer, work, card, full)
+        launch = phase("10", phase_launcher, work, card)["launcher"]
+        full_run = phase("11", phase_full_run, work, card)
+        book = phase("12", phase_book, work, card)
+    print(json.dumps({"phase_s": phase_s}), flush=True)
 
     yelp = timed[f"bfloat16_V{YELP_V}"]
     real = pre["sinkhorn_label_batch"]
+    book_real = book["sinkhorn_label_batch"]
     sinkhorn_rows = [{
         "name": name,
         "route": "cuda",
@@ -3250,10 +3776,12 @@ def main() -> int:
         "replaces": f"consistent__style_transfer_tpu/kernels/sinkhorn.py:{line}",
         # one CUDA kernel behind both names: its launches, through either
         "launches": (pre["sinkhorn_launches"] + launch["pretrain"]["sinkhorn_launches"]
-                     + full_run["pretrain"]["sinkhorn_launches"]),
+                     + full_run["pretrain"]["sinkhorn_launches"]
+                     + book["pretrain"]["sinkhorn_launches"]),
         "launches_by_path": {"pretrain": pre["sinkhorn_launches"],
                              "pretrain_launcher": launch["pretrain"]["sinkhorn_launches"],
-                             "pretrain_full_run": full_run["pretrain"]["sinkhorn_launches"]},
+                             "pretrain_full_run": full_run["pretrain"]["sinkhorn_launches"],
+                             "pretrain_book": book["pretrain"]["sinkhorn_launches"]},
         "launch_counter": "sinkhorn_cuda.launches (one kernel behind both names)",
         "launches_per_batch": 1,
         "max_abs_err": max(real["max_abs_err"], sinkhorn["max_abs_err"]),
@@ -3276,6 +3804,11 @@ def main() -> int:
         "synthetic": {k: {f: v[f] for f in (f"{key}_ms", f"{key}_eager_ms", "bound_ms",
                                             "bound_term")}
                       for k, v in sinkhorn.items() if isinstance(v, dict)},
+        # the same, graph-timed on a real book label batch (phase 12)
+        "book": {f: book_real[f] for f in (f"{key}_ms", f"{key}_eager_ms", "plain_ms",
+                                           "bound_ms", "bound_by", "bound_term",
+                                           "valid_terms_per_iter", "valid_atoms", "atoms",
+                                           "max_abs_err")},
     } for name, line, key in (("sinkhorn_pallas", 178, "kernel"),
                               ("sinkhorn_pallas_cr", 129, "kernel_cr"))]
     print(json.dumps({"kernels": [{
@@ -3288,7 +3821,9 @@ def main() -> int:
                      + mega["infer"]["decode_head_launches"]
                      + beams["greedy_beside_beam_launches"]
                      + launch["infer"]["decode_head_launches"]
-                     + full_run["infer"]["decode_head_launches"]),
+                     + full_run["infer"]["decode_head_launches"]
+                     + book["infer"]["decode_head_launches"]
+                     + book["serve"]["decode_head_launches"]),
         "launches_by_path": {"serve": served["serve_launches"], "infer": served["infer_launches"],
                              "warmup": 0, "optimize": 0,
                              "infer_after_optimize": trained["infer"]["decode_head_launches"],
@@ -3299,12 +3834,16 @@ def main() -> int:
                              "serving_beam": 0, "serve_beam": 0, "infer_beam": 0,
                              "warmup_transformer": 0, "optimize_transformer": 0,
                              "infer_transformer": 0, "infer_transformer_beam": 0,
-                             "pretrain_launcher": 0, "warmup_launcher": 0,
-                             "optimize_launcher": 0,
-                             "infer_launcher": launch["infer"]["decode_head_launches"],
-                             "pretrain_full_run": 0, "warmup_full_run": 0,
-                             "optimize_full_run": 0, "validation": 0,
-                             "run_full": full_run["infer"]["decode_head_launches"]},
+                             **{f"{c}_launcher": launch[c]["decode_head_launches"]
+                                for c in ("pretrain", "warmup", "optimize", "infer")},
+                             **{f"{s}_full_run": full_run[s]["decode_head_launches"]
+                                for s in ("pretrain", "warmup", "optimize")},
+                             "validation": 0,
+                             "run_full": full_run["infer"]["decode_head_launches"],
+                             **{f"{s}_book": book[s]["decode_head_launches"]
+                                for s in ("pretrain", "warmup", "optimize")},
+                             "run_book": book["infer"]["decode_head_launches"],
+                             "serve_book": book["serve"]["decode_head_launches"]},
         "launches_per_batch": full["launches_per_batch"],
         "launch_counter": "fused_decode_logits.launches: eager calls, and each replay adds the "
                           "calls its graph captured",
@@ -3333,6 +3872,12 @@ def main() -> int:
         "sass_hgmma": build["decode_step"]["sass_hgmma"],
         "shape": {"B": YELP_B, "Din": DIN, "H": HID, "V": YELP_V, "dtype": "bfloat16"},
         "other_shapes": {k: v for k, v in timed.items() if k != f"bfloat16_V{YELP_V}"},
+        # B=128 at book's V (phase 12), each dtype
+        "book": {k: {f: v[f] for f in ("B", "V", "kernel_ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by", "bound_share", "kernel_warm_ms",
+                                       "max_abs_err_h", "ids_mismatch")}
+                 for k, v in book["decode_head"].items()},
+        "book_launches_per_batch": book["L"],
     }, *sinkhorn_rows]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

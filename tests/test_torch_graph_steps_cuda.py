@@ -5,7 +5,8 @@ replayed against its eager step, the validation passes of the three stages
 (``train/loop.py::validate`` with a graphed eval step, pretrain's across a
 freeze) against eager passes, the decode head's launch count under
 replay (none in the beam), and a capture during which a collection of a
-dead step's graphs falls due. Every test needs a CUDA device and skips
+dead step's graphs falls due. Greedy serving and the LSTM warmup step also
+run at the book preset's L=30. Every test needs a CUDA device and skips
 without one. This file imports no JAX, so it
 runs on a machine that has only PyTorch (tests/conftest.py imports jax,
 hence ``--noconftest``):
@@ -69,6 +70,7 @@ from consistent__style_transfer_torch.train.warmup import (  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 V, B, L = 300, 16, 6
+BOOK_L = 30  # the book preset's max_len (config.py)
 SIZE = dict(d_model=32, n_heads=2, n_layers=2)
 G_SIZE = dict(d_model=32, n_heads=4, n_enc=2, n_dec=2, d_ff=64)
 LOSS_REL, SHARE, BF16_TOKEN_SHARE = 1e-5, 1e-3, 0.01
@@ -92,30 +94,35 @@ def _labels(rng, device):
     return torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).to(device)
 
 
-def _generator(backbone, device, dtype=torch.float32, rep_penalty=0.0):
+def _generator(backbone, device, dtype=torch.float32, rep_penalty=0.0, length=L):
     if backbone == "transformer":
-        model = TransformerSeq2Seq(V, 2, L, seed=0, **G_SIZE)
+        model = TransformerSeq2Seq(V, 2, length, seed=0, **G_SIZE)
     else:
-        model = DenoiseSeq2Seq(V, 2, L, rep_penalty=rep_penalty, seed=0)
+        model = DenoiseSeq2Seq(V, 2, length, rep_penalty=rep_penalty, seed=0)
     return model.to(device, dtype).eval()
 
 
-@pytest.mark.parametrize("backbone, dtype, rep_penalty", [
-    ("lstm", torch.float32, 0.0), ("lstm", torch.bfloat16, 0.0), ("lstm", torch.float32, 1.0),
-    ("transformer", torch.float32, 0.0)])
-def test_graphed_greedy_serving_equals_eager(cuda_device, backbone, dtype, rep_penalty):
-    model = _generator(backbone, cuda_device, dtype, rep_penalty)
+# (backbone, dtype, rep_penalty, max_len); BOOK_L is the book preset's
+@pytest.mark.parametrize("backbone, dtype, rep_penalty, length", [
+    ("lstm", torch.float32, 0.0, L), ("lstm", torch.bfloat16, 0.0, L),
+    ("lstm", torch.float32, 1.0, L), ("transformer", torch.float32, 0.0, L),
+    ("lstm", torch.float32, 0.0, BOOK_L)])
+def test_graphed_greedy_serving_equals_eager(cuda_device, backbone, dtype, rep_penalty, length):
+    model = _generator(backbone, cuda_device, dtype, rep_penalty, length)
     step = make_transfer_step(model)
     rng = np.random.default_rng(0)
     got, want = [], []
+    launches = fused_decode_logits.launches
     for _ in range(4):  # the eager first call with its capture, then replays
-        x, labels = _ints(rng, V, (B, L + 2), cuda_device), _labels(rng, cuda_device)
+        x, labels = _ints(rng, V, (B, length + 2), cuda_device), _labels(rng, cuda_device)
         got.append(step(x, labels).clone())
         with torch.inference_mode():
             want.append(generator_call(model, x, labels, None, 1 - labels, mode="greedy"))
-    assert isinstance(step.runner, GraphedStep) and list(step.runner.graphs) == [(B, L + 2)]
+    assert isinstance(step.runner, GraphedStep) and list(step.runner.graphs) == [(B, length + 2)]
+    if backbone == "lstm" and rep_penalty == 0:  # 4 steps and 4 eager decodes, L heads each
+        assert fused_decode_logits.launches - launches == 8 * length
     got, want = torch.stack(got), torch.stack(want)
-    assert got.shape == (4, B, L) and got.dtype == torch.int32
+    assert got.shape == (4, B, length) and got.dtype == torch.int32
     if dtype == torch.float32:
         assert torch.equal(got, want)
     else:
@@ -217,19 +224,20 @@ def _compare(eager, graphed, start):
     assert all(torch.equal(x, y) for x, y in zip(g1, g0))
 
 
-@pytest.mark.parametrize("backbone", ["lstm", "transformer"])
-def test_warmup_replays_equal_eager_steps(cuda_device, backbone):
+@pytest.mark.parametrize("backbone, length", [("lstm", L), ("transformer", L), ("lstm", BOOK_L)])
+def test_warmup_replays_equal_eager_steps(cuda_device, backbone, length):
     if backbone == "transformer":
-        model = TransformerSeq2Seq(V, 2, L, p_drop=P_DROP, seed=1, **G_SIZE)
+        model = TransformerSeq2Seq(V, 2, length, p_drop=P_DROP, seed=1, **G_SIZE)
     else:
-        model = DenoiseSeq2Seq(V, 2, L, p_drop=P_DROP, seed=1)
+        model = DenoiseSeq2Seq(V, 2, length, p_drop=P_DROP, seed=1)
     model = model.to(cuda_device).train()
     opt = AdamWithClip(model.parameters(), 1e-3, 1.0)
     train_step, _ = make_warmup_steps(model, opt)
     gen = torch.Generator(cuda_device).manual_seed(0)
     runner = GraphedStep(lambda inputs, _: train_step(inputs, gen), (gen,))
     rng = np.random.default_rng(3)
-    batches = [{"nx": _ints(rng, V, (B, L), cuda_device), "x": _ints(rng, V, (B, L), cuda_device),
+    batches = [{"nx": _ints(rng, V, (B, length), cuda_device),
+                "x": _ints(rng, V, (B, length), cuda_device),
                 "labels": _labels(rng, cuda_device)} for _ in range(8)]
     runner({k: batches[0][k] for k in WARMUP_INPUTS})  # the eager step, then the capture
     assert list(runner.graphs) == [None]

@@ -13,7 +13,8 @@ Two ways to make both runs draw the same random numbers:
   draws anything: 11 steps with D applying every 4th (both branches
   replayed at least twice, the last two steps accumulating only), in
   float32 and under bfloat16 autocast;
-- dropout on (p=0.1) and the coins drawn, in float32: both branches are
+- dropout on (p=0.1) and the coins drawn, in float32, at L=6 and at the
+  book preset's L=30: both branches are
   captured first, then the parameters, both Adam states, the accumulator
   and the two generators' states are saved, and 9 eager steps and 9
   replays each start from that saved state. A replay that read a stale seed
@@ -58,6 +59,7 @@ from consistent__style_transfer_torch.train.state import AdamWithClip  # noqa: E
 
 pytestmark = pytest.mark.cuda
 V, B, L, STEPS = 60, 8, 6, 11
+BOOK_L = 30  # the book preset's max_len (config.py)
 SIZE = dict(d_model=32, n_heads=2, n_layers=2)
 TOL = {"float32": (1e-5, 1e-3), "bfloat16": (5e-2, None)}
 
@@ -71,10 +73,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _setup(device, dtype, p_drop):
-    cfg = make_config("tiny", device="cuda", dtype=dtype, max_len=L, p_drop=p_drop, w_copy=0.5)
+def _setup(device, dtype, p_drop, length=L):
+    cfg = make_config("tiny", device="cuda", dtype=dtype, max_len=length, p_drop=p_drop,
+                      w_copy=0.5)
     models = SimpleNamespace(
-        generator=DenoiseSeq2Seq(V, 2, L, p_drop=p_drop, seed=1),
+        generator=DenoiseSeq2Seq(V, 2, length, p_drop=p_drop, seed=1),
         classifier=TextCNN(V, p_drop=p_drop, seed=2),
         matcher=PairMatcher(V, p_drop=p_drop, seed=3, **SIZE),
         nt_checker=TransformerLM(V, p_drop=p_drop, seed=4, **SIZE),
@@ -99,11 +102,11 @@ def _mean_abs(xs, ys):
     return float(torch.cat([(x - y).abs().flatten() for x, y in zip(xs, ys)]).mean())
 
 
-def _batches(device):
+def _batches(device, length=L):
     rng = np.random.default_rng(0)
-    return [{"x": torch.from_numpy(rng.integers(3, V, (B, L)).astype(np.int32)).to(device),
+    return [{"x": torch.from_numpy(rng.integers(3, V, (B, length)).astype(np.int32)).to(device),
              "labels": torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).to(device),
-             "coins": torch.from_numpy(rng.integers(0, 2, L).astype(bool)).to(device)}
+             "coins": torch.from_numpy(rng.integers(0, 2, length).astype(bool)).to(device)}
             for _ in range(STEPS)]
 
 
@@ -156,11 +159,12 @@ def test_replays_draw_new_dropout_masks(cuda_device):
         assert all(not torch.equal(g.get_state(), s) for g, s in zip(gens, before))
 
 
-def test_replays_equal_eager_steps_with_dropout_and_drawn_coins(cuda_device):
-    models, steps, opts, acc, gens = _setup(cuda_device, "float32", 0.1)
+@pytest.mark.parametrize("length", [L, BOOK_L])
+def test_replays_equal_eager_steps_with_dropout_and_drawn_coins(cuda_device, length):
+    models, steps, opts, acc, gens = _setup(cuda_device, "float32", 0.1, length)
     scale = torch.full((), 0.5, device=cuda_device)
     runner = GraphedFusedStep(steps.fused_step, acc, *gens, scale)
-    batches = _batches(cuda_device)
+    batches = _batches(cuda_device, length)
     runner(batches[0], True)  # each branch: an eager warm-up step, then its capture
     runner(batches[1], False)
     assert sorted(runner.graphs) == [False, True]

@@ -43,7 +43,7 @@ from consistent__style_transfer_torch.train.state import AdamWithClip  # noqa: E
 from consistent__style_transfer_torch.utils import interop  # noqa: E402
 
 L, B, V_RAND = 10, 4, 40
-LN = L + max(4, L // 2)  # the collate's noise width
+BOOK_L = 30  # the book preset's max_len (config.py)
 SCORER = dict(scorer_layers=1, scorer_d_model=16, scorer_heads=2)
 PORT_SIZE = dict(n_layers=1, d_model=16, n_heads=2)
 TO_SD = {"cls": interop.classifier_state_dict_from_jax, "mat": interop.matcher_state_dict_from_jax,
@@ -56,10 +56,10 @@ def _np(tree):
 
 
 @functools.cache
-def _jax_models(V):
+def _jax_models(V, max_len=L):
     """JAX scorers (float32, 1 layer, d=16) and one jitted (losses,
     gradients) function over them, compiled once per flags tuple."""
-    cfg = jax_make_config("tiny", dtype="float32", max_len=L, **SCORER)
+    cfg = jax_make_config("tiny", dtype="float32", max_len=max_len, **SCORER)
     models = {"cls": jax_common.build_classifier(cfg, V), "mat": jax_common.build_matcher(cfg, V),
               "dn": jax_common.build_lm(cfg, V)}
     _, eval_step = jax_make_pretrain_steps(models)
@@ -76,11 +76,12 @@ def _jax_models(V):
     return models, loss_and_grads
 
 
-def _jax_towers(V, seed=0):
+def _jax_towers(V, seed=0, max_len=L):
     """JAX scorers and their initial params from ``seed``."""
-    models, _ = _jax_models(V)
+    models, _ = _jax_models(V, max_len)
     kc, km, kd = jax.random.split(jax.random.PRNGKey(seed), 3)
-    x0, n0 = jnp.zeros((2, L), jnp.int32), jnp.zeros((2, LN), jnp.int32)
+    ln = max_len + max(4, max_len // 2)
+    x0, n0 = jnp.zeros((2, max_len), jnp.int32), jnp.zeros((2, ln), jnp.int32)
     params = {"cls": models["cls"].init(kc, x0), "mat": models["mat"].init(km, n0, n0),
               "dn": models["dn"].init(kd, x0)}
     return models, _np(params)
@@ -95,12 +96,13 @@ def _port_towers(V, params, p_drop=0.0):
     return models
 
 
-def _batch(seed, V):
+def _batch(seed, V, max_len=L):
     rng = np.random.default_rng(seed)
-    return {"x": rng.integers(3, V, (B, L)).astype(np.int32),
-            "nx1": rng.integers(3, V, (B, LN)).astype(np.int32),
-            "nx2": rng.integers(3, V, (B, LN)).astype(np.int32),
-            "nx3": rng.integers(3, V, (B, L)).astype(np.int32),
+    ln = max_len + max(4, max_len // 2)
+    return {"x": rng.integers(3, V, (B, max_len)).astype(np.int32),
+            "nx1": rng.integers(3, V, (B, ln)).astype(np.int32),
+            "nx2": rng.integers(3, V, (B, ln)).astype(np.int32),
+            "nx3": rng.integers(3, V, (B, max_len)).astype(np.int32),
             "labels": rng.integers(0, 2, B).astype(np.int32),
             "wmd": rng.uniform(0, 2, B).astype(np.float32)}
 
@@ -109,9 +111,10 @@ def _tensors(batch):
     return to_device(batch, torch.device("cpu"))
 
 
-def _jax_loss_and_grads(V, params, batch, flags):
+def _jax_loss_and_grads(V, params, batch, flags, max_len=L):
     """JAX per-task losses and gradients of their sum, dropout off."""
-    parts, grads = _jax_models(V)[1](params, {k: jnp.asarray(v) for k, v in batch.items()}, flags)
+    parts, grads = _jax_models(V, max_len)[1](params, {k: jnp.asarray(v) for k, v in batch.items()},
+                                              flags)
     return {t: float(v) for t, v in parts.items()}, _np(grads)
 
 
@@ -125,11 +128,13 @@ def _assert_close_rel(got, want, rel, msg):
     assert err <= rel * scale, f"{msg}: max abs err {err} vs {rel} x {scale}"
 
 
-def test_one_step_losses_and_gradients_match_jax():
-    """Losses within 1e-5, each gradient within 1e-4 of its largest entry."""
-    _, params = _jax_towers(V_RAND)
-    batch = _batch(1, V_RAND)
-    want_parts, want_grads = _jax_loss_and_grads(V_RAND, params, batch, ALL)
+@pytest.mark.parametrize("max_len", [L, BOOK_L], ids=["tiny", "book"])
+def test_one_step_losses_and_gradients_match_jax(max_len):
+    """Losses within 1e-5, each gradient within 1e-4 of its largest entry;
+    at the tiny width and at book's L=30 (noise width 45)."""
+    _, params = _jax_towers(V_RAND, max_len=max_len)
+    batch = _batch(1, V_RAND, max_len)
+    want_parts, want_grads = _jax_loss_and_grads(V_RAND, params, batch, ALL, max_len)
     models = _port_towers(V_RAND, params)
     opt = AdamWithClip([p for t in TASKS for p in models[t].parameters()], 1e-4, clip=1e9)
     train_step, _ = make_pretrain_steps(models, opt)

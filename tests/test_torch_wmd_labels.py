@@ -125,16 +125,20 @@ def test_exact_labels_equal_jax(setup):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("max_len", [10, 30], ids=["tiny", "book"])
 @pytest.mark.parametrize("gate", [None, False], ids=["matcher_on", "matcher_frozen"])
-def test_collate_pretrain_matches_jax(setup, gate):
+def test_collate_pretrain_matches_jax(setup, gate, max_len):
+    """At a tiny width and at book's L=30, whose labeler takes L + L // 2 =
+    45 atoms a side (train/pretrain.py)."""
     jw = _normed(jax_w2v.Word2Vec, setup["w2v_path"])
     w = _normed(word2vec.Word2Vec, setup["w2v_path"])
-    max_len = 10
+    atoms = max_len + max_len // 2
     need = None if gate is None else (lambda: gate)
     jfn = jax_pipeline.collate_pretrain(
-        max_len, jax_wmd.SinkhornWmdLabeler(jw, setup["jtok"], max_atoms=15), need_matcher=need)
+        max_len, jax_wmd.SinkhornWmdLabeler(jw, setup["jtok"], max_atoms=atoms), need_matcher=need)
     fn = pipeline.collate_pretrain(
-        max_len, wmd_labels.SinkhornWmdLabeler(w, setup["tok"], max_atoms=15), need_matcher=need)
+        max_len, wmd_labels.SinkhornWmdLabeler(w, setup["tok"], max_atoms=atoms),
+        need_matcher=need)
     ids, lens = align(setup["dev"], 0, max_len)
     labels = np.arange(len(lens), dtype=np.int32) % 2
     want = jfn(ids, lens, labels, np.random.default_rng(11))
