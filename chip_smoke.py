@@ -67,16 +67,26 @@ Phases, in order; any failure exits non-zero before the last line:
    validation graph replays, and float32 validation passes of both stages,
    graphed against eager, with equal losses;
 7. the eval harness on phase 6's ``.tsf`` files: ``eval-prepare`` through
-   the CLI (the fastText classifier fitted on the card, the lexicon, the
-   masked word2vec with the native hogwild trainer, the adversarial LR;
+   the CLI (the fastText classifier fitted on the card, its epochs in
+   chunks replayed as CUDA graphs, the lexicon and the adversarial LR with
+   the C++ L1 solver, the masked word2vec with the native hogwild trainer;
    each substage's seconds, beside the numpy trainer's times), checked
    (the classifier loads, its ``fit_meta`` is the minibatch path at B=64
-   with no retry, dev P@1 at or above the JAX package's less a margin, the
-   artifacts exist), then ``eval`` (STI, CP, NT, ACC, self-BLEU, ref-BLEU in
-   range), its CP within a stated bound of the CP from a one-thread masked
-   word2vec; the card's fit held against a CPU fit from the same seed; one
-   epoch of the fit profiled (device ms, kernels) and the sequential path's
-   cost an example (phase 11's ``run`` drives the chain of stages);
+   with no retry, every chunk a graph replay but the first of its shape,
+   dev P@1 at or above the JAX package's less a margin, the artifacts
+   exist), then ``eval`` (STI, CP, NT, ACC, self-BLEU, ref-BLEU in range),
+   its CP within a stated bound of the CP from a one-thread masked
+   word2vec; the lexicon's and the adversarial LR's fits with the C++ and
+   the Python solver on the same matrices (seconds, iterations, each fit
+   meeting newGLMNET's stopping rule at its weights, the objectives beside
+   a tightly converged fit's; for the lexicon the C++ objective at or below
+   the Python one's x (1 + LR_OBJ_REL) and the lexicons at most
+   LEXICON_WORDS_TOL words apart; the NT of each adversarial LR); the graphed fit
+   equal to an eager fit on the card bit for bit and held against a CPU
+   fit from the same seed; a minibatch epoch and the sequential path's
+   epoch on 1,000 examples, graphed beside eager (host s, device ms,
+   device operations, host launch calls, idle share; phase 11's ``run``
+   drives the chain of stages);
 8. the optimize stage with ``megastep_k=8`` (its fused step as CUDA graphs,
    one per D-apply branch, as in every optimize run on the card) at full
    yelp width on phases 5-6's dumps: graph replays held against eager
@@ -130,7 +140,10 @@ Phases, in order; any failure exits non-zero before the last line:
    epochs each stage ran, its epoch and validation seconds, every train
    step and dev batch a graph replay but the first of each branch, the
    Sinkhorn once a labeled batch and the decode head 18 times an infer
-   batch, the prepare timings, the results file's lines (STI, CP, NT),
+   batch, the prepare timings, ``adv_lr_s`` split into reading, the
+   transform and the C++ fit with its iterations, the saved LR held to
+   newGLMNET's stopping rule on its matrix, the results file's lines (STI,
+   CP, NT),
    the three validation passes on the trained
    weights graphed against eager, and the six scores, each held to a band
    around the JAX package's default-RNG row (``RESULTS.md:315``;
@@ -142,8 +155,11 @@ Phases, in order; any failure exits non-zero before the last line:
    through the CLI (strict checkpoints, finite losses, one step a batch,
    D's cadence, every step, dev batch and infer batch a graph replay but
    the first of each branch, the Sinkhorn once a labeled batch on its
-   45-atom path, the decode head 30 times an infer batch, ``eval``'s
-   scores in range and no ref-BLEU line); the Sinkhorn on a real book
+   45-atom path, the decode head 30 times an infer batch, the eval
+   classifier's epochs as graph replays, ``eval``'s scores in range and no
+   ref-BLEU line; eval-prepare's classifier, lexicon and adversarial-LR
+   seconds beside BOOK_PREPARE_BEFORE_S, the adversarial LR held to the
+   stopping rule); the Sinkhorn on a real book
    label batch against its plain version and the collate's host ms a
    batch; the graphed steps' ms, device ms, idle share and peak memory;
    float32 replays of the three steps and validation passes against eager;
@@ -195,6 +211,27 @@ FASTTEXT_P1_TOL, FASTTEXT_TABLE_TOL = 0.0025, 1e-3
 # records them (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
 CP_REL_TOL = 0.10
 NUMPY_TRAINER_S = {"mask_w2v_s": (102.89, 146.34), "eval_prepare_s": (109.64, 156.46)}
+# phases 7 and 11: the C++ L1 LR (what eval-prepare runs) against the Python
+# solver on the same matrix. Each fit meets newGLMNET's stopping rule at the
+# weights it returns (L1LogisticRegression.stopping_violation, recomputed
+# from the weights: within STOP_SLACK of the bound for the rounding of a
+# fresh exp(X.w)) below the Newton cap. The lexicon fit (the committed
+# yelp train) is also held to the bounds tests/test_torch_eval_lexicon.py
+# holds the port to against liblinear: the C++ objective at or below the
+# Python one's x (1 + LR_OBJ_REL), the lexicons at most LEXICON_WORDS_TOL
+# words apart. The adversarial fits are near-separable (one-epoch transfers
+# such as "i is and and and ."): there the stopping rule leaves a fit
+# anywhere from 4.3e-4 to 1.51e-3 above the minimum whatever the solver (on
+# the NVIDIA H100 80GB HBM3's host), and liblinear's own fits under three
+# seeds spread 1.3e-4 on tests/test_torch_l1r_lr.py's near-separable
+# problem, so their objectives are printed beside a fit converged 1,000
+# times tighter (TIGHT_EPS), not held to each other
+LR_OBJ_REL, LEXICON_WORDS_TOL, STOP_SLACK, TIGHT_EPS = 5e-5, 3, 1e-6, 1e-3
+# phase 12: book's eval-prepare substages with the Python solver and the
+# fastText epochs launched op by op, on the card's host (PERF.md §5: two runs,
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+BOOK_PREPARE_BEFORE_S = {"classifier_s": (1.62, 1.49), "lexicon_s": (5.69, 5.41),
+                         "adv_lr_s": (2.61, 1.99)}
 # phase 8: graph replays against eager fused_step from one state (9 steps,
 # D every 4th: each branch replayed at least twice), with dropout off and
 # the coins given, and in float32 with dropout on and the coins drawn from
@@ -1935,13 +1972,221 @@ def phase_training(work: str, card: str) -> dict:
 
 
 # ------------------------------------------------------------------ phase 7
-def phase_eval(work: str, card: str) -> dict:
-    """``eval-prepare`` and ``eval`` through the CLI on phase 6's ``.tsf``
-    files, the card's fastText fit against a CPU fit from the same seed, the
-    fit's device time and kernels per epoch, and the sequential path's cost
-    an example. Phase 11's ``run`` drives the chain of stages."""
+def prepare_printed(lines: list[str]) -> tuple[list[dict], list[dict]]:
+    """eval-prepare's printed timings, and its adversarial LR's parts where
+    it fitted one (``evaluate/prepare.py``)."""
     import ast
 
+    def parsed(prefix):
+        return [ast.literal_eval(line.split(prefix, 1)[1]) for line in lines
+                if line.startswith(prefix)]
+
+    return parsed("[prepare] timings: "), parsed("[prepare] adversarial LR: ")
+
+
+def fit_both_solvers(X, y, seed: int, what: str) -> tuple[dict, dict]:
+    """The L1 LR on one matrix with the C++ solver (eval-prepare's) and the
+    Python one (``prefer_native=False``): each fit's seconds, Newton
+    iterations, inner passes, objective and stopping-rule violation, each
+    held to the rule; and the objective of a C++ fit with TIGHT_EPS times
+    the tolerance, near the minimum. Returns (numbers, fits)."""
+    import numpy as np
+    from scipy import sparse
+
+    from consistent__style_transfer_torch.evaluate import l1r_native
+    from consistent__style_transfer_torch.evaluate.lexicon import (
+        MAX_NEWTON_ITER,
+        TOL,
+        L1LogisticRegression,
+    )
+
+    numbers, fits = {}, {}
+    for solver, native in (("native", True), ("python", False)):
+        t0 = time.perf_counter()
+        lr = L1LogisticRegression(C=3, seed=seed, prefer_native=native).fit(X, y)
+        fits[solver] = lr
+        violation, bound = lr.stopping_violation(X, y)
+        numbers[solver] = {"fit_s": time.perf_counter() - t0, "newton_iter": lr.n_iter_,
+                           "inner_iter": lr.n_inner_iter_, "objective": lr.objective(X, y),
+                           "nonzero_weights": int(np.count_nonzero(lr.coef_)),
+                           "stopping_violation": violation, "stopping_bound": bound}
+        check(lr.n_iter_ < MAX_NEWTON_ITER and violation <= bound * (1 + STOP_SLACK),
+              f"{what}, {solver} solver: stopped at violation {violation} (rule: <= {bound}) "
+              f"after {lr.n_iter_} Newton iterations")
+    lr = fits["native"]
+    s = np.where(np.asarray(y) == lr.classes_[1], 1.0, -1.0)
+    Xb = sparse.hstack([sparse.csr_matrix(X, dtype=np.float64), np.ones((len(s), 1))],
+                       format="csc")
+    pos = int((s > 0).sum())
+    eps = TOL * max(min(pos, len(s) - pos), 1) / len(s)
+    t0 = time.perf_counter()
+    w, newton, _ = l1r_native.solve_l1r_lr(Xb, s, 3.0, eps * TIGHT_EPS, 1000, seed)
+    tight = L1LogisticRegression(C=3)
+    tight.coef_, tight.intercept_, tight.classes_ = w[None, :-1], w[-1:], lr.classes_
+    numbers["tight"] = {"fit_s": time.perf_counter() - t0, "newton_iter": newton,
+                        "objective": tight.objective(X, y), "tolerance_factor": TIGHT_EPS}
+    numbers["rows"], numbers["features"] = X.shape
+    numbers["objective_rel_diff"] = (numbers["native"]["objective"]
+                                     / numbers["python"]["objective"] - 1)
+    for solver in ("native", "python"):
+        numbers[solver]["above_tight_rel"] = (numbers[solver]["objective"]
+                                              / numbers["tight"]["objective"] - 1)
+    return numbers, fits
+
+
+def adversarial_matrix(stem: str, vectorizer_path: str, seed: int) -> tuple:
+    """The matrix eval-prepare fits this version's adversarial LR on, from
+    its copies of the sentences (``<stem>.tsf``, ``<stem>.ori`` in
+    ``eval_tmp``): (X, labels, the transform's seconds)."""
+    from consistent__style_transfer_torch.evaluate.lexicon import load_model
+    from consistent__style_transfer_torch.evaluate.naturalness import adversarial_train_set
+    from consistent__style_transfer_torch.utils.io import read_lines
+
+    x, y = adversarial_train_set(read_lines(f"{stem}.tsf"), read_lines(f"{stem}.ori"), seed=seed)
+    vectorizer = load_model(vectorizer_path)
+    t0 = time.perf_counter()
+    X = vectorizer.transform(x)
+    return X, y, time.perf_counter() - t0
+
+
+def adversarial_stem(cfg, p: dict) -> str:
+    """Where eval-prepare copies this version's adversarial sentences."""
+    return f"{p['tmp']}/{cfg.dataset}-{cfg.ver}.train"
+
+
+def saved_adversarial_lr(cfg, p: dict, printed: dict, what: str) -> dict:
+    """eval-prepare's adversarial LR (``p["adv_model"]``) on the matrix it
+    was fitted on, held to newGLMNET's stopping rule, with the parts of the
+    fit eval-prepare printed (``printed``): the split of ``adv_lr_s``, the
+    objective, the violation and its bound."""
+    from consistent__style_transfer_torch.evaluate.lexicon import MAX_NEWTON_ITER, load_model
+
+    X, y, _ = adversarial_matrix(adversarial_stem(cfg, p), p["vectorizer"], cfg.seed)
+    saved = load_model(p["adv_model"])
+    violation, bound = saved.stopping_violation(X, y)
+    check(printed["newton_iter"] < MAX_NEWTON_ITER and violation <= bound * (1 + STOP_SLACK),
+          f"{what} adversarial LR: stopped at violation {violation} (rule: <= {bound}) after "
+          f"{printed['newton_iter']} Newton iterations")
+    return {"split": {k: printed[k] for k in ("read_s", "transform_s", "fit_s", "newton_iter",
+                                              "inner_iter")},
+            "objective": saved.objective(X, y), "stopping_violation": violation,
+            "stopping_bound": bound, "rows": X.shape[0], "features": X.shape[1]}
+
+
+def adversarial_both_solvers(cfg, p: dict, origin, transfer, what: str) -> dict:
+    """This version's adversarial LR fitted with both solvers on
+    eval-prepare's matrix (``adversarial_matrix``): the transform's
+    seconds, each fit's numbers (``fit_both_solvers``) and the NT each LR
+    gives on the same test transfers."""
+    from consistent__style_transfer_torch.evaluate.lexicon import load_model
+    from consistent__style_transfer_torch.evaluate.naturalness import (
+        UnigramNaturalnessClassifier,
+        aggregate_judgments,
+        generate_judgments,
+    )
+
+    X, y, transform_s = adversarial_matrix(adversarial_stem(cfg, p), p["vectorizer"], cfg.seed)
+    numbers, fits = fit_both_solvers(X, y, cfg.seed, what)
+    numbers["transform_s"] = transform_s
+    vectorizer = load_model(p["vectorizer"])
+    for solver, lr in fits.items():
+        scorer = UnigramNaturalnessClassifier(lr, vectorizer)
+        numbers[solver]["NT"] = aggregate_judgments(generate_judgments(
+            scorer.score(origin), scorer.score(transfer)))
+    return numbers
+
+
+@contextlib.contextmanager
+def eager_fasttext():
+    """Inside the block the fastText fit runs its epoch chunks eagerly on
+    the card (``text/fasttext_cls.py`` takes its runner from
+    ``step_runner``, which makes CUDA graphs on the card)."""
+    from consistent__style_transfer_torch.text import fasttext_cls
+
+    real = fasttext_cls.step_runner
+    fasttext_cls.step_runner = lambda fn, device: (lambda x, key=None: fn(x, key))
+    try:
+        yield
+    finally:
+        fasttext_cls.step_runner = real
+
+
+def fasttext_epoch_cost(texts, labels, seed: int, graphed: bool, **kw) -> dict:
+    """One epoch of the card's fastText fit, graphed or eager: its host
+    seconds, from the first chunk of epoch 2 to that of epoch 3 in an
+    unprofiled 3-epoch fit, the card synchronised at both marks (between
+    them the epoch's chunks, its finiteness check and the next epoch's
+    shuffled gather); its device ms, device operations and host launch
+    calls from the profiler: graphed, a 2-epoch fit's less a 1-epoch fit's
+    (the parsing, the upload and the captures fall out); eager, a whole
+    1-epoch fit's (its upload, a few copies, included: the events of an
+    eager epoch take tens of seconds to read); a profile with no device
+    events, which the tracer gives now and then, is taken again, up to 3
+    times; and the idle share 1 - device / host."""
+    import torch
+
+    from consistent__style_transfer_torch.text import fasttext_cls
+
+    steps = -(-len(texts) // 64) if kw.get("sgd") != "sequential" else len(texts)
+    chunks = -(-steps // fasttext_cls.GRAPH_CHUNK)  # chunk calls an epoch
+    marks = []
+
+    def fit(epochs):
+        return fasttext_cls.FastTextClassifier(seed=seed, epochs=epochs, device="cuda",
+                                               **kw).fit(texts, labels)
+
+    with contextlib.nullcontext() if graphed else eager_fasttext():
+        base = fasttext_cls.step_runner
+
+        def marking(fn, device):
+            inner, calls = base(fn, device), [0]
+
+            def run(x, key=None):
+                if calls[0] % chunks == 0:
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                calls[0] += 1
+                return inner(x, key)
+            return run
+
+        fasttext_cls.step_runner = marking
+        try:
+            fit(3)
+        finally:
+            fasttext_cls.step_runner = base
+        prof = []
+        for epochs in (1, 2) if graphed else (1,):
+            for _ in range(3):
+                p = profile_breakdown(lambda: fit(epochs), batches=1)
+                if isinstance(p.get("device_ms_per_batch"), float):
+                    break
+            prof.append(p)
+    out = {"host_s": marks[2] - marks[1], "chunks_per_epoch": chunks,
+           "profiled": "a 2-epoch fit less a 1-epoch fit" if graphed else "a 1-epoch fit"}
+    if all(isinstance(p.get("device_ms_per_batch"), float) for p in prof):
+        def epoch(get):
+            return get(prof[-1]) - (get(prof[0]) if graphed else 0.0)
+
+        out.update({
+            "device_ms": epoch(lambda p: p["device_ms_per_batch"]),
+            "device_ops": epoch(lambda p: p["kernels_per_batch"]),
+            "host_launch_calls": epoch(lambda p: sum(p["host_calls_per_batch"].values())),
+            "top_device_ops": prof[-1]["top"][:5]})
+        out["idle"] = 1 - out["device_ms"] / 1e3 / out["host_s"]
+    else:
+        out.update(device_ms="not measured", device_ops="not measured",
+                   host_launch_calls="not measured", idle="not measured")
+    return out
+
+
+def phase_eval(work: str, card: str) -> dict:
+    """``eval-prepare`` and ``eval`` through the CLI on phase 6's ``.tsf``
+    files; the lexicon's and the adversarial LR's fits with the C++ solver
+    (eval-prepare's) against the Python one on the same matrices, with the
+    NT of each; the card's fastText fit (its epochs CUDA graphs) against an
+    eager fit on the card, bit for bit, and against a CPU fit from the same
+    seed; a minibatch epoch's and a sequential example's cost, graphed
+    beside eager. Phase 11's ``run`` drives the chain of stages."""
     import numpy as np
     import torch
 
@@ -1952,16 +2197,22 @@ def phase_eval(work: str, card: str) -> dict:
         mask_style_words,
         train_masked_word2vec,
     )
-    from consistent__style_transfer_torch.evaluate.lexicon import load_lexicon, load_model
+    from consistent__style_transfer_torch.evaluate.lexicon import (
+        load_lexicon,
+        load_model,
+        load_train_set,
+        ranked_lexicon,
+    )
     from consistent__style_transfer_torch.evaluate.prepare import eval_paths, masked_w2v_texts
     from consistent__style_transfer_torch.evaluate.run_eval import run_eval
     from consistent__style_transfer_torch.text.native import default_threads
     from consistent__style_transfer_torch.utils.io import read_lines
     from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
     from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
-    from consistent__style_transfer_torch.text.fasttext_cls import FastTextClassifier
+    from consistent__style_transfer_torch.text.fasttext_cls import GRAPH_CHUNK, FastTextClassifier
 
     t_phase = time.perf_counter()
+    lap = laps("phase 7")
     dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
                 out_dir=os.path.join(work, "output"), log_dir=os.path.join(work, "log"))
     flags = [a for k, v in dirs.items() for a in (f"--{k}", v)]
@@ -1974,20 +2225,24 @@ def phase_eval(work: str, card: str) -> dict:
         fused_decode_logits.launches = 0
         sinkhorn_cuda.launches = 0
         t0 = time.perf_counter()
-        lines = run_cli(argv)
+        with watch_graphs() as made:
+            lines = run_cli(argv)
         torch.cuda.synchronize()
-        return lines, time.perf_counter() - t0, fused_decode_logits.launches, sinkhorn_cuda.launches
+        return (lines, time.perf_counter() - t0, fused_decode_logits.launches,
+                sinkhorn_cuda.launches, made)
 
-    # 1. eval-prepare: the classifier fit on the card, the lexicon, the
-    # masked word2vec and v0's adversarial LR
-    lines, prepare_s, head, sink = cli_run(["eval-prepare", *flags])
+    # 1. eval-prepare: the classifier fit on the card (its epochs as CUDA
+    # graphs), the lexicon, the masked word2vec and v0's adversarial LR
+    lines, prepare_s, head, sink, made = cli_run(["eval-prepare", *flags])
     check(head == 0 and sink == 0, f"eval-prepare launched kernels: head {head}, Sinkhorn {sink}")
-    timings = [ast.literal_eval(line.split("timings: ", 1)[1]) for line in lines
-               if line.startswith("[prepare] timings: ")]
+    timings, adv_printed = prepare_printed(lines)
     check(len(timings) == 1 and set(timings[0]) == {"classifier_s", "lexicon_s", "mask_s",
                                                      "mask_w2v_s", "adv_lr_s"},
           f"eval-prepare timings: {timings}")
     timings = timings[0]
+    check(len(adv_printed) == 1 and adv_printed[0]["solver"] == "native",
+          f"eval-prepare's adversarial LR: {adv_printed}")
+    adv_printed = adv_printed[0]
     with np.load(p["classifier"]) as data:
         check(sorted(data.files) == ["emb", "meta", "out"], f"classifier keys {data.files}")
     model = FastTextClassifier.load_model(p["classifier"])
@@ -1998,6 +2253,12 @@ def phase_eval(work: str, card: str) -> dict:
     want_meta = {"sgd_path": "minibatch", "n_examples": n_train, "batch_size": 64, "retries": 0}
     check(all(model.fit_meta.get(k) == v for k, v in want_meta.items()),
           f"fit_meta {model.fit_meta}, want {want_meta}")
+    # the fit's epochs: chunks of GRAPH_CHUNK steps, each a replay but the
+    # first call of each chunk shape
+    steps = -(-n_train // 64)
+    chunk_keys = [(64, k) for k in sorted({GRAPH_CHUNK, steps % GRAPH_CHUNK} - {0})]
+    fit_graphs = check_replayed(made, chunk_keys, 5 * -(-steps // GRAPH_CHUNK),
+                                "eval-prepare's classifier fit")
     dev_file, train_file = f"{p['tmp']}/{cfg.dataset}.dev", f"{p['tmp']}/{cfg.dataset}.train"
     n_dev, dev_p1, _ = model.test(dev_file)
     check(dev_p1 >= EVAL_P1_FLOOR, f"dev P@1 {dev_p1} below {EVAL_P1_FLOOR}")
@@ -2007,8 +2268,10 @@ def phase_eval(work: str, card: str) -> dict:
           "masked word2vec or adversarial LR missing")
     check(len(load_model(p["vectorizer"]).vocabulary_) > 0, "empty vectorizer")
 
+    lap("eval-prepare")
+
     # 2. eval through the CLI, then the unrounded scores from run_eval
-    lines, eval_s, head, sink = cli_run(["eval", *flags])
+    lines, eval_s, head, sink, _ = cli_run(["eval", *flags])
     check(head == 0 and sink == 0, f"eval launched kernels: head {head}, Sinkhorn {sink}")
     scores = run_eval(cfg.ds_data_dir, cfg.run_out_dir, cli._eval_dir(cfg), cfg.dataset, cfg.ver,
                       quiet=True)
@@ -2024,6 +2287,8 @@ def phase_eval(work: str, card: str) -> dict:
     check(math.isfinite(scores["CP"]) and scores["CP"] >= 0, f"CP {scores['CP']}")
     check(0 <= scores["NT"] <= 1 and 0 <= scores["ACC"] <= 1, f"NT/ACC {scores}")
     check(math.isfinite(scores["selfBLEU"]) and math.isfinite(scores["refBLEU"]), f"BLEU {scores}")
+
+    lap("eval")
 
     # 2b. eval's CP from the hogwild masked word2vec against the CP from a
     # one-thread one (a function of the seed alone: the JAX package's at one
@@ -2045,7 +2310,45 @@ def phase_eval(work: str, card: str) -> dict:
           f"CP {scores['CP']} (hogwild) against {cp_one_thread} (one thread): over "
           f"{CP_REL_TOL} relative")
 
-    # 3. the card's fit against the CPU's, from the same seed
+    lap("the one-thread masked word2vec and its CP")
+
+    # 2c. the lexicon's and v0's adversarial LR with both solvers on the same
+    # matrices: the C++ fits are eval-prepare's (the same weights: the order
+    # is a function of the seed), so their lexicon and NT are the artifacts'
+    vectorizer = load_model(p["vectorizer"])
+    x, y = load_train_set(*cfg.split_files("train"), seed=cfg.seed)
+    lex_numbers, lex_fits = fit_both_solvers(vectorizer.transform(x), y, cfg.seed, "lexicon LR")
+    check(lex_numbers["objective_rel_diff"] <= LR_OBJ_REL,
+          f"lexicon LR: the C++ objective {lex_numbers['native']['objective']} above the "
+          f"Python solver's {lex_numbers['python']['objective']} x (1 + {LR_OBJ_REL})")
+    lexicons = {k: {w for w, _ in ranked_lexicon(lr.coef_[0], vectorizer.vocabulary_)}
+                for k, lr in lex_fits.items()}
+    check(lexicons["native"] == lexicon, "the C++ lexicon fit is not eval-prepare's")
+    lex_numbers["lexicon_words"] = {k: len(v) for k, v in lexicons.items()}
+    lex_numbers["lexicon_words_apart"] = len(lexicons["native"] ^ lexicons["python"])
+    check(lex_numbers["lexicon_words_apart"] <= LEXICON_WORDS_TOL,
+          f"lexicons: {sorted(lexicons['native'] - lexicons['python'])} C++ only, "
+          f"{sorted(lexicons['python'] - lexicons['native'])} Python only")
+    adv_numbers = adversarial_both_solvers(cfg, p, origin, transfer, "adversarial LR")
+    check(adv_numbers["native"]["NT"] == scores["NT"],
+          f"NT {adv_numbers['native']['NT']} from the C++ fit, eval's {scores['NT']}")
+    check(adv_numbers["native"]["newton_iter"] == adv_printed["newton_iter"],
+          f"the C++ adversarial fit: {adv_numbers['native']}, eval-prepare's {adv_printed}")
+    print(json.dumps({"phase 7 L1 LR": {"card": card, "lexicon": lex_numbers,
+                                        "adversarial": adv_numbers,
+                                        "eval_prepare_adversarial": adv_printed}}), flush=True)
+
+    lap("both L1 solvers on the lexicon's and the adversarial matrices")
+
+    # 3. the card's graphed fit (eval-prepare's) against an eager one on the
+    # card, bit for bit, and against the CPU's, from the same seed
+    with eager_fasttext():
+        eager = FastTextClassifier(seed=cfg.seed, device="cuda").fit_file(train_file)
+    check(eager.fit_meta == model.fit_meta and np.array_equal(eager.emb, model.emb)
+          and np.array_equal(eager.out, model.out),
+          f"the graphed fit differs from the eager one: emb "
+          f"{float(np.abs(eager.emb - model.emb).max())}, out "
+          f"{float(np.abs(eager.out - model.out).max())}")
     t0 = time.perf_counter()
     cpu = FastTextClassifier(seed=cfg.seed, device="cpu").fit_file(train_file)
     cpu_fit_s = time.perf_counter() - t0
@@ -2057,42 +2360,35 @@ def phase_eval(work: str, card: str) -> dict:
     check(emb_err <= FASTTEXT_TABLE_TOL and out_err <= FASTTEXT_TABLE_TOL,
           f"card vs CPU tables: emb {emb_err}, out {out_err}")
 
-    # 4. one epoch of the card's minibatch fit, timed (fit_file: parsing,
-    # vocab and upload included), then profiled; the sequential path on
-    # 2,000 examples (its cost an example)
-    def fit_one_epoch():
-        return FastTextClassifier(seed=cfg.seed, epochs=1, device="cuda").fit_file(train_file)
+    lap("the eager fit on the card and the CPU fit")
 
-    t0 = time.perf_counter()
-    fit_one_epoch()
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
-    prof = profile_breakdown(fit_one_epoch, batches=1)
+    # 4. a minibatch epoch (the eval-prepare fit's) and the sequential
+    # path's epoch on 1,000 examples, each graphed beside eager
     with open(train_file, encoding="utf-8") as f:
-        rows = [line.rstrip("\n").split("\t", 1) for line in f][::16]
-    seq_labels, seq_texts = [r[0] for r in rows], [r[1] for r in rows]
-    seq = FastTextClassifier(seed=cfg.seed, epochs=1, sgd="sequential", device="cuda")
-    seq.fit(seq_texts[:100], seq_labels[:100])  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    seq.fit(seq_texts, seq_labels)
-    torch.cuda.synchronize()
-    seq_ms = (time.perf_counter() - t0) * 1e3 / len(seq_texts)
-    seq_prof = profile_breakdown(lambda: seq.fit(seq_texts[:200], seq_labels[:200]), batches=1)
-    seq_ops = seq_prof.get("kernels_per_batch")
+        rows = [line.rstrip("\n").split("\t", 1) for line in f]
+    labels, texts = [r[0] for r in rows], [r[1] for r in rows]
+    epoch = {way: fasttext_epoch_cost(texts, labels, cfg.seed, way == "graphed")
+             for way in ("graphed", "eager")}
+    seq = {way: fasttext_epoch_cost(texts[::32], labels[::32], cfg.seed, way == "graphed",
+                                    sgd="sequential") for way in ("graphed", "eager")}
+    seq_n = len(texts[::32])
+    for way, v in seq.items():
+        v["ms_per_example"] = v["host_s"] * 1e3 / seq_n
+        if isinstance(v["device_ms"], float):
+            v["device_ms_per_example"] = v["device_ms"] / seq_n
+            v["device_ops_per_example"] = v["device_ops"] / seq_n
+    lap("the minibatch and sequential epochs, graphed and eager")
     fasttext = {
-        "n_examples": n_train, "batch_size": 64, "steps_per_epoch": -(-n_train // 64),
-        "epoch_s": epoch_s,
-        "device_ms_per_epoch": prof.get("device_ms_per_batch", "not measured"),
-        "kernels_per_epoch": prof.get("kernels_per_batch", "not measured"),
-        "top_device_ops": prof.get("top", "not measured"),
+        "n_examples": n_train, "batch_size": 64, "steps_per_epoch": steps,
+        "graph_chunk": GRAPH_CHUNK, "graphs": fit_graphs,
+        "classifier_s": timings["classifier_s"],
+        "minibatch_epoch": epoch, "sequential_examples": seq_n, "sequential_epoch": seq,
+        "graphed_equals_eager": True,
         "card_dev_p1": dev_p1, "cpu_dev_p1": cpu_p1, "cpu_fit_s": cpu_fit_s,
         "emb_max_abs_err": emb_err, "out_max_abs_err": out_err,
         "emb_max_abs": float(np.abs(cpu.emb).max()), "out_max_abs": float(np.abs(cpu.out).max()),
-        "sequential_examples": len(seq_texts), "sequential_ms_per_example": seq_ms,
-        "sequential_device_ops_per_example": (seq_ops / 200 if isinstance(seq_ops, float)
-                                              else "not measured"),
     }
+    print(json.dumps({"phase 7 fastText epoch": {"card": card, **fasttext}}), flush=True)
 
     result = {"card": card, "phase_s": time.perf_counter() - t_phase,
               "eval_prepare_s": prepare_s, "prepare_timings": timings,
@@ -2104,7 +2400,7 @@ def phase_eval(work: str, card: str) -> dict:
                            "cp_rel_tol": CP_REL_TOL},
               "eval_s": eval_s, "dev_n": n_dev, "dev_p1": dev_p1, "dev_p1_floor": EVAL_P1_FLOOR,
               "fit_meta": model.fit_meta, "lexicon_words": len(lexicon), "scores": scores,
-              "fasttext": fasttext}
+              "fasttext": fasttext, "lexicon_lr": lex_numbers, "adversarial_lr": adv_numbers}
     print(json.dumps({"eval": result}), flush=True)
     return result
 
@@ -2743,9 +3039,9 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     print(json.dumps({"transformer_warmup_replay_vs_eager": warm_replay}), flush=True)
     check_replays(warm_replay, "transformer warmup")
 
+    # the graphed step only: the eager one (about 620 ms a step on an NVIDIA
+    # H100 80GB HBM3, PERF.md) is held against the replays above, not timed
     models, steps, _, acc, gens = build_optimize(opt_cfg("bfloat16"), V, device)
-    opt_eager = optimize_steady(steps, acc, gens, tcfg.d_update_every,
-                                stream("optimize", tcfg.batch_size), graphed=False)
     opt_graphed = optimize_steady(steps, acc, gens, tcfg.d_update_every,
                                   stream("optimize", tcfg.batch_size))
     no_kernel("the transformer's steady steps")
@@ -2769,7 +3065,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
                      "d_applies": opt_epoch["d_applies"], "batch_size": tcfg.batch_size,
                      "ms_per_step_epoch_graphed": opt_epoch["train_s"] * 1e3
                      / opt_epoch["train_steps"],
-                     "losses": opt_losses, "eager": opt_eager, "graphed": opt_graphed},
+                     "losses": opt_losses, "graphed": opt_graphed},
         "replay_vs_eager": replay,
         "infer_greedy": {"s": infer_s, "sentences": n_infer, "sent_per_s": n_infer / infer_s,
                          "graphs": infer_graphs},
@@ -3120,15 +3416,16 @@ def phase_full_run(work: str, card: str) -> dict:
     head 18 times a batch of the infer, every train step and dev batch a
     graph replay but the first of each branch, and the six scores inside
     the band. Printed: the epochs each stage ran, its epoch seconds after
-    the first, its validation seconds (graphed), the prepare timings, and
+    the first, its validation seconds (graphed), the prepare timings with
+    ``adv_lr_s`` split (reading, transform, the C++ fit, its iterations)
+    and the saved LR held to newGLMNET's stopping rule on its matrix, and
     the three validation passes, graphed against eager, on the trained
     weights in bf16."""
-    import ast
-
     import torch
 
     from consistent__style_transfer_torch import cli
     from consistent__style_transfer_torch.config import make_config
+    from consistent__style_transfer_torch.evaluate.prepare import eval_paths
     from consistent__style_transfer_torch.evaluate.run_eval import run_eval
     from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
     from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
@@ -3224,10 +3521,11 @@ def phase_full_run(work: str, card: str) -> dict:
     opt_val_graphs = check_replayed(made, [None], len(opt_epochs) * dev_batches,
                                     "optimize validation", steps=2)
     infer_graphs = check_replayed(made, [(B, L)], infer_batches, "infer", steps=2, index=1)
-    timings = [ast.literal_eval(line.split("timings: ", 1)[1]) for line in lines
-               if line.startswith("[prepare] timings: ")]
+    timings, adv_printed = prepare_printed(lines)
     check(len(timings) == 1 and set(timings[0]) == {"adv_lr_s"},
           f"run's eval-prepare rebuilt more than this version's LR: {timings}")
+    check(len(adv_printed) == 1 and adv_printed[0]["solver"] == "native",
+          f"run's adversarial LR: {adv_printed}")
     results_path = os.path.join(cfg.out_dir, f"{cfg.dataset}-{FULL_RUN_VER}.txt")
     check(os.path.exists(results_path), f"missing {results_path}")
     with open(results_path, encoding="utf-8") as f:
@@ -3236,6 +3534,13 @@ def phase_full_run(work: str, card: str) -> dict:
         check(label in written, f"{results_path} has no {label} line")
     scores = run_eval(cfg.ds_data_dir, cfg.run_out_dir, cli._eval_dir(cfg), cfg.dataset,
                       cfg.ver, quiet=True)
+    # adv_lr_s split (eval-prepare's own line: reading and writing the
+    # files, the transform, the C++ fit and its iterations); the saved LR
+    # held to the stopping rule on the matrix it was fitted on
+    p = eval_paths(cli._eval_dir(cfg), cfg.dataset, cfg.ver)
+    adv_lr = {"card": card, "adv_lr_s": timings[0]["adv_lr_s"],
+              **saved_adversarial_lr(cfg, p, adv_printed[0], "phase 11")}
+    print(json.dumps({"phase 11 adv_lr": adv_lr}), flush=True)
     epochs_run = {"pretrain": len(pre_epochs), "warmup": len(warm_epochs),
                   "optimize": len(opt_epochs)}
     log(f"phase 11: epochs run: {epochs_run} (configured: pretrain {cfg.epochs}, warmup "
@@ -3251,9 +3556,10 @@ def phase_full_run(work: str, card: str) -> dict:
               + "; ".join(f"{src}: {row.get(k, 'none')}" for src, row in
                           FULL_RUN_THREEFRY.items()), flush=True)
 
-    # the three validation passes on the trained weights, in the run's bf16
-    val_passes = {s: validation_passes(cfg, s, device) for s in ("pretrain", "warmup",
-                                                                   "optimize")}
+    # the three validation passes on the trained weights, in the run's bf16,
+    # timed once each way
+    val_passes = {s: validation_passes(cfg, s, device, passes=1)
+                  for s in ("pretrain", "warmup", "optimize")}
     for v in val_passes.values():
         for key, b in v["branches"].items():
             check(b["finite"], f"{v['stage']} validation {key}: non-finite losses")
@@ -3288,7 +3594,8 @@ def phase_full_run(work: str, card: str) -> dict:
                      "validation_graphs": opt_val_graphs, "decode_head_launches": opt_head},
         "infer": {"batches": infer_batches, "decode_head_launches": head,
                   "graphs": infer_graphs},
-        "prepare_timings": timings[0], "results": written.strip().splitlines(),
+        "prepare_timings": timings[0], "adv_lr": adv_lr,
+        "results": written.strip().splitlines(),
         "validation_passes_bf16": val_passes,
         "phase_s": time.perf_counter() - t_phase}
     print(json.dumps({"full_run": result}), flush=True)
@@ -3330,8 +3637,6 @@ def phase_book(work: str, card: str) -> dict:
     6. the decode head at B=128 and book's V in bf16 and float32 against
        its plain version, graph-timed beside the plain version and the
        library call, with its bound."""
-    import ast
-
     import numpy as np
     import torch
 
@@ -3346,7 +3651,7 @@ def phase_book(work: str, card: str) -> dict:
     from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models import PairMatcher, TextCNN, TransformerLM
     from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
-    from consistent__style_transfer_torch.text.fasttext_cls import FastTextClassifier
+    from consistent__style_transfer_torch.text.fasttext_cls import GRAPH_CHUNK, FastTextClassifier
     from consistent__style_transfer_torch.train import optimize as optimize_stage
     from consistent__style_transfer_torch.train.common import (build_classifier,
                                                                build_generator, build_lm,
@@ -3464,20 +3769,32 @@ def phase_book(work: str, card: str) -> dict:
     check(opt_epoch["d_applies"] == want, f"book optimize: D applied {opt_epoch['d_applies']}, "
           f"want {want}")
     opt_graphs = check_replayed(fused, [True, False], n_train // B, "book optimize")
+    # made: the optimize validation's graphed step, the infer's, then the
+    # eval classifier fit's (its epochs in chunks of GRAPH_CHUNK steps)
     opt_val_graphs = check_replayed(made, [None], dev_batches, "book optimize validation",
-                                    steps=2)
-    infer_graphs = check_replayed(made, [(B, L)], infer_batches, "book infer", steps=2, index=1)
+                                    steps=3)
+    infer_graphs = check_replayed(made, [(B, L)], infer_batches, "book infer", steps=3, index=1)
+    fit_steps = -(-n_train // 64)
+    fit_graphs = check_replayed(
+        made, [(64, k) for k in sorted({GRAPH_CHUNK, fit_steps % GRAPH_CHUNK} - {0})],
+        5 * -(-fit_steps // GRAPH_CHUNK), "book classifier fit", steps=3, index=2)
     for split in ("train", "test"):
         for k, src in enumerate(cfg.split_files(split)):
             path = os.path.join(cfg.run_out_dir, f"style.{split}.{k}.tsf")
             with open(path, encoding="utf-8") as f:
                 got = len(f.read().splitlines())
             check(got == count_lines([src]), f"{path}: {got} lines, want {count_lines([src])}")
-    timings = [ast.literal_eval(line.split("timings: ", 1)[1]) for line in lines
-               if line.startswith("[prepare] timings: ")]
+    timings, adv_printed = prepare_printed(lines)
     check(len(timings) == 1 and set(timings[0]) == {"classifier_s", "lexicon_s", "mask_s",
                                                      "mask_w2v_s", "adv_lr_s"},
           f"book eval-prepare timings: {timings}")
+    check(len(adv_printed) == 1 and adv_printed[0]["solver"] == "native",
+          f"book adversarial LR: {adv_printed}")
+    prepare_beside = {"card": card, "adversarial_lr": saved_adversarial_lr(
+        cfg, eval_paths(cli._eval_dir(cfg), cfg.dataset, cfg.ver), adv_printed[0], "book"), **{
+        k: {"this_run": timings[0][k], "before_compiled_solver_and_graphed_fit": v}
+        for k, v in BOOK_PREPARE_BEFORE_S.items()}}
+    print(json.dumps({"phase 12 eval-prepare": prepare_beside}), flush=True)
     fit_meta = FastTextClassifier.load_model(
         eval_paths(cli._eval_dir(cfg), cfg.dataset, cfg.ver)["classifier"]).fit_meta
     check(fit_meta.get("sgd_path") == "minibatch" and fit_meta.get("retries") == 0,
@@ -3693,7 +4010,8 @@ def phase_book(work: str, card: str) -> dict:
         "dtype": "bfloat16 autocast, float32 parameters", "seed": cfg.seed, "V": V, "L": L,
         "B": B, "warmup_B": WB, "scorer": "6 layers / 8 heads / d=512", "vocab_size": cfg.vocab_size,
         "train_sentences": n_train, "dev_sentences": n_dev, "test_sentences": n_test,
-        "cli_s": cli_s, "prepare_timings": timings[0], "classifier_fit": fit_meta,
+        "cli_s": cli_s, "prepare_timings": timings[0], "prepare_beside": prepare_beside,
+        "classifier_fit": fit_meta, "classifier_fit_graphs": fit_graphs,
         "scores": scores, "test_transfers": samples,
         "results": written.strip().splitlines(),
         "pretrain": {"sinkhorn_launches": pre_sink, "labeled_batches": labeled,

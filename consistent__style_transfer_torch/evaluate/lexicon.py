@@ -17,13 +17,18 @@ regression. The port carries its own of both:
   log(1 + exp(-s_i (x_i . w + b)))``, s_i = +-1, the bias a feature of value
   1 regularised like the rest (liblinear's ``intercept_scaling=1``), in
   float64 on the host, with the solver liblinear runs for this problem:
-  newGLMNET (Yuan, Ho & Lin, JMLR 2012; liblinear's ``solve_l1r_lr``).
+  newGLMNET (Yuan, Ho & Lin, JMLR 2012; liblinear's ``solve_l1r_lr``). The
+  fit runs the port's C++ copy of it (``csrc/l1r_lr.cc`` through
+  :mod:`.l1r_native`, built with ``g++`` at first use; a failed build
+  raises); ``prefer_native=False`` runs :func:`_solve_l1r_lr`, the same
+  algorithm in Python, which the tests hold the C++ solver against.
 
 The problem is degenerate: liblinear's own fits under two global numpy
 seeds (its coordinate order) differ in single weights by up to 3.9 at
-objectives within 1e-5 of each other. So the port is held to liblinear on
-function (the objective it reaches, the lexicon it selects), not weight for
-weight.
+objectives within 1e-5 of each other, and the port's two solvers draw their
+coordinate orders from different generators. So the port is held to
+liblinear on function (the objective it reaches, the lexicon it selects),
+not weight for weight.
 
 Artifacts: the vectorizer is JSON (its vocabulary), the LR ``.npz`` (coef,
 intercept, classes); neither is a pickle.
@@ -38,6 +43,7 @@ import numpy as np
 from scipy import sparse
 from scipy.special import expit
 
+from . import l1r_native
 from .retokenize import tokenize
 
 STYLE_KEY = "binary sentiment"
@@ -89,13 +95,14 @@ class BinaryUnigramVectorizer:
 
 
 def _solve_l1r_lr(X: sparse.csc_matrix, s: np.ndarray, C: float, eps: float,
-                  max_newton_iter: int, rng: np.random.Generator) -> tuple[np.ndarray, int]:
+                  max_newton_iter: int, rng: np.random.Generator) -> tuple[np.ndarray, int, int]:
     """liblinear's ``solve_l1r_lr`` (newGLMNET) on a CSC float64 X whose
     last column is the bias feature; s = +-1. Returns (w, Newton
-    iterations). The outer pass over all features is vectorised; the
-    coordinate descent on the quadratic model runs feature by feature over
-    the active set, in an order drawn from ``rng``, with liblinear's
-    shrinking, inner stopping rule and Armijo line search."""
+    iterations, inner passes summed over them). The outer pass over all
+    features is vectorised; the coordinate descent on the quadratic model
+    runs feature by feature over the active set, in an order drawn from
+    ``rng``, with liblinear's shrinking, inner stopping rule and Armijo line
+    search."""
     l, n = X.shape
     indptr, indices, data = X.indptr, X.indices, X.data
     XT = X.T.tocsr()
@@ -111,7 +118,7 @@ def _solve_l1r_lr(X: sparse.csc_matrix, s: np.ndarray, C: float, eps: float,
     tau = C / (1.0 + exp_wTx)
     D = C * exp_wTx / (1.0 + exp_wTx) ** 2
     inner_eps, Gmax_old, Gnorm1_init = 1.0, np.inf, -1.0
-    newton_iter = 0
+    newton_iter = inner_total = 0
     starts, ends = indptr[:-1].tolist(), indptr[1:].tolist()
     while newton_iter < max_newton_iter:
         # outer pass: gradient, diagonal Hessian, violations, outer shrinking
@@ -182,6 +189,7 @@ def _solve_l1r_lr(X: sparse.csc_matrix, s: np.ndarray, C: float, eps: float,
                 continue
             qp_active = np.asarray(kept, dtype=np.int64)
             QP_Gmax_old = QP_Gmax_new
+        inner_total += inner
         wpd = np.asarray(wpd_l)
 
         # Armijo line search along wpd - w
@@ -211,7 +219,7 @@ def _solve_l1r_lr(X: sparse.csc_matrix, s: np.ndarray, C: float, eps: float,
             inner_eps *= 0.25
         newton_iter += 1
         Gmax_old = Gmax_new
-    return w, newton_iter
+    return w, newton_iter, inner_total
 
 
 class L1LogisticRegression:
@@ -219,16 +227,19 @@ class L1LogisticRegression:
     as liblinear fits ``LogisticRegression(penalty="l1", C=C,
     solver="liblinear")``: the tolerance 1e-4 scaled by liblinear's
     ``min(pos, neg) / l``, at most 100 Newton iterations, the coordinate
-    order from ``default_rng(seed)``. ``coef_`` (1, n_features),
-    ``intercept_`` (1,) and ``classes_`` as scikit-learn names them; the
-    second class is the positive one."""
+    order from ``seed``. ``prefer_native``: the C++ solver (default; its
+    order from splitmix64) or, when false, the Python one (its order from
+    ``default_rng(seed)``). ``coef_`` (1, n_features), ``intercept_`` (1,)
+    and ``classes_`` as scikit-learn names them; the second class is the
+    positive one. ``n_iter_`` and ``n_inner_iter_``: the fit's Newton
+    iterations and inner passes."""
 
-    def __init__(self, C: float = 3.0, seed: int = 0):
-        self.C, self.seed = C, seed
+    def __init__(self, C: float = 3.0, seed: int = 0, prefer_native: bool = True):
+        self.C, self.seed, self.prefer_native = C, seed, prefer_native
         self.coef_: np.ndarray | None = None
         self.intercept_: np.ndarray | None = None
         self.classes_: np.ndarray | None = None
-        self.n_iter_ = 0
+        self.n_iter_ = self.n_inner_iter_ = 0
 
     def fit(self, X, y) -> "L1LogisticRegression":
         y = np.asarray(y)
@@ -241,8 +252,12 @@ class L1LogisticRegression:
                             np.ones((l, 1))], format="csc")
         pos = int((s > 0).sum())
         eps = TOL * max(min(pos, l - pos), 1) / l
-        w, self.n_iter_ = _solve_l1r_lr(Xb, s, float(self.C), eps, MAX_NEWTON_ITER,
-                                        np.random.default_rng(self.seed))
+        if self.prefer_native:
+            w, self.n_iter_, self.n_inner_iter_ = l1r_native.solve_l1r_lr(
+                Xb, s, float(self.C), eps, MAX_NEWTON_ITER, self.seed)
+        else:
+            w, self.n_iter_, self.n_inner_iter_ = _solve_l1r_lr(
+                Xb, s, float(self.C), eps, MAX_NEWTON_ITER, np.random.default_rng(self.seed))
         self.coef_, self.intercept_ = w[None, :-1], w[-1:].copy()
         return self
 
@@ -259,6 +274,30 @@ class L1LogisticRegression:
         margin = s * self.decision_function(X)
         return float(np.abs(self.coef_).sum() + np.abs(self.intercept_).sum()
                      + self.C * np.logaddexp(0.0, -margin).sum())
+
+    def stopping_violation(self, X, y) -> tuple[float, float]:
+        """(v, bound): v the sum over the features (the bias too) of
+        newGLMNET's optimality violation at the fitted weights (the distance
+        of 0 from each coordinate's subdifferential), bound = eps * v at w =
+        0, the rule both solvers stop by. Computed from X, y and the weights
+        alone; exp(X.w) afresh, where a solver updates it step by step."""
+        s = np.where(np.asarray(y) == self.classes_[1], 1.0, -1.0)
+        l = X.shape[0]
+        Xb = sparse.hstack([sparse.csr_matrix(X, dtype=np.float64), np.ones((l, 1))],
+                           format="csr")
+        C = float(self.C)
+
+        def violation(w):
+            tau = C * expit(-(Xb @ w))  # C / (1 + exp(w.x))
+            grad = Xb.T @ (C * (s < 0)) - Xb.T @ tau
+            gp, gn = grad + 1.0, grad - 1.0
+            at_zero = np.maximum(np.maximum(-gp, gn), 0.0)
+            return float(np.where(w > 0, np.abs(gp), np.where(w < 0, np.abs(gn), at_zero)).sum())
+
+        pos = int((s > 0).sum())
+        eps = TOL * max(min(pos, l - pos), 1) / l
+        w = np.append(self.coef_[0], self.intercept_)
+        return violation(w), eps * violation(np.zeros_like(w))
 
     def save(self, path: str) -> None:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -287,13 +326,14 @@ def load_train_set(neg_path: str, pos_path: str, limit: int = TRAIN_CAP, seed: i
     return x, y
 
 
-def l1_logistic_regression(C: float = 3, seed: int = 0) -> L1LogisticRegression:
-    return L1LogisticRegression(C=C, seed=seed)
+def l1_logistic_regression(C: float = 3, seed: int = 0,
+                           prefer_native: bool = True) -> L1LogisticRegression:
+    return L1LogisticRegression(C=C, seed=seed, prefer_native=prefer_native)
 
 
-def fit_unigram_lr(x, y, seed: int = 0):
+def fit_unigram_lr(x, y, seed: int = 0, prefer_native: bool = True):
     vectorizer = BinaryUnigramVectorizer().fit(x)
-    lr = l1_logistic_regression(C=3, seed=seed)
+    lr = l1_logistic_regression(C=3, seed=seed, prefer_native=prefer_native)
     lr.fit(vectorizer.transform(x), y)
     return lr, vectorizer
 
@@ -304,21 +344,24 @@ def select_lexicon_features(weights: np.ndarray, n_std: float = 2.0) -> np.ndarr
     return np.where((weights < lo) | (weights > hi))[0]
 
 
-def generate_lexicon(neg_path: str, pos_path: str, lexicon_path: str,
-                     vectorizer_path: str, seed: int = 0):
-    """Returns (lexicon set, fitted vectorizer); writes both artifacts."""
-    x, y = load_train_set(neg_path, pos_path, seed=seed)
-    lr, vectorizer = fit_unigram_lr(x, y, seed=seed)
-    inv_vocab = {i: w for w, i in vectorizer.vocabulary_.items()}
-
-    weights = lr.coef_[0]
+def ranked_lexicon(weights: np.ndarray, vocabulary: dict[str, int]) -> list[tuple[str, float]]:
+    """(word, weight) of each selected feature, by weight: the nonzero
+    weights outside 2 standard deviations of their mean."""
+    inv_vocab = {i: w for w, i in vocabulary.items()}
     nonzero = np.where(np.abs(weights) > 0.0)[0]
     nz_weights = weights[nonzero]
     selected = select_lexicon_features(nz_weights)
-    ranked = sorted(
-        ((inv_vocab[nonzero[i]], float(nz_weights[i])) for i in selected),
-        key=lambda kv: kv[1],
-    )
+    return sorted(((inv_vocab[nonzero[i]], float(nz_weights[i])) for i in selected),
+                  key=lambda kv: kv[1])
+
+
+def generate_lexicon(neg_path: str, pos_path: str, lexicon_path: str,
+                     vectorizer_path: str, seed: int = 0, prefer_native: bool = True):
+    """Returns (lexicon set, fitted vectorizer); writes both artifacts.
+    ``prefer_native``: the LR's solver (false: Python)."""
+    x, y = load_train_set(neg_path, pos_path, seed=seed)
+    lr, vectorizer = fit_unigram_lr(x, y, seed=seed, prefer_native=prefer_native)
+    ranked = ranked_lexicon(lr.coef_[0], vectorizer.vocabulary_)
     payload = {STYLE_KEY: [[w, wt] for w, wt in ranked]}
     os.makedirs(os.path.dirname(lexicon_path) or ".", exist_ok=True)
     with open(lexicon_path, "w", encoding="utf-8") as f:

@@ -11,17 +11,20 @@ the port's :class:`~.lexicon.L1LogisticRegression`, saved as ``.npz``."""
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from .lexicon import l1_logistic_regression, load_model
 
 
-def train_adversarial_lr(tsf_sentences, ori_sentences, vectorizer,
-                         limit: int = 200_000, seed: int = 0):
-    """Reference parity: ``nt_classifier.py:17-25`` trains through
-    ``load_train_set`` which shuffles and caps each class at 200k sentences
-    (``evaluate/auto/utils.py:35-45``) — at the reference's 540k-lines/style
-    scale the cap is what keeps the L1-LR fit tractable."""
+def adversarial_train_set(tsf_sentences, ori_sentences, limit: int = 200_000,
+                          seed: int = 0):
+    """(texts, labels): the transferred sentences (label 0) then the
+    originals (label 1). Reference parity: ``nt_classifier.py:17-25`` trains
+    through ``load_train_set`` which shuffles and caps each class at 200k
+    sentences (``evaluate/auto/utils.py:35-45``) — at the reference's
+    540k-lines/style scale the cap is what keeps the L1-LR fit tractable."""
     rng = np.random.default_rng(seed)
     tsf = list(tsf_sentences)
     ori = list(ori_sentences)
@@ -29,11 +32,24 @@ def train_adversarial_lr(tsf_sentences, ori_sentences, vectorizer,
         tsf = [tsf[i] for i in rng.permutation(len(tsf))[:limit]]
     if len(ori) > limit:
         ori = [ori[i] for i in rng.permutation(len(ori))[:limit]]
-    x = tsf + ori
-    y = np.concatenate([np.zeros(len(tsf)), np.ones(len(ori))])
-    lr = l1_logistic_regression(C=3, seed=seed)
-    lr.fit(vectorizer.transform(x), y)
-    return lr
+    return tsf + ori, np.concatenate([np.zeros(len(tsf)), np.ones(len(ori))])
+
+
+def train_adversarial_lr(tsf_sentences, ori_sentences, vectorizer,
+                         limit: int = 200_000, seed: int = 0, prefer_native: bool = True):
+    """The L1 LR on :func:`adversarial_train_set`'s sentences through
+    ``vectorizer``; ``prefer_native``: its solver (false: Python). Returns
+    (the LR, its parts: the transform's and the fit's seconds, the fit's
+    Newton iterations and inner passes, and the matrix's shape)."""
+    x, y = adversarial_train_set(tsf_sentences, ori_sentences, limit, seed)
+    t0 = time.perf_counter()
+    X = vectorizer.transform(x)
+    t1 = time.perf_counter()
+    lr = l1_logistic_regression(C=3, seed=seed, prefer_native=prefer_native).fit(X, y)
+    parts = {"solver": "native" if prefer_native else "python", "transform_s": t1 - t0,
+             "fit_s": time.perf_counter() - t1, "newton_iter": lr.n_iter_,
+             "inner_iter": lr.n_inner_iter_, "rows": X.shape[0], "features": X.shape[1]}
+    return lr, parts
 
 
 class UnigramNaturalnessClassifier:

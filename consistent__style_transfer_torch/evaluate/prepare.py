@@ -16,7 +16,9 @@ Artifact layout mirrors the reference under ``<eval_dir>/eval_dump`` and
 the JAX package's names and formats; the vectorizer
 (``vectorizer_<ds>.json``) and the adversarial LR
 (``adv_models/unigram_lr_<ver>_<ds>.npz``) are the port's own formats,
-where the JAX package pickles scikit-learn objects."""
+where the JAX package pickles scikit-learn objects. Both L1 LRs (the
+lexicon's and the adversarial one) fit with the port's C++ newGLMNET unless
+``prefer_native`` is false."""
 
 from __future__ import annotations
 
@@ -59,8 +61,12 @@ def run_prepare(data_dir: str, out_dir: str, eval_dir: str, dataset: str,
                 device="cuda", prefer_native: bool = True) -> dict:
     """data_dir: <base>/data/<ds>; out_dir: <base>/output/<ds>-<ver>;
     ``device``: where the classifier is fitted; ``prefer_native``: the
-    masked word2vec's trainer (false: numpy). Returns the paths and, under
-    "timings", the seconds of each substage that ran."""
+    masked word2vec's trainer and the L1 LRs' solver (false: numpy and
+    Python). Returns the paths and, under "timings", the seconds of each
+    substage that ran; where the adversarial LR was fitted, under "adv_lr",
+    its parts' seconds (reading and writing the files, the vectorizer's
+    transform, the fit) and the fit's Newton iterations and inner passes
+    (``train_adversarial_lr``), which it also prints."""
     p = eval_paths(eval_dir, dataset, ver)
     os.makedirs(p["dump"], exist_ok=True)
     os.makedirs(p["tmp"], exist_ok=True)
@@ -95,7 +101,7 @@ def run_prepare(data_dir: str, out_dir: str, eval_dir: str, dataset: str,
         say("\n<-GENERATING LEXICON & TRAINING WORD2VEC->")
         lexicon, _ = generate_lexicon(
             f"{data_dir}/style.train.0", f"{data_dir}/style.train.1",
-            p["lexicon"], p["vectorizer"], seed=seed,
+            p["lexicon"], p["vectorizer"], seed=seed, prefer_native=prefer_native,
         )
         timings["lexicon_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -119,10 +125,13 @@ def run_prepare(data_dir: str, out_dir: str, eval_dir: str, dataset: str,
                 ori += read_lines(f"{data_dir}/{name}")
         write_lines(tsf, f"{p['tmp']}/{dataset}-{ver}.train.tsf")
         write_lines(ori, f"{p['tmp']}/{dataset}-{ver}.train.ori")
-        vectorizer = load_model(p["vectorizer"])
-        lr = train_adversarial_lr(tsf, ori, vectorizer, seed=seed)
+        lr, parts = train_adversarial_lr(tsf, ori, load_model(p["vectorizer"]), seed=seed,
+                                         prefer_native=prefer_native)
         save_model(lr, p["adv_model"])
         timings["adv_lr_s"] = time.perf_counter() - t0
+        p["adv_lr"] = {"read_s": timings["adv_lr_s"] - parts["transform_s"] - parts["fit_s"],
+                       **parts}
+        say(f"[prepare] adversarial LR: {p['adv_lr']}")
     # keys appear only for substages that actually ran (idempotent skips
     # would otherwise record misleading ~0 s entries)
     say(f"[prepare] timings: {timings}")

@@ -7,15 +7,21 @@ args, which the reference uses): bag-of-words averaged embeddings (dim=100),
 linear softmax over labels, 5 epochs, lr 0.1 with linear decay, minCount=1,
 wordNgrams=1, whitespace tokenization with an ``</s>`` EOS token per line.
 
-The fit runs in PyTorch on ``device`` (the card, in the eval harness), as
+The fit runs in PyTorch on ``device`` (the card, in the eval harness), where
 the JAX package's runs as two jitted ``lax.scan`` programs on its device:
 :func:`run_epoch` is fasttext's exact per-example SGD, one step a training
 example; :func:`run_epoch_batched` applies B per-example gradients computed
 on the batch-start parameters together, with the update's global norm
-capped at ``clip * B``. Both add each example's input-row update with
-``index_add_``, which sums repeated rows (a word twice in a sentence gets
-both updates), as ``emb.at[rows].add`` does. ``predict`` and ``test`` run
-in numpy on the host, as in the JAX package.
+capped at ``clip * B``. Both sum repeated rows (a word twice in a sentence
+gets both updates), as ``emb.at[rows].add`` does. An epoch runs in chunks
+of ``GRAPH_CHUNK`` steps (examples, on the sequential path) through
+:func:`~..train.graphs.step_runner`: on the card each chunk shape is one
+CUDA graph, replayed (the JAX package's one dispatch an epoch, in a few
+dozen), and the minibatch path adds the rows' updates by a product that
+sums them in a fixed order (:func:`add_rows_by_product`), so a replay
+equals an eager chunk bit for bit; on the CPU the chunks run eagerly, with
+``index_add_``. ``predict`` and ``test`` run in numpy on the host, as in
+the JAX package.
 
 File format parity: train/test files are ``__label__<y>\\t<text>`` lines;
 ``predict(text, k)`` returns (labels, probs) with fasttext's ordering
@@ -33,7 +39,12 @@ from collections import Counter
 import numpy as np
 import torch
 
+from ..train.graphs import gc_paused, step_runner
+
 EOS_WORD = "</s>"
+# steps (minibatch path) or examples (sequential path) a chunk of an epoch:
+# one CUDA graph replay on the card
+GRAPH_CHUNK = 25
 
 
 def _parse_line(line: str) -> tuple[str, str] | None:
@@ -64,62 +75,94 @@ def _tokens(text: str) -> list[str]:
 
 
 def _lr(base_lr: float, t: torch.Tensor, total: int) -> torch.Tensor:
-    """The linearly decayed rate at example count ``t`` (a device scalar)."""
+    """The linearly decayed rate at example count ``t`` (a device tensor)."""
     return base_lr * torch.clamp_min(1.0 - t / total, 1e-4)
 
 
 def run_epoch(emb, out, ids, lens, ys, t, base_lr: float, total: int):
-    """fasttext's sequential per-example SGD over one epoch, in place on
-    ``emb`` (V+1, D) and ``out`` (D, C): hidden = mean(emb[words]); softmax
-    CE; ``out`` and each input row get the raw per-example gradient (input
-    rows scaled by 1/n_words), at the linearly decaying rate. ids (N, L)
-    int64, lens (N,) float32 (>= 1), ys (N,) int64 and t (a float32 scalar)
-    on emb's device. Returns the advanced t. About 15 device operations an
-    example; no host synchronisation."""
-    L, C = ids.shape[1], out.shape[1]
+    """fasttext's sequential per-example SGD over the N examples of ``ids``,
+    in place on ``emb`` (V+1, D) and ``out`` (D, C): hidden =
+    mean(emb[words]); softmax CE; ``out`` and each input row get the raw
+    per-example gradient (input rows scaled by 1/n_words), at the linearly
+    decaying rate. ids (N, L) int64, lens (N,) float32 (>= 1), ys (N,) int64
+    and t (a float32 scalar) on emb's device. Returns the advanced t. The
+    rates of all N examples are computed up front from t + i (counts, exact
+    in float32), the values the per-example recurrence gives. About 16
+    device operations an example; no host synchronisation. Repeated rows of
+    one example get equal updates, so ``index_add_`` gives the same sums in
+    any order: on the card too the result does not depend on the order of
+    its atomics."""
+    N, L = ids.shape
+    C = out.shape[1]
     masks = (torch.arange(L, device=ids.device)[None, :] < lens[:, None].long())[..., None]
     onehot = torch.nn.functional.one_hot(ys, C).to(out.dtype)
-    for i in range(ids.shape[0]):
-        row, n, mask = ids[i], lens[i], masks[i]
+    lrs = _lr(base_lr, t + torch.arange(N, device=ids.device, dtype=t.dtype), total)
+    for i in range(N):
+        row, n, mask, lr = ids[i], lens[i], masks[i], lrs[i]
         hidden = torch.where(mask, emb[row], 0.0).sum(0) / n
         err = torch.softmax(hidden @ out, dim=-1) - onehot[i]  # dL/dlogits
-        lr = _lr(base_lr, t, total)
         g_hidden = out @ err
         out.sub_(lr * torch.outer(hidden, err))
         emb.index_add_(0, row, torch.where(mask, -lr * g_hidden / n, 0.0))
-        t = t + 1.0
-    return t
+    return t + N
+
+
+def add_rows_in_order(emb, rows, mask, u) -> None:
+    """emb[rows[b, l]] += u[b] where mask[b, l]: ``index_add_``, which on the
+    CPU adds the (b, l) entries one after another, so a row repeated across
+    the batch sums its updates in (b, l) order."""
+    B, L = rows.shape
+    upd = torch.where(mask, u[:, None, :], 0.0)
+    emb.index_add_(0, rows.reshape(-1), upd.reshape(B * L, -1))
+
+
+def add_rows_by_product(emb, rows, mask, u) -> None:
+    """The same sum as :func:`add_rows_in_order` as one product: emb +=
+    Aᵀ u, with A (B, V+1) the batch's row counts (A[b, w]: how often row w
+    stands under sentence b's mask; counts, so their scatter is exact in any
+    order). Deterministic on the card, where ``index_add_`` sums rows
+    repeated across the batch with atomics in no fixed order; the sum's
+    order differs from the CPU's, within float32 rounding."""
+    A = torch.zeros((rows.shape[0], emb.shape[0]), dtype=emb.dtype, device=emb.device)
+    A.scatter_add_(1, rows, mask[..., 0].to(emb.dtype))
+    emb.addmm_(A.T, u)
 
 
 def run_epoch_batched(emb, out, ids, lens, ys, valid, t, base_lr: float, total: int,
-                      clip: float):
-    """One epoch of the minibatch path, in place: ids (S, B, L), lens, ys
-    and valid (S, B). Each step computes B per-example gradients on the
-    step-start parameters and applies them together, its global norm capped
-    at ``clip * B`` (a per-example budget: healthy per-example norms are
-    0.1-0.5, so the cap binds only where B simultaneous full-rate updates
-    would feed back and diverge); padded rows have valid = 0, so their error
-    and their count in t are 0. Returns the advanced t. About 25 device
-    operations a step; no host synchronisation."""
+                      clip: float, add_rows=None):
+    """The minibatch path over the S steps of ``ids``, in place: ids (S, B,
+    L), lens, ys and valid (S, B). Each step computes B per-example
+    gradients on the step-start parameters and applies them together, its
+    global norm capped at ``clip * B`` (a per-example budget: healthy
+    per-example norms are 0.1-0.5, so the cap binds only where B
+    simultaneous full-rate updates would feed back and diverge); padded rows
+    have valid = 0, so their error and their count in t are 0. The steps'
+    rates come up front from t and the exclusive running sum of the valid
+    counts (exact in float32), the values the per-step recurrence gives.
+    ``add_rows``: how the input rows take their updates, by default
+    :func:`add_rows_in_order` on the CPU and :func:`add_rows_by_product` on
+    the card. Returns the advanced t. About 40 device operations a step; no
+    host synchronisation."""
     S, B, L = ids.shape
     C = out.shape[1]
-    ar = torch.arange(L, device=ids.device)
+    if add_rows is None:
+        add_rows = add_rows_by_product if emb.is_cuda else add_rows_in_order
+    masks = (torch.arange(L, device=ids.device) < lens[..., None].long())[..., None]  # (S,B,L,1)
+    onehot = torch.nn.functional.one_hot(ys, C).to(out.dtype)                         # (S, B, C)
+    counts = valid.sum(1)
+    lrs = _lr(base_lr, t + (torch.cumsum(counts, 0) - counts), total)
     for s in range(S):
-        rows, ns, v = ids[s], lens[s], valid[s]
-        mask = (ar[None, :] < ns[:, None].long())[..., None]             # (B, L, 1)
+        rows, ns, v, mask, lr = ids[s], lens[s], valid[s], masks[s], lrs[s]
         hidden = torch.where(mask, emb[rows], 0.0).sum(1) / ns[:, None]  # (B, D)
         p = torch.softmax(hidden @ out, dim=-1)                          # (B, C)
-        err = (p - torch.nn.functional.one_hot(ys[s], C).to(p.dtype)) * v[:, None]
-        lr = _lr(base_lr, t, total)
+        err = (p - onehot[s]) * v[:, None]
         g_hidden = err @ out.T                                           # (B, D)
         g_out = hidden.T @ err                                           # (D, C)
         gnorm = torch.sqrt((g_out * g_out).sum() + (g_hidden * g_hidden).sum())
         step = lr * torch.clamp_max(clip * B / (gnorm + 1e-12), 1.0)
         out.sub_(step * g_out)
-        upd = torch.where(mask, (-step * g_hidden / ns[:, None])[:, None, :], 0.0)
-        emb.index_add_(0, rows.reshape(-1), upd.reshape(B * L, -1))
-        t = t + v.sum()
-    return t
+        add_rows(emb, rows, mask, -step * g_hidden / ns[:, None])
+    return t + counts.sum()
 
 
 class FastTextClassifier:
@@ -201,13 +244,26 @@ class FastTextClassifier:
         base_lr, total = self.lr, self.epochs * N
         use_batched = (self.sgd == "minibatch"
                        or (self.sgd == "auto" and N > 20_000))
+        # the tables, allocated once a fit (an attempt starts from emb0 again)
+        emb = torch.empty((V + 1, D), dtype=torch.float32, device=dev)
+        out = torch.empty((D, C), dtype=torch.float32, device=dev)
+
+        def epoch_part(x: dict, key):
+            if use_batched:
+                return run_epoch_batched(emb, out, x["ids"], x["lens"], x["ys"], x["valid"],
+                                         x["t"], base_lr, total, self.clip)
+            return run_epoch(emb, out, x["ids"], x["lens"], x["ys"], x["t"], base_lr, total)
+
+        # an epoch as chunks of GRAPH_CHUNK steps (examples, on the sequential
+        # path): on the card each chunk shape is one CUDA graph, replayed
+        runner = step_runner(epoch_part, dev)
 
         def train_once(B: int):
             """One full training attempt; bails out (returning non-finite
             tables) at the first epoch whose tables went non-finite."""
             rng_e = np.random.default_rng(self.seed + 1)
-            emb = torch.tensor(emb0, device=dev)  # a copy: a retry starts afresh
-            out = torch.zeros((D, C), dtype=torch.float32, device=dev)
+            emb.copy_(torch.from_numpy(emb0))
+            out.zero_()
             t = torch.zeros((), dtype=torch.float32, device=dev)
             for _ in range(self.epochs):
                 order = rng_e.permutation(N)
@@ -217,16 +273,20 @@ class FastTextClassifier:
                     o = torch.from_numpy(o).to(dev)
                     valid = torch.cat([torch.ones(N, device=dev), torch.zeros(pad, device=dev)])
                     S = len(o) // B
-                    t = run_epoch_batched(emb, out, ids_d[o].reshape(S, B, self.max_len),
-                                          lens_d[o].reshape(S, B), y_d[o].reshape(S, B),
-                                          valid.reshape(S, B), t, base_lr, total, self.clip)
-                    # one cheap reduction a epoch: any non-finite entry in
-                    # either table bails before the remaining epochs
-                    if not torch.isfinite(out.sum() + emb.sum()):
-                        break
+                    x = {"ids": ids_d[o].reshape(S, B, self.max_len),
+                         "lens": lens_d[o].reshape(S, B), "ys": y_d[o].reshape(S, B),
+                         "valid": valid.reshape(S, B)}
                 else:
                     o = torch.from_numpy(order).to(dev)
-                    t = run_epoch(emb, out, ids_d[o], lens_d[o], y_d[o], t, base_lr, total)
+                    x = {"ids": ids_d[o], "lens": lens_d[o], "ys": y_d[o]}
+                n = len(x["ids"])
+                for a in range(0, n, GRAPH_CHUNK):
+                    part = {k: v[a:a + GRAPH_CHUNK] for k, v in x.items()}
+                    t = runner({**part, "t": t}, (B if use_batched else 1, len(part["ids"])))
+                # one cheap reduction a epoch: any non-finite entry in
+                # either table bails before the remaining epochs
+                if use_batched and not torch.isfinite(out.sum() + emb.sum()):
+                    break
             return emb.cpu().numpy(), out.cpu().numpy()
 
         # the divergence retry only makes sense for the minibatch path (the
@@ -255,6 +315,8 @@ class FastTextClassifier:
             # repeat a batch size (B <= 16 floors at 1)
             "clip": self.clip, "n_examples": N,
         }
+        with gc_paused():  # the fit's graphs go here, at a known point
+            del runner
         self.emb = emb_np
         self.emb[0] = 0
         self.out = out_np

@@ -18,7 +18,9 @@ expands to on this host (so a library built on one machine is never loaded
 on another); a later call loads the library that is there. Nothing here runs
 at import time. A failed build raises with the compiler's output: the port
 never falls back to its Python paths on its own. Those stay reachable by an
-explicit ``prefer_native=False`` where a caller offers it.
+explicit ``prefer_native=False`` where a caller offers it. ``build(source)``
+builds another host C++ file of the port the same way (``csrc/l1r_lr.cc``,
+bound in :mod:`..evaluate.l1r_native`).
 """
 
 from __future__ import annotations
@@ -45,36 +47,38 @@ _TRAIN_BUFFER = 1 << 24  # bytes for each of the trained token and merge blobs
 def compiler() -> str:
     found = shutil.which("g++")
     if found is None:
-        raise RuntimeError("g++ not found on PATH: the native text runtime (native/tpust.cc) "
-                           "builds with it")
+        raise RuntimeError("g++ not found on PATH: the port's host C++ (native/tpust.cc, "
+                           "csrc/l1r_lr.cc) builds with it")
     return found
 
 
-def library_path(cxx: str) -> str:
-    """Where the library builds to for the compiler ``cxx``; the name changes
+def library_path(cxx: str, source: str = SOURCE) -> str:
+    """Where ``source`` builds to for the compiler ``cxx``; the name changes
     with the source, the flags and what ``-march=native`` means here."""
     target = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
                             capture_output=True, text=True)
     digest = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         digest.update(f.read())
     digest.update(" ".join(CXX_FLAGS + LD_FLAGS).encode() + b"\0" + target.stdout.encode())
-    return os.path.join(BUILD_DIR, f"tpust-{digest.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile ``native/tpust.cc`` unless it is built; return the library's
-    path. Raises with the compiler's output when the build fails."""
+def build(source: str = SOURCE) -> str:
+    """Compile the C++ file ``source`` (``native/tpust.cc`` unless given)
+    into a shared library unless it is built; return the library's path.
+    Raises with the compiler's output when the build fails."""
     cxx = compiler()
-    out = library_path(cxx)
+    out = library_path(cxx, source)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([cxx, *CXX_FLAGS, *LD_FLAGS, "-o", tmp, SOURCE],
+    proc = subprocess.run([cxx, *CXX_FLAGS, *LD_FLAGS, "-o", tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed on {SOURCE} (exit {proc.returncode}):\n"
+        raise RuntimeError(f"g++ failed on {source} (exit {proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from consistent__style_transfer_torch.text import fasttext_cls
 from consistent__style_transfer_torch.text.fasttext_cls import FastTextClassifier
 from consistent__style_transfer_tpu.text.fasttext_cls import FastTextClassifier as JaxFastText
 from test_eval import styled_corpus  # noqa: F401  (the corpus recipe, as a fixture)
@@ -142,3 +143,100 @@ def test_yelp_fit_matches_jax_and_holds_the_chip_floor(tmp_path):
     n, p1, r1 = want.test(str(tmp_path / "yelp.dev"))
     assert n == 4_000 and p1 == r1 == pytest.approx(chip_smoke.EVAL_P1_JAX_CPU, abs=1e-12)
     assert got.test(str(tmp_path / "yelp.dev")) == (n, p1, r1)
+
+
+def _reference_epoch(emb, out, ids, lens, ys, t, base_lr, total):
+    """The sequential epoch as a per-example recurrence: the rate from t,
+    then t + 1, an example at a time."""
+    L, C = ids.shape[1], out.shape[1]
+    masks = (torch.arange(L)[None, :] < lens[:, None].long())[..., None]
+    onehot = torch.nn.functional.one_hot(ys, C).to(out.dtype)
+    for i in range(ids.shape[0]):
+        row, n, mask = ids[i], lens[i], masks[i]
+        hidden = torch.where(mask, emb[row], 0.0).sum(0) / n
+        err = torch.softmax(hidden @ out, dim=-1) - onehot[i]
+        lr = fasttext_cls._lr(base_lr, t, total)
+        g_hidden = out @ err
+        out.sub_(lr * torch.outer(hidden, err))
+        emb.index_add_(0, row, torch.where(mask, -lr * g_hidden / n, 0.0))
+        t = t + 1.0
+    return t
+
+
+def _reference_epoch_batched(emb, out, ids, lens, ys, valid, t, base_lr, total, clip):
+    """The minibatch epoch as a per-step recurrence: the rate from t, then
+    t + the step's valid count; rows added with ``index_add_``."""
+    S, B, L = ids.shape
+    C = out.shape[1]
+    ar = torch.arange(L)
+    for s in range(S):
+        rows, ns, v = ids[s], lens[s], valid[s]
+        mask = (ar[None, :] < ns[:, None].long())[..., None]
+        hidden = torch.where(mask, emb[rows], 0.0).sum(1) / ns[:, None]
+        p = torch.softmax(hidden @ out, dim=-1)
+        err = (p - torch.nn.functional.one_hot(ys[s], C).to(p.dtype)) * v[:, None]
+        lr = fasttext_cls._lr(base_lr, t, total)
+        g_hidden = err @ out.T
+        g_out = hidden.T @ err
+        gnorm = torch.sqrt((g_out * g_out).sum() + (g_hidden * g_hidden).sum())
+        step = lr * torch.clamp_max(clip * B / (gnorm + 1e-12), 1.0)
+        out.sub_(step * g_out)
+        upd = torch.where(mask, (-step * g_hidden / ns[:, None])[:, None, :], 0.0)
+        emb.index_add_(0, rows.reshape(-1), upd.reshape(B * L, -1))
+        t = t + v.sum()
+    return t
+
+
+@pytest.mark.parametrize("path", ["sequential", "minibatch_in_order", "minibatch_by_product"])
+def test_chunked_epochs_equal_the_per_step_recurrence(path):
+    """Two epochs run as chunks (``fasttext_cls.GRAPH_CHUNK`` steps, t
+    carried from chunk to chunk, the rates computed up front) against the
+    per-step recurrence, on the CPU, from one seeded start: bit for bit
+    where the rows are added in order; with the card's product update
+    (:func:`add_rows_by_product`, the rows' sums in another order) within
+    ATOL, float32 rounding over 2 x 26 steps. The padded last step (valid
+    0) counts nothing in t."""
+    rng = np.random.default_rng(7)
+    V, D, C, L, N, B = 60, 16, 2, 9, 203, 8
+    lens = rng.integers(1, L + 1, N).astype(np.float32)
+    ids = np.where(np.arange(L) < lens[:, None], rng.integers(1, V + 1, (N, L)), 0)
+    ys = rng.integers(0, C, N)
+    emb0 = ((rng.random((V + 1, D)) - 0.5) / D).astype(np.float32)
+    emb0[0] = 0
+    total, K = 2 * N, fasttext_cls.GRAPH_CHUNK
+    tables = []
+    for chunked in (False, True):
+        emb, out = torch.tensor(emb0), torch.zeros((D, C))
+        t = torch.zeros(())
+        for epoch in range(2):
+            o = np.random.default_rng(epoch).permutation(N)
+            x_ids, x_lens, x_ys = (torch.from_numpy(a[o]) for a in (ids, lens, ys))
+            if path == "sequential":
+                if not chunked:
+                    t = _reference_epoch(emb, out, x_ids, x_lens, x_ys, t, 0.1, total)
+                for a in range(0, N, K) if chunked else ():
+                    t = fasttext_cls.run_epoch(emb, out, x_ids[a:a + K], x_lens[a:a + K],
+                                               x_ys[a:a + K], t, 0.1, total)
+                continue
+            pad = (-N) % B
+            S = (N + pad) // B
+            x = [torch.cat([a, a[:pad]]).reshape(S, B, *a.shape[1:])
+                 for a in (x_ids, x_lens, x_ys)]
+            valid = torch.cat([torch.ones(N), torch.zeros(pad)]).reshape(S, B)
+            if not chunked:
+                t = _reference_epoch_batched(emb, out, *x, valid, t, 0.1, total, 1.0)
+            add_rows = (fasttext_cls.add_rows_in_order if path == "minibatch_in_order"
+                        else fasttext_cls.add_rows_by_product)
+            for a in range(0, S, K) if chunked else ():
+                t = fasttext_cls.run_epoch_batched(emb, out, *(v[a:a + K] for v in x),
+                                                   valid[a:a + K], t, 0.1, total, 1.0,
+                                                   add_rows=add_rows)
+        tables.append((emb, out, t))
+    (want_emb, want_out, want_t), (emb, out, t) = tables
+    assert float(t) == float(want_t) == 2 * N
+    if path == "minibatch_by_product":
+        np.testing.assert_allclose(emb.numpy(), want_emb.numpy(), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(out.numpy(), want_out.numpy(), rtol=0, atol=ATOL)
+        assert not torch.equal(emb, want_emb)  # the product's order is another
+    else:
+        assert torch.equal(emb, want_emb) and torch.equal(out, want_out)

@@ -56,7 +56,8 @@ def yelp_fits():
     vec = plex.BinaryUnigramVectorizer().fit(x)
     X = vec.transform(x)
     return {"x": x, "y": y, "vec": vec, "X": X, "liblinear": _liblinear(X, y),
-            "port": plex.L1LogisticRegression(C=3, seed=0).fit(X, y)}
+            "port": plex.L1LogisticRegression(C=3, seed=0).fit(X, y),
+            "port_python": plex.L1LogisticRegression(C=3, seed=0, prefer_native=False).fit(X, y)}
 
 
 def test_vectorizer_equals_countvectorizer_on_yelp(yelp_fits):
@@ -80,12 +81,14 @@ def test_lr_predicts_as_liblinear_from_its_arrays(yelp_fits):
     np.testing.assert_allclose(lr.predict_proba(X), sk.predict_proba(X), rtol=0, atol=1e-12)
 
 
-def test_lr_fit_reaches_liblinear_on_yelp(yelp_fits):
-    """The port's newGLMNET fit reaches an objective at or below
+@pytest.mark.parametrize("solver", ["port", "port_python"], ids=["native", "python"])
+def test_lr_fit_reaches_liblinear_on_yelp(yelp_fits, solver):
+    """The port's newGLMNET fit, with either solver (the C++ one, the
+    default, and the Python one), reaches an objective at or below
     liblinear's x (1 + 5e-5) on the committed yelp train (liblinear's own
     spread between global seeds: 0.9e-5), and its lexicon differs from
     liblinear's by at most 3 words (about 5% of 63)."""
-    X, y, sk, port = yelp_fits["X"], yelp_fits["y"], yelp_fits["liblinear"], yelp_fits["port"]
+    X, y, sk, port = yelp_fits["X"], yelp_fits["y"], yelp_fits["liblinear"], yelp_fits[solver]
     sk_obj = l1_lr_from_arrays(sk.coef_, sk.intercept_, sk.classes_).objective(X, y)
     assert port.objective(X, y) <= sk_obj * (1 + 5e-5), (port.objective(X, y), sk_obj)
     assert port.classes_.tolist() == sk.classes_.tolist() == [0.0, 1.0]
@@ -137,7 +140,8 @@ def test_adversarial_lr_cap():
     tsf = [f"transferred sentence {i} odd words" for i in range(50)]
     ori = [f"original sentence {i} usual words" for i in range(50)]
     _, vectorizer = plex.fit_unigram_lr(tsf + ori, np.concatenate([np.zeros(50), np.ones(50)]))
-    capped = train_adversarial_lr(tsf, ori, vectorizer, limit=10)
-    full = train_adversarial_lr(tsf, ori, vectorizer)
+    capped, parts = train_adversarial_lr(tsf, ori, vectorizer, limit=10)
+    full, _ = train_adversarial_lr(tsf, ori, vectorizer)
+    assert parts["rows"] == 20 and parts["solver"] == "native"
     assert capped.classes_.tolist() == full.classes_.tolist() == [0.0, 1.0]
     assert not np.allclose(capped.coef_, full.coef_)

@@ -112,7 +112,8 @@ print("TRAINED")
 
 _BLOCKED_NEW_MODULES = r"""
 import tempfile
-for name in ("text.native", "utils.profiling", "train.checkpoint", "train.graphs"):
+for name in ("text.native", "evaluate.l1r_native", "utils.profiling", "train.checkpoint",
+             "train.graphs"):
     assert "consistent__style_transfer_torch." + name in sys.modules, name
 from consistent__style_transfer_torch.train.graphs import GraphedStep, step_runner
 
@@ -124,6 +125,12 @@ from consistent__style_transfer_torch.utils.profiling import StepTimer, trace
 
 vecs = native_w2v_train([[0, 1, 2, 1]] * 20, 3, dim=4, epochs=1, n_threads=1)
 assert vecs.shape == (3, 4), vecs.shape
+import numpy as np
+from scipy import sparse
+from consistent__style_transfer_torch.evaluate.lexicon import L1LogisticRegression
+X = sparse.csr_matrix(np.eye(4)[[0, 1, 2, 3] * 5])
+lr = L1LogisticRegression(C=3).fit(X, np.array([0, 0, 1, 1] * 5))
+assert lr.n_iter_ >= 1 and lr.coef_[0, 2] > 0 > lr.coef_[0, 0], lr.coef_
 with tempfile.TemporaryDirectory() as d:
     ckpt = StateCheckpointer(d)
     ckpt.save(0, {"w": torch.ones(2), "best": 1.0})
