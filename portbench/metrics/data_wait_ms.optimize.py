@@ -1,0 +1,3 @@
+"""`data_wait_ms` of the optimize stage's cells (``lib/readers.py::data_wait_ms``)."""
+
+from portbench.lib.readers import data_wait_ms as read  # noqa: F401

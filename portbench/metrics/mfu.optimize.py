@@ -1,0 +1,3 @@
+"""`mfu` of the optimize stage's cells (``lib/readers.py::mfu``)."""
+
+from portbench.lib.readers import mfu as read  # noqa: F401
