@@ -688,14 +688,12 @@ def graph_nodes_per_call(fn) -> int:
 
 def graph_nodes(graph) -> int:
     """The nodes of a captured CUDA graph (``keep_graph=True``), counted by
-    libcuda's cuGraphGetNodes."""
-    import ctypes
+    libcuda's cuGraphGetNodes (``utils/profiling.py::graph_nodes``)."""
+    from consistent__style_transfer_torch.utils.profiling import graph_nodes as count
 
-    count = ctypes.c_size_t(0)
-    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
-        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
-    check(err == 0, f"cuGraphGetNodes failed: CUresult {err}")
-    return count.value
+    n = count(graph)
+    check(n is not None, "cuGraphGetNodes failed")
+    return n
 
 
 def sinkhorn_times(p, q, D) -> dict:

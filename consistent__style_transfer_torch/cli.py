@@ -210,8 +210,13 @@ def cmd_serve(cfg: Config) -> None:
 
     One process: the JAX ``serve`` feeds the whole batch to every device,
     so a mesh there only repeats the work; under the launcher with more
-    than one rank it raises."""
-    import numpy as np
+    than one rank it raises.
+
+    When spans record (``utils/profiling.py``), each batch makes
+    ``serve.read`` (waiting on stdin until the batch is full or the input
+    ends), ``serve.encode`` (tokenising and padding), ``serve.step`` (the
+    copy to the device, the decode, the copy back) and ``serve.decode_print``
+    (detokenising and printing)."""
     import torch
 
     if world_size() > 1:
@@ -221,6 +226,7 @@ def cmd_serve(cfg: Config) -> None:
     from .train.common import build_generator, get_device, get_tokenizer
     from .train.infer import make_transfer_step
     from .train.optimize import load_generator_params
+    from .utils.profiling import span
 
     cfg.mode = "test"
     device = get_device(cfg)
@@ -229,37 +235,49 @@ def cmd_serve(cfg: Config) -> None:
     load_generator_params(cfg, model)
     step = make_transfer_step(model, cfg.beam_size)
 
-    def flush(styles, texts):
-        if not texts:
-            return
-        enc = [tokenizer.encode(t)[: cfg.max_len] for t in texts]
-        n = len(enc)
-        styles = list(styles)
-        while len(enc) < cfg.batch_size:  # pad to the fixed batch shape
-            enc.append([])
-            styles.append(0)
-        x, _ = align(enc, 0, cfg.max_len)
-        ids = step(torch.from_numpy(x).to(device),
-                   torch.tensor(styles, dtype=torch.int32, device=device)).cpu().numpy()
-        for i in range(n):
-            print(tokenizer.decode(ids[i].tolist()), flush=True)
+    def batches():
+        """(styles, texts) of each batch of stdin's lines, the last one short."""
+        styles, texts = [], []
+        for line in sys.stdin:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            if "\t" in line:
+                s, text = line.split("\t", 1)
+                styles.append(int(s))
+            else:
+                styles.append(0)
+                text = line
+            texts.append(text)
+            if len(texts) == cfg.batch_size:
+                yield styles, texts
+                styles, texts = [], []
+        if texts:
+            yield styles, texts
 
-    styles, texts = [], []
-    for line in sys.stdin:
-        line = line.rstrip("\n")
-        if not line:
-            continue
-        if "\t" in line:
-            s, text = line.split("\t", 1)
-            styles.append(int(s))
-        else:
-            styles.append(0)
-            text = line
-        texts.append(text)
-        if len(texts) == cfg.batch_size:
-            flush(styles, texts)
-            styles, texts = [], []
-    flush(styles, texts)
+    def flush(styles, texts):
+        with span("serve.encode"):
+            enc = [tokenizer.encode(t)[: cfg.max_len] for t in texts]
+            n = len(enc)
+            styles = list(styles)
+            while len(enc) < cfg.batch_size:  # pad to the fixed batch shape
+                enc.append([])
+                styles.append(0)
+            x, _ = align(enc, 0, cfg.max_len)
+        with span("serve.step"):
+            ids = step(torch.from_numpy(x).to(device),
+                       torch.tensor(styles, dtype=torch.int32, device=device)).cpu().numpy()
+        with span("serve.decode_print"):
+            for i in range(n):
+                print(tokenizer.decode(ids[i].tolist()), flush=True)
+
+    feed = batches()
+    while True:
+        with span("serve.read"):
+            batch = next(feed, None)
+        if batch is None:
+            return
+        flush(*batch)
 
 
 COMMANDS = {

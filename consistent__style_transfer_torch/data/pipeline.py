@@ -29,6 +29,7 @@ from typing import Callable, Iterator
 import numpy as np
 
 from .. import PAD_ID
+from ..utils.profiling import span
 from .corpus import StyleCorpus
 from .noise import rand_perm_arrays, transfer_noise_arrays
 
@@ -135,16 +136,21 @@ def collate_pretrain(max_len: int, wmd_labeler, p: float = 0.15, need_matcher=No
     ungated run at the same seed, as in the JAX package.
 
     ``rows`` (a data-parallel rank's slice of the batch): every draw is made
-    for the global batch, then only these rows are kept and labelled."""
+    for the global batch, then only these rows are kept and labelled.
+
+    When spans record (``utils/profiling.py``), the noise draws make two
+    ``data.noise`` spans a batch (the two transfer_noise variants, then
+    rand_perm)."""
     noise_len = max_len + max(4, max_len // 2)
     keep = slice(None) if rows is None else rows
 
     def fn(ids, lens, labels, rng):
         if need_matcher is None or need_matcher():
-            nx1, nl1 = transfer_noise_arrays(ids, lens, p=p, rng=rng,
-                                             out_len=noise_len, pad_id=PAD_ID)
-            nx2, nl2 = transfer_noise_arrays(ids, lens, p=p, rng=rng,
-                                             out_len=noise_len, pad_id=PAD_ID)
+            with span("data.noise"):
+                nx1, nl1 = transfer_noise_arrays(ids, lens, p=p, rng=rng,
+                                                 out_len=noise_len, pad_id=PAD_ID)
+                nx2, nl2 = transfer_noise_arrays(ids, lens, p=p, rng=rng,
+                                                 out_len=noise_len, pad_id=PAD_ID)
             nx1, nl1, nx2, nl2 = nx1[keep], nl1[keep], nx2[keep], nl2[keep]
             wmd = wmd_labeler.label_pairs(nx1, nl1, nx2, nl2)
         else:
@@ -154,7 +160,8 @@ def collate_pretrain(max_len: int, wmd_labeler, p: float = 0.15, need_matcher=No
             nx1 = np.zeros((B, noise_len), dtype=ids.dtype)
             nx2 = np.zeros((B, noise_len), dtype=ids.dtype)
             wmd = np.zeros(B, np.float32)
-        nx3 = rand_perm_arrays(ids, lens, p=p, rng=rng)[keep]
+        with span("data.noise"):
+            nx3 = rand_perm_arrays(ids, lens, p=p, rng=rng)[keep]
         return {
             "x": ids[keep], "nx1": nx1, "nx2": nx2, "nx3": nx3,
             "labels": labels[keep].astype(np.int32), "wmd": wmd, "lengths": lens[keep],

@@ -18,6 +18,14 @@ compute that reads it: no event is needed.
 rows of each batch's arrays before the copy: ``parallel/sharding.py::
 shard_batch``, or ``shard_stacked_batch`` for the optimize stage's (k, B,
 ...) groups.
+
+When spans record (``utils/profiling.py``), the producer thread (named
+``prefetch``) makes ``data.collate`` (the iterator's ``next``: the batch
+and its collate), ``data.h2d`` (the copy to the device) and
+``data.put_wait`` (blocked on a full queue) for each batch, and the
+consumer ``data.take`` (waiting for the next batch) with the counters
+``data.takes`` and ``data.ready`` (a batch was queued already); a batch's
+spans share its id.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..utils.profiling import Span, count, next_batch_id, recording, span
 from .pipeline import Batch
 
 
@@ -68,25 +77,32 @@ class DevicePrefetcher:
         def producer():
             try:
                 with torch.cuda.stream(stream):  # a no-op for None
-                    for batch in self.iterator:
-                        if stop.is_set():
+                    batches = iter(self.iterator)
+                    while True:
+                        bid = next_batch_id() if recording() else None
+                        with span("data.collate", batch=bid):
+                            batch = next(batches, None)
+                        if batch is None or stop.is_set():
                             return
                         arrays = batch.arrays if self.shard_fn is None else self.shard_fn(
                             batch.arrays)
-                        q.put((batch, to_device(arrays, self.device)))
+                        with span("data.h2d", batch=bid):
+                            tensors = to_device(arrays, self.device)
+                        with span("data.put_wait", batch=bid):
+                            q.put((bid, batch, tensors))
             except BaseException as e:  # surfaced in the consumer
                 errors.append(e)
             finally:
                 q.put(sentinel)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name="prefetch", daemon=True)
         t.start()
         try:
             while True:
-                item = q.get()
+                item = take(q) if recording() else q.get()
                 if item is sentinel:
                     break
-                yield item
+                yield item[1:]
         finally:
             # a consumer that stops early must not leave the producer blocked
             # on a full queue
@@ -99,3 +115,18 @@ class DevicePrefetcher:
             t.join()
         if errors:
             raise errors[0]
+
+
+def take(q: queue.Queue):
+    """``q.get()`` in a ``data.take`` span (recording), counted in
+    ``data.takes`` and, when a batch was queued already, ``data.ready``."""
+    ready = not q.empty()
+    with Span("data.take", None) as s:
+        item = q.get()
+        if isinstance(item, tuple):  # not the end's sentinel
+            s.id = item[0]
+    if isinstance(item, tuple):
+        count("data.takes")
+        if ready:
+            count("data.ready")
+    return item

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels.sinkhorn import sinkhorn_pallas
+from ..utils.profiling import span
 
 
 def _to_ragged(ids: np.ndarray, lens: np.ndarray) -> list[list[int]]:
@@ -152,10 +153,13 @@ class SinkhornWmdLabeler:
 
     def label_pairs(self, ids1, lens1, ids2, lens2) -> torch.Tensor:
         """Array-batch entry of the pipeline collate: (B,) float32 on the
-        labeler's device, queued on the current stream and not waited for."""
-        p, q, D, fallback = self.pair_inputs(ids1, lens1, ids2, lens2)
-        cost = sinkhorn_pallas(p, q, D, epsilon=self.epsilon, n_iters=self.n_iters)
-        return torch.where(fallback >= 0, fallback, cost)
+        labeler's device, queued on the current stream and not waited for.
+        When spans record, a ``data.wmd_label`` span holds its host time
+        (histograms, ground cost, the Sinkhorn's launch)."""
+        with span("data.wmd_label"):
+            p, q, D, fallback = self.pair_inputs(ids1, lens1, ids2, lens2)
+            cost = sinkhorn_pallas(p, q, D, epsilon=self.epsilon, n_iters=self.n_iters)
+            return torch.where(fallback >= 0, fallback, cost)
 
     def __call__(self, xs1, xs2) -> torch.Tensor:
         """Ragged-list entry (tests, tools): aligns and defers to

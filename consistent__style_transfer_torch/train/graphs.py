@@ -21,6 +21,15 @@ branch overwrites: read or copy what must outlive it. Each graph keeps its
 ``cudaGraph_t`` (``keep_graph``), so its nodes can be counted; it is
 instantiated at its first replay.
 
+Each captured branch is kept in ``utils/profiling.py``'s recorder (always,
+once a capture): the step's ``name``, the key, the host seconds of its
+eager first call and of its capture, and its node count. When spans record
+(``utils/profiling.py``), a call makes the spans ``step.copy_in`` (the
+copies into the static buffers), ``step.replay`` (the replay and its launch
+counts; its id is the branch's index in the recorder's ``graphs``) or
+``step.first_call`` and ``step.capture``, and on the card a pair of CUDA
+events times each replayed call (the copies and the replay) on the device.
+
 The captures run in ``thread_local`` error mode: other threads go on
 working on the card while one captures (the batch prefetcher's copies and,
 in pretrain, its WMD labels with the Sinkhorn kernel). A step whose
@@ -44,6 +53,7 @@ replay, so ``.launches`` counts the kernels that ran, eager or replayed.
 from __future__ import annotations
 
 import gc
+import time
 from contextlib import contextmanager
 from typing import Callable, Hashable
 
@@ -51,6 +61,8 @@ import torch
 
 from ..kernels.decode_step import fused_decode_logits
 from ..kernels.sinkhorn import sinkhorn_cuda
+from ..utils import profiling
+from ..utils.profiling import span
 
 COUNTED_KERNELS = (fused_decode_logits, sinkhorn_cuda)
 
@@ -76,10 +88,13 @@ class GraphedStep:
     """``fn(inputs, key)`` as one CUDA graph per ``key`` (see the module
     note). ``generators``: the explicit generators ``fn`` draws from (None
     entries are skipped). ``before_capture``: called before a branch's
-    eager first call and capture."""
+    eager first call and capture. ``name``: the step's name in the
+    recorder's graphs (default: ``fn``'s qualified name)."""
 
-    def __init__(self, fn: Callable, generators=(), before_capture: Callable | None = None):
+    def __init__(self, fn: Callable, generators=(), before_capture: Callable | None = None,
+                 name: str | None = None):
         self.fn = fn
+        self.name = name or getattr(fn, "__qualname__", type(fn).__name__)
         self.generators = tuple(g for g in generators if g is not None)
         self.before_capture = before_capture
         self.static: dict[Hashable, dict[str, torch.Tensor]] = {}
@@ -88,24 +103,33 @@ class GraphedStep:
         # per branch: (kernel wrapper, calls captured) for each counted kernel
         self.replay_launches: dict[Hashable, tuple] = {}
         self.replays = 0  # of every branch
+        self.branches: dict[Hashable, int] = {}  # key -> index in the recorder's graphs
         self.stream: torch.cuda.Stream | None = None
 
     def __call__(self, inputs: dict, key: Hashable = None):
         static = self.static.get(key)
         if static is None:
             static = self.static[key] = {k: torch.empty_like(v) for k, v in inputs.items()}
-        for k, buf in static.items():
-            if inputs[k].shape != buf.shape:
-                raise ValueError(f"{k} is {tuple(inputs[k].shape)}; the step of {key!r} takes "
-                                 f"{tuple(buf.shape)}")
-            buf.copy_(inputs[k])
         graph = self.graphs.get(key)
+        timed = graph is not None and profiling.recording()
+        if timed:
+            t_ns = time.perf_counter_ns()
+            start = profiling.device_mark()
+        with span("step.copy_in"):
+            for k, buf in static.items():
+                if inputs[k].shape != buf.shape:
+                    raise ValueError(f"{k} is {tuple(inputs[k].shape)}; the step of {key!r} "
+                                     f"takes {tuple(buf.shape)}")
+                buf.copy_(inputs[k])
         if graph is None:
             return self._first_call(static, key)
-        graph.replay()
-        self.replays += 1
-        for kernel, n in self.replay_launches[key]:
-            kernel.launches += n
+        with span("step.replay", step=self.branches[key]):
+            graph.replay()
+            self.replays += 1
+            for kernel, n in self.replay_launches[key]:
+                kernel.launches += n
+        if timed:
+            profiling.device_step(start, t_ns)
         return self.outputs[key]
 
     def _first_call(self, static: dict, key: Hashable):
@@ -116,28 +140,31 @@ class GraphedStep:
             self.stream = torch.cuda.Stream(device)
         side, current = self.stream, torch.cuda.current_stream(device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
+        with span("step.first_call", always=True) as first, torch.cuda.stream(side):
             out = self.fn(static, key)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes can be counted
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = [k.captured for k in COUNTED_KERNELS]
-        with gc_paused(), torch.cuda.graph(graph, stream=side,
-                                           capture_error_mode="thread_local"):
+        with span("step.capture", always=True) as capture, gc_paused(), torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
             self.outputs[key] = self.fn(static, key)
         self.replay_launches[key] = tuple(
             (k, k.captured - b) for k, b in zip(COUNTED_KERNELS, before) if k.captured > b)
+        self.branches[key] = profiling.record_graph(self.name, key, first.seconds,
+                                                    capture.seconds, profiling.graph_nodes(graph))
         self.graphs[key] = graph
         return out
 
 
 def step_runner(fn: Callable, device: torch.device, generators=(),
-                before_capture: Callable | None = None) -> Callable:
-    """``runner(inputs, key=None)``: :class:`GraphedStep` of ``fn`` on a CUDA
-    ``device``; on the CPU ``fn(inputs, key)`` itself, eagerly."""
+                before_capture: Callable | None = None, name: str | None = None) -> Callable:
+    """``runner(inputs, key=None)``: :class:`GraphedStep` of ``fn`` (named
+    ``name``) on a CUDA ``device``; on the CPU ``fn(inputs, key)`` itself,
+    eagerly."""
     if device.type == "cuda":
-        return GraphedStep(fn, generators, before_capture)
+        return GraphedStep(fn, generators, before_capture, name)
 
     def eager(inputs: dict, key: Hashable = None):
         return fn(inputs, key)

@@ -13,6 +13,7 @@ import torch
 from ..data.pipeline import eval_arrays
 from ..data.prefetch import to_device
 from ..parallel.sharding import data_group, global_masked_mean, shard_batch
+from ..utils import profiling
 
 
 def validate(batches, runner, device: torch.device, mesh=None, shard: bool = True,
@@ -35,7 +36,11 @@ def validate(batches, runner, device: torch.device, mesh=None, shard: bool = Tru
     (``parallel/sharding.py::global_masked_mean``), so ranks with unequal
     real rows (a padded last batch) weigh right and all read the same
     numbers. ``shard`` false: the iterator yields a rank's rows already (the
-    pretrain collate). None when there is no batch."""
+    pretrain collate). None when there is no batch.
+
+    Every training loop validates at each epoch's end, so there, on the
+    card, the pass reads the SM clock (``utils/profiling.py::sm_clock_mhz``)
+    for the epoch's log line (:func:`clock_of`) and the span export."""
     sums, weight = [], 0
     for batch in batches:
         arrays = eval_arrays(batch)
@@ -52,8 +57,18 @@ def validate(batches, runner, device: torch.device, mesh=None, shard: bool = Tru
         weight += real
     if not sums:
         return None
-    return global_masked_mean([torch.stack(col).sum() for col in zip(*sums)], weight,
-                              data_group(mesh))
+    losses = global_masked_mean([torch.stack(col).sum() for col in zip(*sums)], weight,
+                                data_group(mesh))
+    profiling.sm_clock_mhz(device)
+    return losses
+
+
+def clock_of(device: torch.device) -> dict:
+    """``{"sm_clock_mhz": ...}``: the card's SM clock at the newest
+    validation's end, for a stage's epoch log line; empty off the card or
+    without NVML."""
+    mhz = profiling.RECORDER.sm_clock if device.type == "cuda" else None
+    return {} if mhz is None else {"sm_clock_mhz": mhz}
 
 
 class EarlyStopper:
@@ -79,18 +94,19 @@ class EarlyStopper:
 
 @dataclass
 class Throughput:
-    """sentences/s and steps/s on the host clock since creation."""
+    """sentences/s and steps/s on the host's ``perf_counter`` clock since
+    creation."""
 
     sentences: int = 0
     steps: int = 0
-    t0: float = field(default_factory=time.time)
+    t0: float = field(default_factory=time.perf_counter)
 
     def add(self, n_sentences: int) -> None:
         self.sentences += n_sentences
         self.steps += 1
 
     def rates(self) -> dict:
-        dt = max(time.time() - self.t0, 1e-9)
+        dt = max(time.perf_counter() - self.t0, 1e-9)
         return {
             "sentences_per_sec": self.sentences / dt,
             "steps_per_sec": self.steps / dt,

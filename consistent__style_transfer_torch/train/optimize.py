@@ -75,7 +75,6 @@ state, which holds every rank's generator states.
 from __future__ import annotations
 
 import os
-import time
 from functools import partial
 from typing import Callable, NamedTuple
 
@@ -91,13 +90,14 @@ from ..ops.losses import (bce_with_logits, cross_entropy, masked_row_mean, mse,
 from ..parallel.mesh import barrier, is_main, rank, world_size
 from ..parallel.sharding import data_group, global_means, replicate, shard_stacked_batch
 from ..utils.io import RunLogger
+from ..utils.profiling import read_device_times, span
 from .common import (autocast, build_classifier, build_discriminator, build_generator,
                      build_lm, build_matcher, compute_dtype, generator_call, get_corpus,
                      get_device, get_mesh, get_tokenizer, rank_generators)
 from .checkpoint import StateCheckpointer
 from .graphs import GraphedStep, step_runner
 from .infer import run_inference
-from .loop import EarlyStopper, Throughput, validate
+from .loop import EarlyStopper, Throughput, clock_of, validate
 from .state import (AdamWithClip, AsyncSaver, BestKeeper, load_state_dict, newest_checkpoint,
                     params_exist)
 from .warmup import warmup_ckpt_name
@@ -364,6 +364,8 @@ class GraphedFusedStep(GraphedStep):
     static outputs ``(aux, d_loss)``, which the next replay of that branch
     overwrites: copy what must outlive it."""
 
+    NAME = "optimize.fused_step"  # its branches' name in the recorder's graphs
+
     def __init__(self, fused_step: Callable, acc: list, generator: torch.Generator,
                  d_generator: torch.Generator, copy_scale: torch.Tensor,
                  given_coins: bool = False, coin_generator: torch.Generator | None = None):
@@ -372,7 +374,7 @@ class GraphedFusedStep(GraphedStep):
                               copy_scale=copy_scale, coins=static.get("coins"),
                               coin_generator=coin_generator)
 
-        super().__init__(run, (generator, d_generator, coin_generator))
+        super().__init__(run, (generator, d_generator, coin_generator), name=self.NAME)
         self.given_coins = given_coins
 
     def __call__(self, batch: dict, do_apply: bool, coins: torch.Tensor | None = None):
@@ -453,59 +455,68 @@ def run_optimize(cfg: Config, progress: bool = True) -> str | None:
             return steps.fused_step(batch, acc, do_apply, generator, d_generator, copy_scale,
                                     coin_generator=coin_generator)
 
-    run_val = step_runner(lambda inputs, _: [steps.val_step(inputs)], device)
+    run_val = step_runner(lambda inputs, _: [steps.val_step(inputs)], device,
+                          name="optimize.val_step")
 
     for epoch in range(start_epoch, cfg.epochs):
         copy_scale.fill_(cfg.w_copy_decay ** epoch)  # 1.0 unless a decay is configured
-        ep_t0, ep_steps, d_applies = time.time(), 0, 0
-        for _, stacked in DevicePrefetcher(MegaBatches(train_it, cfg.megastep_k), device,
-                                           shard_fn=partial(shard_stacked_batch, mesh=mesh)):
-            logs = []
-            for i in range(stacked["x"].shape[0]):
-                do_apply = ep_steps % cfg.d_update_every == 0  # epoch-local index
-                aux, d_loss = run_step({k: v[i] for k, v in stacked.items()}, do_apply)
-                d_applies += do_apply
-                thru.add(cfg.batch_size)
-                ep_steps += 1
-                if step % 20 == 0:  # copied out before a replay overwrites them
-                    logs.append((step, {"D": d_loss.clone(),
-                                        **{k: v.clone() for k, v in aux.items()}}))
-                step += 1
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)  # once per group of k batches
-            for logged_step, metrics in logs:
-                logger.log(logged_step, **global_means(metrics, group), **thru.rates())
-        train_s = time.time() - ep_t0
+        ep_steps, d_applies = 0, 0
+        with span("epoch", step=epoch, always=True) as ep:
+            for _, stacked in DevicePrefetcher(MegaBatches(train_it, cfg.megastep_k), device,
+                                               shard_fn=partial(shard_stacked_batch, mesh=mesh)):
+                logs = []
+                for i in range(stacked["x"].shape[0]):
+                    do_apply = ep_steps % cfg.d_update_every == 0  # epoch-local index
+                    aux, d_loss = run_step({k: v[i] for k, v in stacked.items()}, do_apply)
+                    d_applies += do_apply
+                    thru.add(cfg.batch_size)
+                    ep_steps += 1
+                    if step % 20 == 0:  # copied out before a replay overwrites them
+                        logs.append((step, {"D": d_loss.clone(),
+                                            **{k: v.clone() for k, v in aux.items()}}))
+                    step += 1
+                if device.type == "cuda":
+                    with span("train.sync", step=step):
+                        torch.cuda.synchronize(device)  # once per group of k batches
+                    read_device_times()
+                for logged_step, metrics in logs:
+                    with span("log", step=logged_step):
+                        logger.log(logged_step, **global_means(metrics, group), **thru.rates())
 
         # validation over the real rows (a rank's own rows)
-        val_t0 = time.time()
-        val_loss = (validate(dev_it, run_val, device, mesh, inputs=VAL_INPUTS) or [0.0])[0]
-        logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps, train_s=train_s,
-                   val_s=time.time() - val_t0, d_applies=d_applies,
-                   epoch_sent_per_s=ep_steps * cfg.batch_size / max(time.time() - ep_t0, 1e-6))
+        with span("validate", step=epoch, always=True) as val:
+            val_loss = (validate(dev_it, run_val, device, mesh, inputs=VAL_INPUTS) or [0.0])[0]
+        with span("log", step=step):
+            logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps,
+                       train_s=ep.seconds, val_s=val.seconds, d_applies=d_applies,
+                       epoch_sent_per_s=ep_steps * cfg.batch_size
+                       / max(ep.seconds + val.seconds, 1e-6), **clock_of(device))
         if progress and main:
             print(f"[optimize] epoch {epoch} val_loss {val_loss:.4f} "
                   f"{thru.rates()['sentences_per_sec']:.1f} sent/s")
-        keeper.update(val_loss, models.generator,
-                      os.path.join(task_dump, f"G_epoch_{epoch}.pth"), delete_previous=True)
-        if ckpt is not None:
-            saver.wait()  # the best G it names is on disk first
-            payload = {
-                "g": models.generator.state_dict(), "d": models.disc.state_dict(),
-                "g_opt": g_opt.state_dict(), "d_opt": d_opt.state_dict(),
-                "generator": generator.get_state(), "d_generator": d_generator.get_state(),
-                "epoch": epoch, "step": step, "best": keeper.best, "best_path": keeper.last_path,
-            }
-            streams = gather_streams((generator, d_generator, coin_generator))
-            if streams is not None:  # every rank's streams, for rank 0 to save
-                payload["rank_generators"] = streams
-            if main:
-                ckpt.save(epoch, payload)
-            barrier()
+        with span("save", step=epoch):
+            keeper.update(val_loss, models.generator,
+                          os.path.join(task_dump, f"G_epoch_{epoch}.pth"), delete_previous=True)
+            if ckpt is not None:
+                saver.wait()  # the best G it names is on disk first
+                payload = {
+                    "g": models.generator.state_dict(), "d": models.disc.state_dict(),
+                    "g_opt": g_opt.state_dict(), "d_opt": d_opt.state_dict(),
+                    "generator": generator.get_state(), "d_generator": d_generator.get_state(),
+                    "epoch": epoch, "step": step, "best": keeper.best,
+                    "best_path": keeper.last_path,
+                }
+                streams = gather_streams((generator, d_generator, coin_generator))
+                if streams is not None:  # every rank's streams, for rank 0 to save
+                    payload["rank_generators"] = streams
+                if main:
+                    ckpt.save(epoch, payload)
+                barrier()
         if stopper.update(val_loss):
             break
 
-    saver.close()  # drain the pending best-G writes, re-raising worker errors
+    with span("save"):
+        saver.close()  # drain the pending best-G writes, re-raising worker errors
     logger.close()
     barrier()  # the best G is on disk before any rank goes on to read it
     return keeper.last_path

@@ -43,7 +43,6 @@ ranks take the same freeze and stop decisions. Rank 0 saves and logs.
 from __future__ import annotations
 
 import os
-import time
 
 import torch
 
@@ -55,6 +54,7 @@ from ..ops.losses import cross_entropy, mse, softmax_cross_entropy_tokens
 from ..parallel.mesh import barrier, is_main
 from ..parallel.sharding import batch_sharding, data_group, global_means, replicate
 from ..utils.io import RunLogger
+from ..utils.profiling import read_device_times, span
 from .common import (
     autocast,
     build_classifier,
@@ -69,7 +69,7 @@ from .common import (
     rank_generators,
 )
 from .graphs import step_runner
-from .loop import EarlyStopper, Throughput, validate
+from .loop import EarlyStopper, Throughput, clock_of, validate
 from .state import AdamWithClip, AsyncSaver, load_state_dict, params_exist, save_state_dict
 
 TASKS = ("cls", "mat", "dn")
@@ -184,58 +184,64 @@ def run_pretrain(cfg: Config, progress: bool = True) -> dict[str, str]:
     # a new flag tuple is captured after an epoch end's saves: drain them
     # first, as the saver's host copies must not overlap a capture
     run_step = step_runner(lambda inputs, flags: train_step(inputs, flags, generator), device,
-                           (generator,), before_capture=saver.wait)
+                           (generator,), before_capture=saver.wait, name="pretrain.step")
     run_eval = step_runner(lambda inputs, flags: list(eval_step(inputs, flags).values()), device,
-                           before_capture=saver.wait)
+                           before_capture=saver.wait, name="pretrain.eval_step")
 
     step = 0
     for epoch in range(cfg.epochs):
         ftuple = tuple(flags[t] for t in TASKS)
         if not any(ftuple):
             break
-        ep_t0, ep_sent, ep_steps = time.time(), 0, 0
+        ep_sent, ep_steps = 0, 0
         keys = step_inputs(ftuple)
-        for _, arrays in DevicePrefetcher(train_it, device):
-            parts = run_step({k: arrays[k] for k in keys}, ftuple)
-            thru.add(cfg.batch_size)
-            ep_sent += cfg.batch_size
-            ep_steps += 1
-            if step % 50 == 0:
-                parts = global_means(parts, group)
-                logger.log(step, **{f"{t}_loss": v for t, v in parts.items()}, **thru.rates())
-            step += 1
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        train_s = time.time() - ep_t0
+        with span("epoch", step=epoch, always=True) as ep:
+            for _, arrays in DevicePrefetcher(train_it, device):
+                parts = run_step({k: arrays[k] for k in keys}, ftuple)
+                thru.add(cfg.batch_size)
+                ep_sent += cfg.batch_size
+                ep_steps += 1
+                if step % 50 == 0:  # reads the losses: a sync every 50 steps
+                    with span("log", step=step):
+                        parts = global_means(parts, group)
+                        logger.log(step, **{f"{t}_loss": v for t, v in parts.items()},
+                                   **thru.rates())
+                step += 1
+            if device.type == "cuda":
+                with span("train.sync", step=step):
+                    torch.cuda.synchronize(device)
+                read_device_times()
 
         # validation at epoch end, over the real rows (a rank's own rows);
         # eval_step's losses come in TASKS order
-        val_t0 = time.time()
         active = [t for t in TASKS if flags[t]]
-        val = dict(zip(active, validate(dev_it, run_eval, device, mesh, shard=False, key=ftuple,
-                                        inputs=(*keys, "row_mask"))))
-        val_s = time.time() - val_t0
-        ep_rate = ep_sent / max(time.time() - ep_t0, 1e-6)  # validation included
-        for t in TASKS:
-            if not flags[t]:
-                continue
-            if best[t] < val[t]:
-                flags[t] = False  # permanent freeze (main_pretrain.py:100-102)
-            else:
-                best[t] = val[t]
-                if main:
-                    saver.submit(models[t], paths[t])
+        with span("validate", step=epoch, always=True) as val_span:
+            val = dict(zip(active, validate(dev_it, run_eval, device, mesh, shard=False,
+                                            key=ftuple, inputs=(*keys, "row_mask"))))
+        ep_rate = ep_sent / max(ep.seconds + val_span.seconds, 1e-6)  # validation included
+        with span("save", step=epoch):
+            for t in TASKS:
+                if not flags[t]:
+                    continue
+                if best[t] < val[t]:
+                    flags[t] = False  # permanent freeze (main_pretrain.py:100-102)
+                else:
+                    best[t] = val[t]
+                    if main:
+                        saver.submit(models[t], paths[t])
         val_loss = sum(v for v in best.values() if v != float("inf"))
-        logger.log(step, val_loss=val_loss, epoch=epoch, epoch_sent_per_s=ep_rate,
-                   train_steps=ep_steps, train_s=train_s, val_s=val_s,
-                   **{f"val_{t}": val.get(t, float("nan")) for t in TASKS})
+        with span("log", step=step):
+            logger.log(step, val_loss=val_loss, epoch=epoch, epoch_sent_per_s=ep_rate,
+                       train_steps=ep_steps, train_s=ep.seconds, val_s=val_span.seconds,
+                       **{f"val_{t}": val.get(t, float("nan")) for t in TASKS}, **clock_of(device))
         if progress and main:
             print(f"[pretrain] epoch {epoch} val_loss {val_loss:.4f} "
                   f"{ep_rate:.1f} sent/s flags {flags}")
         if stopper.update(val_loss):
             break
 
-    saver.close()  # drain pending saves, re-raising worker errors
+    with span("save"):
+        saver.close()  # drain pending saves, re-raising worker errors
     for t in TASKS:  # artifacts exist even after a degenerate run
         if main and not os.path.exists(paths[t]):
             save_state_dict(models[t].state_dict(), paths[t])

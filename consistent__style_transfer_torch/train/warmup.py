@@ -35,7 +35,6 @@ masked sums and counts; rank 0 saves and logs.
 from __future__ import annotations
 
 import os
-import time
 from functools import partial
 
 import torch
@@ -48,10 +47,11 @@ from ..ops.losses import softmax_cross_entropy_tokens
 from ..parallel.mesh import barrier, is_main
 from ..parallel.sharding import data_group, global_means, replicate, shard_batch
 from ..utils.io import RunLogger
+from ..utils.profiling import read_device_times, span
 from .common import (autocast, build_generator, compute_dtype, generator_call, get_corpus,
                      get_device, get_mesh, get_tokenizer, rank_generators)
 from .graphs import step_runner
-from .loop import EarlyStopper, Throughput, validate
+from .loop import EarlyStopper, Throughput, clock_of, validate
 from .state import AdamWithClip, BestKeeper, save_state_dict
 
 EVAL_SEED_OFFSET = 10_000_000
@@ -125,8 +125,9 @@ def run_warmup(cfg: Config, progress: bool = True) -> str:
     generator, coin_generator = rank_generators(cfg.seed, device, mesh)
     run_step = step_runner(
         lambda inputs, _: train_step(inputs, generator, coin_generator=coin_generator),
-        device, (generator, coin_generator))
-    run_eval = step_runner(lambda inputs, _: [eval_step(inputs, inputs["coins"])], device)
+        device, (generator, coin_generator), name="warmup.step")
+    run_eval = step_runner(lambda inputs, _: [eval_step(inputs, inputs["coins"])], device,
+                           name="warmup.eval_step")
 
     logger = RunLogger(f"{cfg.log_dir}/{cfg.dataset}", "warmup", config=cfg, enabled=main)
     stopper = EarlyStopper(cfg.warmup_patience)
@@ -135,32 +136,38 @@ def run_warmup(cfg: Config, progress: bool = True) -> str:
 
     step = 0
     for epoch in range(cfg.warmup_epochs):
-        ep_t0, ep_steps = time.time(), 0
-        for _, arrays in DevicePrefetcher(train_it, device,
-                                          shard_fn=partial(shard_batch, mesh=mesh)):
-            loss = run_step({k: arrays[k] for k in WARMUP_INPUTS})
-            thru.add(bs)
-            ep_steps += 1
-            if step % 50 == 0:
-                logger.log(step, **global_means({"dn_loss": loss}, group), **thru.rates())
-            step += 1
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        train_s = time.time() - ep_t0
+        ep_steps = 0
+        with span("epoch", step=epoch, always=True) as ep:
+            for _, arrays in DevicePrefetcher(train_it, device,
+                                              shard_fn=partial(shard_batch, mesh=mesh)):
+                loss = run_step({k: arrays[k] for k in WARMUP_INPUTS})
+                thru.add(bs)
+                ep_steps += 1
+                if step % 50 == 0:  # reads the loss: a sync every 50 steps
+                    with span("log", step=step):
+                        logger.log(step, **global_means({"dn_loss": loss}, group),
+                                   **thru.rates())
+                step += 1
+            if device.type == "cuda":
+                with span("train.sync", step=step):
+                    torch.cuda.synchronize(device)
+                read_device_times()
 
         # validation at epoch end, over the real rows (a rank's own rows);
         # every dev batch shares the validation's coins
-        val_t0 = time.time()
-        eval_gen = torch.Generator(device).manual_seed(cfg.seed + EVAL_SEED_OFFSET + step)
-        coins = sched_coins(cfg.max_len, eval_gen, device)
-        val_loss = (validate(dev_it, run_eval, device, mesh, inputs=EVAL_INPUTS,
-                             static={"coins": coins}) or [0.0])[0]
-        logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps, train_s=train_s,
-                   val_s=time.time() - val_t0)
+        with span("validate", step=epoch, always=True) as val:
+            eval_gen = torch.Generator(device).manual_seed(cfg.seed + EVAL_SEED_OFFSET + step)
+            coins = sched_coins(cfg.max_len, eval_gen, device)
+            val_loss = (validate(dev_it, run_eval, device, mesh, inputs=EVAL_INPUTS,
+                                 static={"coins": coins}) or [0.0])[0]
+        with span("log", step=step):
+            logger.log(step, val_loss=val_loss, epoch=epoch, train_steps=ep_steps,
+                       train_s=ep.seconds, val_s=val.seconds, **clock_of(device))
         if progress and main:
             print(f"[warmup] epoch {epoch} val_loss {val_loss:.4f} "
                   f"{thru.rates()['sentences_per_sec']:.1f} sent/s")
-        keeper.update(val_loss, model, g_path)
+        with span("save", step=epoch):
+            keeper.update(val_loss, model, g_path)
         if stopper.update(val_loss):
             break
 
