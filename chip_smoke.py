@@ -21,7 +21,11 @@ Phases, in order; any failure exits non-zero before the last line:
    shape, all-zero pairs, B=1, masks with interior zeros, the 64 x 64 cap
    and B=257, then graph-timed and eager at the yelp and book shapes with its
    device operations per call, the bound (bytes, FMA work, special
-   functions) and its share;
+   functions) and its share; the fused LSTM cell at yelp's and book's
+   encoder and decoder shapes in its three dtype pairs (the forward bit
+   for bit against the plain equations, the backward against float64,
+   one device operation a call), graph-timed beside the eager equations
+   and PyTorch's fused cell, with its byte bound;
 3. ``serve`` and ``infer`` through the port's CLI on the committed yelp test
    split (BPE trained on the yelp train split, fresh seeded weights saved as a
    checkpoint), each greedy batch one CUDA graph replay but the first, with
@@ -166,6 +170,11 @@ Phases, in order; any failure exits non-zero before the last line:
    serving at B=128, the card's float32 greedy ids against the CPU's and
    the float32 beam of 4 graphed against eager; the decode head at B=128
    and book's V against its plain version, timed beside the library call.
+Every path from phase 3 on also zeroes and reads the fused LSTM cell's
+forward and backward launches and checks them: 3 x L forward a greedy or
+beam batch, 3 x L forward and backward a warmup step, the optimize step's
+count (``fused_step_cells``) in every graph it replays, none in pretrain,
+eval and the transformer.
 Then one JSON line of kernel numbers and, last, the device line.
 Imports nothing of JAX or the JAX package.
 """
@@ -194,8 +203,20 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 # Programming Guide, arithmetic instruction throughput, compute capability
 # 9.0), 132 SMs at the H100 SXM's 1.98 GHz boost clock
 PEAK_SFU_S = 16 * 132 * 1.98e9
-KERNEL_SOURCES = ("decode_step", "sinkhorn")
+KERNEL_SOURCES = ("decode_step", "sinkhorn", "lstm_cell")
 SINKHORN_EPS, SINKHORN_ITERS = 0.05, 100
+# phase 2: the fused LSTM cell's shapes (B, H) on the main path, yelp's and
+# book's encoder and decoder, each in the kernel's three dtype pairs (gates /
+# cell state); its backward against float64 autograd through the reference,
+# as a relative norm: within 2e-2 where bf16 is involved (autograd's chain
+# rounds to bf16 after each op, at 2^-9 each; the kernel once, at the end)
+# and 1e-5 in float32 (the same f32 arithmetic in another order), the bounds
+# tests/test_torch_lstm_cell_cuda.py states
+LSTM_SHAPES = {"yelp_encoder": (256, 256), "yelp_decoder": (256, 512),
+               "book_encoder": (128, 256), "book_decoder": (128, 512)}
+LSTM_PAIRS = {"bf16_f32": ("bfloat16", "float32"), "bf16_bf16": ("bfloat16", "bfloat16"),
+              "f32_f32": ("float32", "float32")}
+LSTM_BWD_TOL = {"bf16": 2e-2, "float32": 1e-5}
 # phase 7: dev P@1 of the JAX package's own fastText fit on the committed
 # yelp split (on the CPU, seed 0; tests/test_torch_eval_fasttext.py measures
 # it), less a margin of 0.005 (20 of the 4,000 dev sentences)
@@ -769,6 +790,146 @@ def phase_sinkhorn_vs_plain() -> dict:
     return timed
 
 
+def lstm_cell_inputs(B: int, H: int, gates, state, seed: int) -> list:
+    """a, b (B, 4H) in the gates' dtype over the activations' whole range (a
+    few saturated), c, dh and dc_new (B, H) in the cell state's, made on the
+    CPU from a seed."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    a, b = (torch.randn(B, 4 * H, generator=g) * 2 for _ in range(2))
+    c = torch.randn(B, H, generator=g) * 2
+    dh, dcn = (torch.randn(B, H, generator=g) for _ in range(2))
+    return [t.to("cuda", gates) for t in (a, b)] + [t.to("cuda", state) for t in (c, dh, dcn)]
+
+
+def lstm_cell_grads(fn, a, b, c, dh, dcn, dtype=None) -> tuple:
+    """(da, db, dc) of the cell ``fn`` at (a, b, c) for the output
+    gradients (dh, dcn), through autograd, the inputs in ``dtype`` if given."""
+    import torch
+
+    leaves = [t.detach().to(dtype or t.dtype).requires_grad_() for t in (a, b, c)]
+    h, c_new = fn(*leaves)
+    return torch.autograd.grad((h, c_new), leaves, (dh.to(h.dtype), dcn.to(c_new.dtype)))
+
+
+def lstm_cell_bound(B: int, H: int, gates, state) -> dict:
+    """Bytes each kernel must move and their time at the HBM rate: the
+    forward reads a, b and c and writes h, c_new and the gate sum; the
+    backward reads the gate sum, c, c_new, dh and dc_new and writes dgates
+    and dc. A few f32 operations and three special functions an element lie
+    far below the card's rates, so bytes bound both."""
+    g, s = gates.itemsize, state.itemsize
+    fwd = 3 * B * 4 * H * g + 3 * B * H * s
+    bwd = 2 * B * 4 * H * g + 5 * B * H * s
+    return {"fwd_bytes": fwd, "bwd_bytes": bwd, "bound_fwd_ms": fwd / PEAK_BYTES_S * 1e3,
+            "bound_bwd_ms": bwd / PEAK_BYTES_S * 1e3,
+            "bound_ms": (fwd + bwd) / PEAK_BYTES_S * 1e3, "bound_by": "bytes"}
+
+
+def lstm_library_times(a, b, c, dh, dcn, h_ref) -> dict:
+    """PyTorch's own fused cell, ``torch.ops.aten._thnn_fused_lstm_cell`` (what
+    ``nn.LSTMCell`` runs on CUDA) and its ``_backward_impl``, graph-timed
+    beside the kernel, with its h against the reference's; or, where the op
+    refuses these inputs or is absent, the error it raised."""
+    import torch
+
+    try:
+        fwd_op = torch.ops.aten._thnn_fused_lstm_cell
+        bwd_op = torch.ops.aten._thnn_fused_lstm_cell_backward_impl
+        h, cy, work = fwd_op(a, b, c)
+        bwd_op(dh, dcn, c, cy, work, False)
+        torch.cuda.synchronize()
+    except (AttributeError, NotImplementedError, RuntimeError) as e:
+        return {"library": "torch.ops.aten._thnn_fused_lstm_cell",
+                "library_error": f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"}
+    return {"library": "torch.ops.aten._thnn_fused_lstm_cell",
+            "library_fwd_ms": graph_ms(lambda: fwd_op(a, b, c)),
+            "library_bwd_ms": graph_ms(lambda: bwd_op(dh, dcn, c, cy, work, False)),
+            "library_h_max_abs_diff": (h.double() - h_ref.double()).abs().max().item(),
+            "library_h_equal": bool(torch.equal(h, h_ref))}
+
+
+def phase_lstm_cell_vs_plain() -> dict:
+    """The fused LSTM cell (``kernels/lstm_cell.py``, ``csrc/lstm_cell.cu``)
+    against its plain version at the main path's shapes, yelp's and book's
+    encoder (H=256) and decoder (H=512), each in the three dtype pairs:
+    the forward bit for bit against ``lstm_cell_reference`` under bf16
+    autocast, with and without the saved gate sum; the backward's dgates
+    (one tensor for a and b) and dc against float64 autograd through the
+    reference (LSTM_BWD_TOL, and for the bf16 pairs no farther than eager's
+    own chain); one device operation a kernel call; graph-timed forward
+    and backward, the eager equations (forward, and with autograd's
+    backward) and PyTorch's fused cell beside them, and the byte bound."""
+    import torch
+
+    from consistent__style_transfer_torch.kernels import lstm_cell as lc
+
+    def rel(x, ref):
+        return ((x.double() - ref).norm() / ref.norm()).item()
+
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    out = {}
+    for seed, (shape, (B, H)) in enumerate(LSTM_SHAPES.items()):
+        for pair, (gname, sname) in LSTM_PAIRS.items():
+            gates, state = dtypes[gname], dtypes[sname]
+            a, b, c, dh, dcn = lstm_cell_inputs(B, H, gates, state, 100 * seed + len(out))
+            what = f"{shape}/{pair}"
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                with torch.no_grad():
+                    h0, c0 = lc.lstm_cell(a, b, c)
+                h1, c1, kept = lc.lstm_cell_fwd(a, b, c, keep_gates=True)
+                h_ref, c_ref = lc.lstm_cell_reference(a, b, c)
+            torch.cuda.synchronize()
+            check(h1.dtype == h_ref.dtype and c1.dtype == c_ref.dtype,
+                  f"LSTM cell {what}: dtypes {h1.dtype}, {c1.dtype}")
+            check(all(torch.equal(x, y) for x, y in ((h0, h_ref), (c0, c_ref), (h1, h_ref),
+                                                   (c1, c_ref), (kept, a + b))),
+                  f"LSTM cell {what}: the forward differs from the reference")
+            da, db, dc = lstm_cell_grads(lc.lstm_cell, a, b, c, dh, dcn)
+            ea, _, ec = lstm_cell_grads(lc.lstm_cell_reference, a, b, c, dh, dcn)
+            ra, _, rc = lstm_cell_grads(lc.lstm_cell_reference, a, b, c, dh, dcn, torch.float64)
+            check(torch.equal(da, db) and da.dtype == gates and dc.dtype == state,
+                  f"LSTM cell {what}: dgates for a and b differ, or their dtypes")
+            low = torch.bfloat16 in (gates, state)
+            tol = LSTM_BWD_TOL["bf16" if low else "float32"]
+            row = {"B": B, "H": H, "gates": gname, "cell_state": sname,
+                   "forward_bit_identical": True, "bwd_tol": tol,
+                   "dgates_rel_f64": rel(da, ra), "dc_rel_f64": rel(dc, rc),
+                   "eager_dgates_rel_f64": rel(ea, ra), "eager_dc_rel_f64": rel(ec, rc)}
+            check(row["dgates_rel_f64"] <= tol and row["dc_rel_f64"] <= tol,
+                  f"LSTM cell {what}: backward off float64 by {row}")
+            if low:
+                check(row["dgates_rel_f64"] <= row["eager_dgates_rel_f64"]
+                      and row["dc_rel_f64"] <= row["eager_dc_rel_f64"],
+                      f"LSTM cell {what}: backward farther from float64 than eager's: {row}")
+
+            def fwd(a=a, b=b, c=c):
+                return lc.lstm_cell_fwd(a, b, c, keep_gates=True)
+
+            def bwd(kept=kept, c=c, c1=c1, dh=dh, dcn=dcn):
+                return lc.lstm_cell_bwd(kept, c, c1, dh, dcn, True, True)
+
+            row["device_ops_per_call"] = {"forward": graph_nodes_per_call(fwd),
+                                          "backward": graph_nodes_per_call(bwd)}
+            check(row["device_ops_per_call"] == {"forward": 1, "backward": 1},
+                  f"LSTM cell {what}: device operations a call {row['device_ops_per_call']}")
+            row.update(
+                fwd_ms=graph_ms(fwd), bwd_ms=graph_ms(bwd),
+                fwd_bwd_autograd_ms=graph_ms(lambda: lstm_cell_grads(lc.lstm_cell, a, b, c, dh,
+                                                                     dcn)),
+                plain_fwd_ms=graph_ms(lambda: lc.lstm_cell_reference(a, b, c)),
+                plain_ms=graph_ms(lambda: lstm_cell_grads(lc.lstm_cell_reference, a, b, c, dh,
+                                                          dcn)),
+                **lstm_cell_bound(B, H, gates, state),
+                **lstm_library_times(a, b, c, dh, dcn, h_ref))
+            row["ms"] = row["fwd_ms"] + row["bwd_ms"]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            out[what] = row
+    print(json.dumps({"lstm_cell_times": out}), flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ phase 3
 def run_cli(argv: list[str], stdin_text: str = "") -> list[str]:
     from consistent__style_transfer_torch import cli
@@ -808,16 +969,71 @@ def watch_graphs(module=None, name: str = "GraphedStep"):
         setattr(module, name, real)
 
 
+# the fused LSTM cell's launches each path made, as lstm_launches read them,
+# for the kernels line
+LSTM_LAUNCHES: dict[str, dict] = {}
+
+
+def zero_lstm_launches() -> None:
+    """Zero the fused LSTM cell's launch counters (forward and backward)."""
+    from consistent__style_transfer_torch.kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
+
+    lstm_cell_fwd.launches = lstm_cell_bwd.launches = 0
+
+
+def lstm_launches(what: str, fwd: int | None, bwd: int | None = 0, counts=None,
+                  keep: bool = True) -> dict:
+    """The fused LSTM cell's forward and backward launches (replays included)
+    since :func:`zero_lstm_launches`, or ``counts`` = (forward, backward)
+    read elsewhere: each equal to ``fwd`` / ``bwd`` where that is a number,
+    above 0 where it is None; kept in LSTM_LAUNCHES under ``what`` unless
+    ``keep`` is false (a total of paths kept under their own names)."""
+    from consistent__style_transfer_torch.kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
+
+    if counts is None:
+        counts = (lstm_cell_fwd.launches, lstm_cell_bwd.launches)
+    got = {"forward": counts[0], "backward": counts[1]}
+    for (name, n), want in zip(got.items(), (fwd, bwd)):
+        check(n > 0 if want is None else n == want,
+              f"{what}: {n} LSTM cell {name} launches, want {'some' if want is None else want}")
+    if keep:
+        LSTM_LAUNCHES[what] = got
+    return got
+
+
+def greedy_cells(head_launches: int) -> int:
+    """The fused cell's forward launches of greedy decodes that launched the
+    decode head ``head_launches`` times: one decoder cell beside each head
+    call, and the encoder's two directions over the max_len input
+    positions, as many as the decode steps."""
+    return 3 * head_launches
+
+
+def fused_step_cells(cfg) -> tuple[int, int]:
+    """The fused cell's (forward, backward) launches in one optimize step of
+    an LSTM ``cfg`` (``train/optimize.py::fused_step``), of either branch:
+    each decode runs 3 x max_len cells (the encoder both ways, the decoder);
+    G's straight-through decode and the back-translation decode (and the
+    reconstruction decode where ``w_rec`` > 0) take a backward, D's fresh
+    no-grad decode (unless ``fuse_gan_steps``) does not."""
+    with_grad = 2 + (cfg.w_rec > 0)
+    cells = 3 * cfg.max_len
+    return cells * (with_grad + (not cfg.fuse_gan_steps)), cells * with_grad
+
+
 @contextlib.contextmanager
 def launches_inside(module, names: tuple):
-    """The decode head's and the Sinkhorn's launches made inside the calls
-    of ``module.<name>``, for each of ``names`` (``run`` calls
-    ``train/optimize.py``'s ``run_optimize`` and then ``run_test``): a dict
-    {name: {"head": n, "sinkhorn": n}}, filled as the calls return."""
+    """The decode head's, the Sinkhorn's and the fused LSTM cell's launches
+    made inside the calls of ``module.<name>``, for each of ``names``
+    (``run`` calls ``train/optimize.py``'s ``run_optimize`` and then
+    ``run_test``): a dict {name: {"head": n, "sinkhorn": n, "lstm_fwd": n,
+    "lstm_bwd": n}}, filled as the calls return."""
     from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
+    from consistent__style_transfer_torch.kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
     from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
 
-    counters = {"head": fused_decode_logits, "sinkhorn": sinkhorn_cuda}
+    counters = {"head": fused_decode_logits, "sinkhorn": sinkhorn_cuda, "lstm_fwd": lstm_cell_fwd,
+                "lstm_bwd": lstm_cell_bwd}
     seen = {n: dict.fromkeys(counters, 0) for n in names}
     real = {n: getattr(module, n) for n in names}
 
@@ -1019,12 +1235,14 @@ def phase_serve_and_infer(work: str) -> dict:
     shape = (cfg.batch_size, cfg.max_len)
     fused_decode_logits.launches = 0
     sinkhorn_cuda.launches = 0
+    zero_lstm_launches()
     t0 = time.perf_counter()
     with watch_graphs() as made:
         served = run_cli(["serve", *flags], "\n".join(requests) + "\n")
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     serve_launches = fused_decode_logits.launches
+    serve_cells = lstm_launches("serve", greedy_cells(serve_launches))
     serve_graphs = check_replayed(made, [shape], serve_batches, "serve")
     check(sinkhorn_cuda.launches == 0, "serve launched the Sinkhorn")
     check(len(served) == len(requests), f"serve printed {len(served)} lines for {len(requests)}")
@@ -1033,12 +1251,14 @@ def phase_serve_and_infer(work: str) -> dict:
 
     fused_decode_logits.launches = 0
     sinkhorn_cuda.launches = 0
+    zero_lstm_launches()
     t0 = time.perf_counter()
     with watch_graphs() as made:
         run_cli(["infer", *flags])
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     infer_launches = fused_decode_logits.launches
+    infer_cells = lstm_launches("infer", greedy_cells(infer_launches))
     check(sinkhorn_cuda.launches == 0, "infer launched the Sinkhorn")
     infer_batches, n_infer = 0, 0
     for split in ("train", "test"):
@@ -1085,6 +1305,7 @@ def phase_serve_and_infer(work: str) -> dict:
               "infer_batches": infer_batches, "infer_s": infer_s,
               "infer_sent_per_s": n_infer / infer_s, "infer_launches": infer_launches,
               "serve_graphs": serve_graphs, "infer_graphs": infer_graphs,
+              "lstm_cell_launches": {"serve": serve_cells, "infer": infer_cells},
               "f32_card_vs_cpu_sentences": len(enc), "f32_card_vs_cpu_agree": agree,
               "f32_test_split_lines_equal_cpu": sum(map(len, lines["cpu"].values()))}
     print(json.dumps({"serve_infer": result}), flush=True)
@@ -1199,6 +1420,7 @@ def phase_full_width(card: str, head_graph_ms: float) -> dict:
         torch.cuda.synchronize()
         fused_decode_logits.launches = 0
         sinkhorn_cuda.launches = 0
+        zero_lstm_launches()
         t0 = time.perf_counter()
         for _ in range(n):
             ids = step(x, labels)
@@ -1207,6 +1429,7 @@ def phase_full_width(card: str, head_graph_ms: float) -> dict:
         launches = fused_decode_logits.launches
         check(sinkhorn_cuda.launches == 0, "serving launched the Sinkhorn")
         check(launches == YELP_L * n, f"{name}: {launches} launches, want {YELP_L} x {n}")
+        cells = lstm_launches(f"full_width_{name}", 3 * YELP_L * n)
         check(ids.shape == (YELP_B, YELP_L) and ids.dtype == torch.int32, "ids shape/dtype")
         check(bool(((ids >= 0) & (ids < YELP_V)).all()), "ids out of range")
         prof = profile_breakdown(lambda: step(x, labels), watch=("ffn_", "vocab_argmax"))  # noqa: B023
@@ -1214,6 +1437,7 @@ def phase_full_width(card: str, head_graph_ms: float) -> dict:
         result[name] = {
             "ms_per_batch": ms, "sent_per_s": YELP_B * 1e3 / ms,
             "launches_per_batch": launches / n, "device_ms_per_batch": device_ms,
+            "lstm_cell_launches_per_batch": cells["forward"] / n,
             "device_ops_per_batch": prof.get("kernels_per_batch", "not measured"),
             "host_calls_per_batch": prof.get("host_calls_per_batch", "not measured"),
             "device_idle_share": (1 - device_ms / ms) if isinstance(device_ms, float)
@@ -1485,6 +1709,7 @@ def phase_pretrain(work: str, card: str) -> dict:
 
     sinkhorn_cuda.launches = 0
     fused_decode_logits.launches = 0
+    zero_lstm_launches()
     t0 = time.perf_counter()
     with watch_graphs() as made:
         run_cli(["pretrain", *flags, "--epochs", "1"])
@@ -1494,6 +1719,7 @@ def phase_pretrain(work: str, card: str) -> dict:
     check(launches == labeled,
           f"pretrain: {launches} Sinkhorn launches, want one per labeled batch = {labeled}")
     check(fused_decode_logits.launches == 0, "pretrain launched the decode head")
+    lstm_launches("pretrain", 0)  # the scorers only: no LSTM
 
     for task, cls in (("cls", TextCNN), ("mat", PairMatcher), ("dn", TransformerLM)):
         path = os.path.join(cfg.ds_dump_dir, "pretrain", f"{task}.pth")
@@ -1768,12 +1994,15 @@ def optimize_replays(c, V: int, device, fixed: list, what: str) -> dict:
 
 
 def optimize_steady(steps, acc: list, gens, d_every: int, stream, graphed: bool = True,
-                    batches: int = 10) -> dict:
+                    batches: int = 10, cells: tuple[int, int] | None = None,
+                    what: str = "optimize") -> dict:
     """``steady_step`` of the fused optimize step on the batches of
     ``stream`` (a prefetcher's iterator, closed here), D applied every
     ``d_every``-th: a ``GraphedFusedStep`` replay, or the eager step; one
     more step's losses checked finite; the graphed step's captured branches
-    and graph nodes."""
+    and graph nodes, and the fused LSTM cell's (forward, backward) launches
+    each branch's graph replays, checked equal to ``cells`` (kept as
+    ``<what>_graph_<branch>``)."""
     import torch
 
     from consistent__style_transfer_torch.train.optimize import GraphedFusedStep
@@ -1798,7 +2027,19 @@ def optimize_steady(steps, acc: list, gens, d_every: int, stream, graphed: bool 
     if graphed:
         out["captured_branches"] = sorted(runner.graphs)
         out["graph_nodes"] = {str(k): graph_nodes(g) for k, g in runner.graphs.items()}
+        out["lstm_cell_launches_per_replay"] = {
+            str(k): lstm_launches(f"{what}_graph_{k}", *cells, counts=replayed_cells(runner, k))
+            for k in runner.graphs}
     return out
+
+
+def replayed_cells(runner, key) -> tuple[int, int]:
+    """The fused LSTM cell's (forward, backward) launches that each replay
+    of ``runner``'s graph of ``key`` adds (the calls its capture made)."""
+    from consistent__style_transfer_torch.kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
+
+    n = dict(runner.replay_launches[key])
+    return n.get(lstm_cell_fwd, 0), n.get(lstm_cell_bwd, 0)
 
 
 def phase_training(work: str, card: str) -> dict:
@@ -1835,6 +2076,7 @@ def phase_training(work: str, card: str) -> dict:
     def launches_during(argv, made=None):
         fused_decode_logits.launches = 0
         sinkhorn_cuda.launches = 0
+        zero_lstm_launches()
         t0 = time.perf_counter()
         with watch_graphs() as graphed:
             run_cli(argv)
@@ -1861,6 +2103,10 @@ def phase_training(work: str, card: str) -> dict:
     want = n_train // cfg.warmup_batch_size
     check(warm_epoch["train_steps"] == want, f"warmup: {warm_epoch['train_steps']} steps, want {want}")
     warm_graphs = check_replayed(made, [None], want, "warmup", steps=2)
+    # the teacher-forced decode, 3 x L cells a step with a backward each;
+    # its validation's decodes forward only
+    warm_cells = lstm_launches("warmup", None, 3 * L * want
+                               * sum("train_steps" in e for e in events))
     n_dev = count_lines(cfg.split_files("dev"))
     check(warm_epoch["val_s"] > 0, f"warmup logged val_s {warm_epoch.get('val_s')}")
     warm_val_graphs = check_replayed(made, [None], -(-n_dev // cfg.warmup_batch_size),
@@ -1878,6 +2124,9 @@ def phase_training(work: str, card: str) -> dict:
     opt_epoch = [e for e in events if "train_steps" in e][-1]
     want = n_train // cfg.batch_size
     check(opt_epoch["train_steps"] == want, f"optimize: {opt_epoch['train_steps']} steps, want {want}")
+    opt_cells = lstm_launches("optimize", None, fused_step_cells(cfg)[1] * want)
+    check(opt_cells["forward"] > fused_step_cells(cfg)[0] * want,
+          f"optimize: {opt_cells} LSTM cell launches, want the steps' and validation's")
     want = math.ceil(want / cfg.d_update_every)
     check(opt_epoch["d_applies"] == want, f"optimize: D applied {opt_epoch['d_applies']}, want {want}")
     check(opt_epoch["val_s"] > 0, f"optimize logged val_s {opt_epoch.get('val_s')}")
@@ -1892,6 +2141,7 @@ def phase_training(work: str, card: str) -> dict:
     check(infer_launches == L * infer_batches > 0,
           f"infer: {infer_launches} decode-head launches, want {L} x {infer_batches}")
     infer_graphs = check_replayed(made, [(cfg.batch_size, L)], infer_batches, "infer")
+    infer_cells = lstm_launches("infer_after_optimize", greedy_cells(infer_launches))
 
     # 4. steady state of the same step functions, on batches from the
     # prefetcher, from the checkpoints just written
@@ -1902,6 +2152,7 @@ def phase_training(work: str, card: str) -> dict:
         return iter(DevicePrefetcher(make_batches(corpus, batch_size, L, stage, shuffle=True,
                                                   seed=1), device))
 
+    zero_lstm_launches()
     model = build_generator(cfg, V, device, training=True)
     model.load_state_dict(torch.load(os.path.join(cfg.ds_dump_dir, "warmup", "G.pth"),
                                      map_location=device, weights_only=True), strict=True)
@@ -1941,6 +2192,7 @@ def phase_training(work: str, card: str) -> dict:
     for v in val_replay.values():
         check_validation_equal(v)
     check(fused_decode_logits.launches == infer_launches, "validation launched the decode head")
+    steady_cells = lstm_launches("training_steady_and_validation", None, None)
 
     def rates(epoch, steady, batch_size):
         ms_epoch = epoch["train_s"] * 1e3 / epoch["train_steps"]
@@ -1957,14 +2209,18 @@ def phase_training(work: str, card: str) -> dict:
                          "replay_vs_eager": warm_replay,
                          "cli_validation_graphs": warm_val_graphs, "val_s": warm_epoch["val_s"],
                          "validation_replay_vs_eager": val_replay["warmup"],
-                         "losses": warm_losses, "decode_head_launches": 0},
+                         "losses": warm_losses, "decode_head_launches": 0,
+                         "lstm_cell_launches": warm_cells},
               "optimize": {"cli_s": optimize_s, "epochs": 1, "d_applies": opt_epoch["d_applies"],
                            **rates(opt_epoch, opt_steady, cfg.batch_size),
                            "cli_validation_graphs": opt_val_graphs, "val_s": opt_epoch["val_s"],
                            "validation_replay_vs_eager": val_replay["optimize"],
-                           "losses": opt_losses, "decode_head_launches": 0},
+                           "losses": opt_losses, "decode_head_launches": 0,
+                           "lstm_cell_launches": opt_cells},
               "infer": {"s": infer_s, "batches": infer_batches, "graphs": infer_graphs,
-                        "decode_head_launches": infer_launches}}
+                        "decode_head_launches": infer_launches,
+                        "lstm_cell_launches": infer_cells},
+              "steady_lstm_cell_launches": steady_cells}
     print(json.dumps({"training": result}), flush=True)
     return result
 
@@ -2222,6 +2478,7 @@ def phase_eval(work: str, card: str) -> dict:
     def cli_run(argv):
         fused_decode_logits.launches = 0
         sinkhorn_cuda.launches = 0
+        zero_lstm_launches()
         t0 = time.perf_counter()
         with watch_graphs() as made:
             lines = run_cli(argv)
@@ -2233,6 +2490,7 @@ def phase_eval(work: str, card: str) -> dict:
     # graphs), the lexicon, the masked word2vec and v0's adversarial LR
     lines, prepare_s, head, sink, made = cli_run(["eval-prepare", *flags])
     check(head == 0 and sink == 0, f"eval-prepare launched kernels: head {head}, Sinkhorn {sink}")
+    lstm_launches("eval_prepare", 0)  # it scores the .tsf files: no generator
     timings, adv_printed = prepare_printed(lines)
     check(len(timings) == 1 and set(timings[0]) == {"classifier_s", "lexicon_s", "mask_s",
                                                      "mask_w2v_s", "adv_lr_s"},
@@ -2271,6 +2529,7 @@ def phase_eval(work: str, card: str) -> dict:
     # 2. eval through the CLI, then the unrounded scores from run_eval
     lines, eval_s, head, sink, _ = cli_run(["eval", *flags])
     check(head == 0 and sink == 0, f"eval launched kernels: head {head}, Sinkhorn {sink}")
+    lstm_launches("eval", 0)
     scores = run_eval(cfg.ds_data_dir, cfg.run_out_dir, cli._eval_dir(cfg), cfg.dataset, cfg.ver,
                       quiet=True)
     printed = "\n".join(lines)
@@ -2567,6 +2826,7 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     # 2. one epoch through the CLI with megastep_k=8, writing the full state
     fused_decode_logits.launches = 0
     sinkhorn_cuda.launches = 0
+    zero_lstm_launches()
     t0 = time.perf_counter()
     with watch_graphs() as made:
         run_cli(["optimize", *flags, "--epochs", "1", "--megastep_k", str(MEGASTEP_K),
@@ -2581,6 +2841,9 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     epoch = [e for e in events if "train_steps" in e][-1]
     want = n_train // B
     check(epoch["train_steps"] == want, f"megastep: {epoch['train_steps']} steps, want {want}")
+    cli_cells = lstm_launches("optimize_megastep", None, fused_step_cells(cfg)[1] * want)
+    check(cli_cells["forward"] > fused_step_cells(cfg)[0] * want,
+          f"megastep: {cli_cells} LSTM cell launches, want the steps' and validation's")
     check(epoch["d_applies"] == math.ceil(want / cfg.d_update_every),
           f"megastep: D applied {epoch['d_applies']}")
     # its validation, whatever megastep_k groups: a graph through step_runner
@@ -2618,6 +2881,9 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
         graphed["kernel_launches_per_step_host"] = sum(
             v for k, v in calls.items() if "LaunchKernel" in k)
     graphed["captured_branches"] = sorted(runner.graphs)
+    graphed["lstm_cell_launches_per_replay"] = {
+        str(k): lstm_launches(f"optimize_megastep_graph_{k}", *fused_step_cells(cfg),
+                              counts=replayed_cells(runner, k)) for k in runner.graphs}
     graphed["enqueue_ms_per_step"] = {k: v for k, v in timer.summary().items() if k != "steps"}
     del models, steps, acc, runner
     check(graphed["ms_per_step_steady"] > 0, "no graphed step time")
@@ -2626,6 +2892,7 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     best = newest_checkpoint(os.path.join(cfg.ds_dump_dir, f"optimize-{ver}"))
     check(best is not None and os.path.basename(best).startswith("G_epoch_"), f"best G {best}")
     fused_decode_logits.launches = 0
+    zero_lstm_launches()
     t0 = time.perf_counter()
     run_cli(["infer", *flags])
     torch.cuda.synchronize()
@@ -2634,6 +2901,7 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     infer_batches = sum(-(-count_lines(cfg.split_files(s)) // B) for s in ("train", "test"))
     check(infer_launches == L * infer_batches > 0,
           f"infer after megastep: {infer_launches} decode-head launches, want {L} x {infer_batches}")
+    infer_cells = lstm_launches("infer_after_megastep", greedy_cells(infer_launches))
 
     result = {"card": card, "phase_s": time.perf_counter() - t_phase, "V": V, "L": L, "B": B,
               "dtype": "bfloat16 autocast, float32 parameters", "megastep_k": MEGASTEP_K,
@@ -2642,12 +2910,13 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
                       "d_applies": epoch["d_applies"],
                       "ms_per_step_epoch": epoch["train_s"] * 1e3 / epoch["train_steps"],
                       "val_s": epoch["val_s"], "validation_graphs": val_graphs,
-                      "losses": losses},
+                      "losses": losses, "lstm_cell_launches": cli_cells},
               "steady": {**graphed, "eager": eager_steady,
                          "speedup_host": eager_steady["ms_per_step_steady"]
                          / graphed["ms_per_step_steady"]},
               "infer": {"s": infer_s, "batches": infer_batches,
-                        "decode_head_launches": infer_launches}}
+                        "decode_head_launches": infer_launches,
+                        "lstm_cell_launches": infer_cells}}
     print(json.dumps({"megastep": result}), flush=True)
     return result
 
@@ -2747,13 +3016,18 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     def zero_counts():
         fused_decode_logits.launches = 0
         sinkhorn_cuda.launches = 0
+        zero_lstm_launches()
 
-    def no_kernel(what):
+    def no_kernel(what, cells=0):
+        """Neither the decode head nor the Sinkhorn launched since
+        zero_counts, and the fused LSTM cell ``cells`` times forward, never
+        backward."""
         check(fused_decode_logits.launches == 0, f"{what} launched the decode head "
               f"{fused_decode_logits.launches} times")
         check(sinkhorn_cuda.launches == 0, f"{what} launched the Sinkhorn")
+        lstm_launches(what, cells)
 
-    def batch_rate(step, x, labels, n):
+    def batch_rate(step, x, labels, n, what, cells):
         for _ in range(2):
             step(x, labels)
         torch.cuda.synchronize()
@@ -2764,10 +3038,12 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / n
         launches = fused_decode_logits.launches
+        lstm = lstm_launches(what, cells)
         prof = profile_breakdown(lambda: step(x, labels), batches=1)
         device_ms = prof.get("device_ms_per_batch")
         return ids, launches, {
             "ms_per_batch": ms, "sent_per_s": x.shape[0] * 1e3 / ms,
+            "lstm_cell_launches_per_batch": lstm["forward"] / n,
             "device_ms_per_batch": device_ms,
             "device_ops_per_batch": prof.get("kernels_per_batch", "not measured"),
             "host_calls_per_batch": prof.get("host_calls_per_batch", "not measured"),
@@ -2782,13 +3058,15 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     g = torch.Generator().manual_seed(1)
     x = torch.randint(3, YELP_V, (YELP_B, YELP_L), generator=g, dtype=torch.int32).to(device)
     labels = torch.randint(0, 2, (YELP_B,), generator=g, dtype=torch.int32).to(device)
-    ids, greedy_launches, greedy = batch_rate(make_transfer_step(lstm), x, labels, 10)
+    ids, greedy_launches, greedy = batch_rate(make_transfer_step(lstm), x, labels, 10,
+                                             "serving_greedy_beside_beam", 3 * YELP_L * 10)
     check(greedy_launches == YELP_L * 10, f"greedy: {greedy_launches} decode-head launches")
     result["greedy_beside_beam_launches"] = greedy_launches
     # the beam as the transfer step runs it (a CUDA graph replay), beside
     # the eager beam on the same batch
     beam_step = make_transfer_step(lstm, K)
-    ids, beam_launches, beam = batch_rate(beam_step, x, labels, 10)
+    ids, beam_launches, beam = batch_rate(beam_step, x, labels, 10, "serving_beam",
+                                         3 * YELP_L * 10)
     check(beam_launches == 0, f"the LSTM beam launched the decode head {beam_launches} times")
     check(ids.shape == (YELP_B, YELP_L) and ids.dtype == torch.int32
           and bool(((ids >= 0) & (ids < YELP_V)).all()), "LSTM beam ids shape/range")
@@ -2798,7 +3076,8 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     def eager_beam(x, labels):
         return beam_decode_any(lstm, x, labels, 1 - labels, beam_size=K)[0]
 
-    _, eager_launches, beam_eager = batch_rate(eager_beam, x, labels, 10)
+    _, eager_launches, beam_eager = batch_rate(eager_beam, x, labels, 10, "serving_beam_eager",
+                                                3 * YELP_L * 10)
     check(eager_launches == 0, "the eager LSTM beam launched the decode head")
     apart = float((beam_step(x, labels) != eager_beam(x, labels)).float().mean())
     check(apart <= BF16_TOKEN_SHARE, f"bf16 LSTM beam: graphed ids {apart} apart from eager")
@@ -2843,14 +3122,17 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     served = run_cli(["serve", *flags, "--beam_size", str(K)], "\n".join(requests) + "\n")
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    no_kernel("serve --beam_size")
+    # the beam: the encoder once and L decoder cells over the K beams' rows,
+    # 3 x L cells a batch
+    no_kernel("serve_beam", 3 * L * -(-len(requests) // cfg.batch_size))
     check(len(served) == len(requests), f"beam serve printed {len(served)} of {len(requests)}")
     zero_counts()
     t0 = time.perf_counter()
     run_cli(["infer", *flags, "--beam_size", str(K)])
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
-    no_kernel("infer --beam_size")
+    no_kernel("infer_beam", 3 * L * sum(-(-count_lines(cfg.split_files(s)) // cfg.batch_size)
+                                        for s in ("train", "test")))
     n_infer = 0
     for split in ("train", "test"):
         for label in (0, 1):
@@ -2888,7 +3170,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
         with watch_graphs() as graphed:
             run_cli(argv)
         torch.cuda.synchronize()
-        no_kernel(f"{argv[0]} --backbone transformer")
+        no_kernel(f"{argv[0]}_transformer")
         if made is not None:
             made[:] = graphed
         return time.perf_counter() - t0
@@ -2942,7 +3224,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     routed = transfer_split(bcfg, model, tokenizer, "test")
     torch.cuda.synchronize()
     beam_test_s = time.perf_counter() - t0
-    no_kernel("the transformer beam")
+    no_kernel("transformer_beam_test_split")
     n_test = count_lines(bcfg.split_files("test"))
     check(len(routed[0]) + len(routed[1]) == n_test, "transformer beam: lines missing")
 
@@ -2958,18 +3240,18 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     def eager_greedy(x, labels):
         return generator_call(model, x, labels, None, 1 - labels, mode="greedy")
 
-    _, _, tf_greedy = batch_rate(graphed_greedy, bx, bl, 5)
+    _, _, tf_greedy = batch_rate(graphed_greedy, bx, bl, 5, "transformer_greedy", 0)
     tf_greedy["graph_nodes"] = graph_nodes(graphed_greedy.runner.graphs[tuple(bx.shape)])
-    _, _, tf_greedy_eager = batch_rate(eager_greedy, bx, bl, 5)
+    _, _, tf_greedy_eager = batch_rate(eager_greedy, bx, bl, 5, "transformer_greedy_eager", 0)
     check(torch.equal(graphed_greedy(bx, bl), eager_greedy(bx, bl)),
           "transformer graphed greedy ids differ from eager ones")
     tf_beam_step = make_transfer_step(model, K)
-    _, _, tf_beam = batch_rate(tf_beam_step, bx, bl, 2)
+    _, _, tf_beam = batch_rate(tf_beam_step, bx, bl, 2, "transformer_beam", 0)
     tf_beam["graph_nodes"] = graph_nodes(tf_beam_step.runner.graphs[tuple(bx.shape)])
     del tf_beam_step
     _, _, tf_beam_eager = batch_rate(
         lambda x, labels: beam_decode_any(model, x, labels, 1 - labels, beam_size=K)[0],
-        bx, bl, 1)
+        bx, bl, 1, "transformer_beam_eager", 0)
     tf_beam_replay = beam_graphed_vs_eager(model, bx, bl, K)
     check(fused_decode_logits.launches == 0, "the transformer launched the decode head")
     enc = [tokenizer.encode(r.split("\t", 1)[1])[:L] for r in requests[::125]]
@@ -3041,8 +3323,9 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     # H100 80GB HBM3, PERF.md) is held against the replays above, not timed
     models, steps, _, acc, gens = build_optimize(opt_cfg("bfloat16"), V, device)
     opt_graphed = optimize_steady(steps, acc, gens, tcfg.d_update_every,
-                                  stream("optimize", tcfg.batch_size))
-    no_kernel("the transformer's steady steps")
+                                  stream("optimize", tcfg.batch_size), cells=(0, 0),
+                                  what="optimize_transformer")
+    no_kernel("transformer_steady_steps")
     del models, steps, acc
     lap("the transformer's steady steps and warmup replays")
 
@@ -3338,7 +3621,9 @@ def phase_launcher(work: str, card: str) -> dict:
               f"launcher {command}: kernel reports {reports}")
         runs[command] = {"wall_s": wall, "command_s": reports[0]["seconds"],
                          "decode_head_launches": reports[0]["fused_decode_logits"],
-                         "sinkhorn_launches": reports[0]["sinkhorn"]}
+                         "sinkhorn_launches": reports[0]["sinkhorn"],
+                         "lstm_cell_launches": (reports[0]["lstm_cell_fwd"],
+                                                reports[0]["lstm_cell_bwd"])}
         log(f"phase 10: launcher {command} in {wall:.1f} s")
     labeled = n_train // B + -(-n_dev // B)
     r = runs["pretrain"]
@@ -3350,6 +3635,8 @@ def phase_launcher(work: str, card: str) -> dict:
     epoch = [e for e in events if "train_steps" in e][-1]
     check(epoch["train_steps"] == n_train // B, f"launcher pretrain: {epoch['train_steps']} steps")
     r["train_steps"] = epoch["train_steps"]
+    r["lstm_cell_launches"] = lstm_launches("pretrain_launcher", 0,
+                                            counts=r["lstm_cell_launches"])
     for command in ("warmup", "optimize"):
         check(runs[command]["sinkhorn_launches"] == 0 and
               runs[command]["decode_head_launches"] == 0, f"launcher {command}: {runs[command]}")
@@ -3360,6 +3647,9 @@ def phase_launcher(work: str, card: str) -> dict:
     want = n_train // lcfg.warmup_batch_size
     check(epoch["train_steps"] == want, f"launcher warmup: {epoch['train_steps']} steps")
     runs["warmup"]["train_steps"] = want
+    runs["warmup"]["lstm_cell_launches"] = lstm_launches(
+        "warmup_launcher", None, 3 * L * want * sum("train_steps" in e for e in events),
+        counts=runs["warmup"]["lstm_cell_launches"])
     events = read_events(lcfg, f"optimize-{lcfg.ver}")
     runs["optimize"]["losses"] = check_finite_losses(
         events, ("G", "STI", "CP", "BK", "D", "loss", "val_loss"), "launcher optimize")
@@ -3369,11 +3659,18 @@ def phase_launcher(work: str, card: str) -> dict:
           and epoch["d_applies"] == math.ceil(want / lcfg.d_update_every),
           f"launcher optimize: {epoch['train_steps']} steps, {epoch['d_applies']} applies")
     runs["optimize"].update(train_steps=want, d_applies=epoch["d_applies"])
+    cells = runs["optimize"]["lstm_cell_launches"] = lstm_launches(
+        "optimize_launcher", None, fused_step_cells(lcfg)[1] * want,
+        counts=runs["optimize"]["lstm_cell_launches"])
+    check(cells["forward"] > fused_step_cells(lcfg)[0] * want,
+          f"launcher optimize: {cells} LSTM cell launches, want the steps' and validation's")
     infer_batches = sum(-(-count_lines(lcfg.split_files(s)) // B) for s in ("train", "test"))
     r = runs["infer"]
     check(r["decode_head_launches"] == L * infer_batches and r["sinkhorn_launches"] == 0,
           f"launcher infer: {r}; want {L} x {infer_batches} decode-head launches")
     r["batches"] = infer_batches
+    r["lstm_cell_launches"] = lstm_launches("infer_launcher", greedy_cells(L * infer_batches),
+                                            counts=r["lstm_cell_launches"])
 
     # a plain infer of the same G (no launcher), byte for byte
     plain_out = os.path.join(work, "plain_output")
@@ -3451,6 +3748,7 @@ def phase_full_run(work: str, card: str) -> dict:
     def stage(argv):
         fused_decode_logits.launches = 0
         sinkhorn_cuda.launches = 0
+        zero_lstm_launches()
         t0 = time.perf_counter()
         with watch_graphs() as made:
             lines = run_cli(argv)
@@ -3478,6 +3776,7 @@ def phase_full_run(work: str, card: str) -> dict:
     labeled = sum(n_train // B + dev_batches for f in pre_flags if f[1])
     check(sink == labeled, f"pretrain: {sink} Sinkhorn launches, want {labeled}")
     check(head == 0, "pretrain launched the decode head")
+    lstm_launches("pretrain_full_run", 0)
     pre_sink, pre_head = sink, head
     check(all(e["train_steps"] == n_train // B for e in pre_epochs), "pretrain: steps an epoch")
     keys = sorted(set(pre_flags), key=str)
@@ -3497,6 +3796,7 @@ def phase_full_run(work: str, card: str) -> dict:
     warm_steps = n_train // cfg.warmup_batch_size
     check(all(e["train_steps"] == warm_steps for e in warm_epochs), "warmup: steps an epoch")
     warm_graphs = check_replayed(made, [None], len(warm_epochs) * warm_steps, "warmup", steps=2)
+    warm_cells = lstm_launches("warmup_full_run", None, 3 * L * len(warm_epochs) * warm_steps)
     warm_val_graphs = check_replayed(made, [None], len(warm_epochs)
                                      * -(-n_dev // cfg.warmup_batch_size),
                                      "warmup validation", steps=2, index=1)
@@ -3515,6 +3815,19 @@ def phase_full_run(work: str, card: str) -> dict:
                                                   "val_loss"), "optimize")
     opt_epochs = epochs_of(opt_events)
     check(all(e["train_steps"] == n_train // B for e in opt_epochs), "optimize: steps an epoch")
+    opt_steps = len(opt_epochs) * (n_train // B)
+    step_fwd, step_bwd = fused_step_cells(cfg)
+    opt_cells = lstm_launches("optimize_full_run", None, step_bwd * opt_steps,
+                              counts=(inside["run_optimize"]["lstm_fwd"],
+                                      inside["run_optimize"]["lstm_bwd"]))
+    check(opt_cells["forward"] > step_fwd * opt_steps,
+          f"run: {opt_cells} LSTM cell launches in optimize, want the steps' and validation's")
+    infer_cells = lstm_launches("run_full", greedy_cells(head),
+                                counts=(inside["run_test"]["lstm_fwd"],
+                                        inside["run_test"]["lstm_bwd"]))
+    # and none in eval-prepare and eval
+    lstm_launches("run_full_all_stages", opt_cells["forward"] + infer_cells["forward"],
+                  opt_cells["backward"], keep=False)
     # made: the optimize validation's graphed step, then the infer's
     opt_val_graphs = check_replayed(made, [None], len(opt_epochs) * dev_batches,
                                     "optimize validation", steps=2)
@@ -3586,12 +3899,14 @@ def phase_full_run(work: str, card: str) -> dict:
                      "graphs": pre_graphs, "validation_graphs": pre_val_graphs},
         "warmup": {**seconds(warm_epochs), "val_loss": [e["val_loss"] for e in warm_epochs],
                    "losses": warm_losses, "graphs": warm_graphs,
-                   "validation_graphs": warm_val_graphs, "decode_head_launches": warm_head},
+                   "validation_graphs": warm_val_graphs, "decode_head_launches": warm_head,
+                   "lstm_cell_launches": warm_cells},
         "optimize": {**seconds(opt_epochs), "val_loss": [e["val_loss"] for e in opt_epochs],
                      "d_applies": [e["d_applies"] for e in opt_epochs], "losses": opt_losses,
-                     "validation_graphs": opt_val_graphs, "decode_head_launches": opt_head},
+                     "validation_graphs": opt_val_graphs, "decode_head_launches": opt_head,
+                     "lstm_cell_launches": opt_cells},
         "infer": {"batches": infer_batches, "decode_head_launches": head,
-                  "graphs": infer_graphs},
+                  "graphs": infer_graphs, "lstm_cell_launches": infer_cells},
         "prepare_timings": timings[0], "adv_lr": adv_lr,
         "results": written.strip().splitlines(),
         "validation_passes_bf16": val_passes,
@@ -3683,6 +3998,7 @@ def phase_book(work: str, card: str) -> dict:
     def stage(argv, stdin_text=""):
         fused_decode_logits.launches = 0
         sinkhorn_cuda.launches = 0
+        zero_lstm_launches()
         t0 = time.perf_counter()
         with watch_graphs() as made, watch_graphs(optimize_stage, "GraphedFusedStep") as fused:
             lines = run_cli(argv, stdin_text)
@@ -3706,11 +4022,13 @@ def phase_book(work: str, card: str) -> dict:
     # 1. the CLI chain
     _, _, _, head, sink = stage(["vocab", *flags])
     no_kernel("vocab", head, sink)
+    lstm_launches("vocab_book", 0)
     tokenizer = get_tokenizer(cfg)
     V = len(tokenizer)
     log(f"phase 12: book BPE at vocab_size {cfg.vocab_size}: V={V}")
     _, _, _, head, sink = stage(["w2v", *flags])
     no_kernel("w2v", head, sink)
+    lstm_launches("w2v_book", 0)
     check(os.path.exists(cfg.w2v_path), f"w2v wrote no {cfg.w2v_path}")
 
     _, made, _, pre_head, pre_sink = stage(["pretrain", *flags, "--epochs", "1"])
@@ -3718,6 +4036,7 @@ def phase_book(work: str, card: str) -> dict:
     check(pre_sink == labeled, f"book pretrain: {pre_sink} Sinkhorn launches, want one per "
           f"labeled batch = {labeled}")
     check(pre_head == 0, "book pretrain launched the decode head")
+    lstm_launches("pretrain_book", 0)
     for task, cls in (("cls", TextCNN), ("mat", PairMatcher), ("dn", TransformerLM)):
         path = os.path.join(cfg.ds_dump_dir, "pretrain", f"{task}.pth")
         check(os.path.exists(path), f"missing {path}")
@@ -3740,6 +4059,7 @@ def phase_book(work: str, card: str) -> dict:
 
     _, made, _, warm_head, sink = stage(["warmup", *flags])
     no_kernel("warmup", warm_head, sink)
+    warm_cells = lstm_launches("warmup_book", None, 3 * L * (n_train // WB))
     warm_path = os.path.join(cfg.ds_dump_dir, "warmup", "G.pth")
     load_g(warm_path)
     events, warm_epoch = epoch_of("warmup", n_train // WB)
@@ -3767,6 +4087,19 @@ def phase_book(work: str, card: str) -> dict:
     check(opt_epoch["d_applies"] == want, f"book optimize: D applied {opt_epoch['d_applies']}, "
           f"want {want}")
     opt_graphs = check_replayed(fused, [True, False], n_train // B, "book optimize")
+    step_fwd, step_bwd = fused_step_cells(cfg)
+    opt_cells = lstm_launches("optimize_book", None, step_bwd * opt_epoch["train_steps"],
+                              counts=(inside["run_optimize"]["lstm_fwd"],
+                                      inside["run_optimize"]["lstm_bwd"]))
+    check(opt_cells["forward"] > step_fwd * opt_epoch["train_steps"],
+          f"book run: {opt_cells} LSTM cell launches in optimize, want the steps' and "
+          "validation's")
+    opt_graphs["lstm_cell_launches_per_replay"] = {
+        str(k): lstm_launches(f"optimize_book_run_graph_{k}", step_fwd, step_bwd,
+                              counts=replayed_cells(fused[0], k)) for k in (True, False)}
+    run_cells = lstm_launches("run_book", greedy_cells(run_head),
+                              counts=(inside["run_test"]["lstm_fwd"],
+                                      inside["run_test"]["lstm_bwd"]))
     # made: the optimize validation's graphed step, the infer's, then the
     # eval classifier fit's (its epochs in chunks of GRAPH_CHUNK steps)
     opt_val_graphs = check_replayed(made, [None], dev_batches, "book optimize validation",
@@ -3834,6 +4167,7 @@ def phase_book(work: str, card: str) -> dict:
     check(sink == 0 and serve_head == L * serve_batches,
           f"book serve: {serve_head} decode-head launches, want {L} x {serve_batches}")
     check(len(served) == len(requests), f"book serve printed {len(served)} of {len(requests)}")
+    serve_cells = lstm_launches("serve_book", greedy_cells(serve_head))
     serve_graphs = check_replayed(made, [(B, L)], serve_batches, "book serve")
 
     lap = laps("phase 12")
@@ -3909,7 +4243,7 @@ def phase_book(work: str, card: str) -> dict:
     # on the run's G_epoch_0
     models, steps, _, acc, gens = build_optimize(cfg, V, device)
     opt_steady = optimize_steady(steps, acc, gens, cfg.d_update_every, stream_of("optimize", B),
-                                 batches=12)
+                                 batches=12, cells=fused_step_cells(cfg), what="optimize_book")
     del models, steps, acc
     check(fused_decode_logits.launches == 0 and sinkhorn_cuda.launches == 0,
           "a graphed book warmup or optimize step launched a kernel of the port")
@@ -3951,6 +4285,7 @@ def phase_book(work: str, card: str) -> dict:
         step(x, labels)
     torch.cuda.synchronize()
     fused_decode_logits.launches = 0
+    zero_lstm_launches()
     n = 20
     t0 = time.perf_counter()
     for _ in range(n):
@@ -3959,6 +4294,7 @@ def phase_book(work: str, card: str) -> dict:
     serve_ms = (time.perf_counter() - t0) * 1e3 / n
     check(fused_decode_logits.launches == L * n, f"book serving: "
           f"{fused_decode_logits.launches} head launches, want {L} x {n}")
+    serving_cells = lstm_launches("serving_book", greedy_cells(L * n))
     prof = profile_breakdown(lambda: step(x, labels), watch=("ffn_", "vocab_argmax"))
     device_ms = prof.get("device_ms_per_batch")
     serving_row = {"dtype": cfg.dtype, "B": B, "L": L, "V": V, "ms_per_batch": serve_ms,
@@ -3966,6 +4302,7 @@ def phase_book(work: str, card: str) -> dict:
                    "device_idle_share": (1 - device_ms / serve_ms)
                    if isinstance(device_ms, float) else "not measured",
                    "head_launches_per_batch": L, "watched": prof.get("watched", "not measured"),
+                   "lstm_cell_launches_per_batch": serving_cells["forward"] / n,
                    "graph_nodes": graph_nodes(step.runner.graphs[(B, L)]),
                    **peak_memory(lambda: step(x, labels))}
     del serving, step
@@ -4025,18 +4362,20 @@ def phase_book(work: str, card: str) -> dict:
                      "replay_vs_eager": pre_replay},
         "warmup": {"train_steps": warm_epoch["train_steps"], "train_s": warm_epoch["train_s"],
                    "val_s": warm_epoch["val_s"], "graphs": warm_graphs,
-                   "decode_head_launches": warm_head,
+                   "decode_head_launches": warm_head, "lstm_cell_launches": warm_cells,
                    "validation_graphs": warm_val_graphs, "losses": warm_losses,
                    "graphed": warm_steady, "replay_vs_eager": warm_replay},
         "optimize": {"train_steps": opt_epoch["train_steps"], "train_s": opt_epoch["train_s"],
                      "val_s": opt_epoch["val_s"], "d_applies": opt_epoch["d_applies"],
                      "graphs": opt_graphs, "validation_graphs": opt_val_graphs,
                      "losses": opt_losses, "graphed": opt_steady,
-                     "replay_vs_eager": opt_replay, "decode_head_launches": opt_head},
+                     "replay_vs_eager": opt_replay, "decode_head_launches": opt_head,
+                     "lstm_cell_launches": opt_cells},
         "infer": {"batches": infer_batches, "decode_head_launches": run_head,
-                  "graphs": infer_graphs},
+                  "graphs": infer_graphs, "lstm_cell_launches": run_cells},
         "serve": {"requests": len(requests), "batches": serve_batches,
-                  "decode_head_launches": serve_head, "graphs": serve_graphs},
+                  "decode_head_launches": serve_head, "graphs": serve_graphs,
+                  "lstm_cell_launches": serve_cells},
         "serving": serving_row,
         "sinkhorn_label_batch": real,
         "validation_replay_vs_eager": val_replay,
@@ -4046,6 +4385,46 @@ def phase_book(work: str, card: str) -> dict:
         "phase_s": time.perf_counter() - t_phase}
     print(json.dumps({"book": result}), flush=True)
     return result
+
+
+def lstm_cell_row(cells: dict, build: dict) -> dict:
+    """The kernels line's row for the fused LSTM cell: phase 2's times at
+    yelp's encoder shape (B=256, H=256, bf16 gates, f32 cell state: 108 of
+    a yelp optimize step's 162 cells) with the other shapes and pairs
+    beside them, and the launches every path made (LSTM_LAUNCHES)."""
+    main = cells["yelp_encoder/bf16_f32"]
+    paths = {k: v for k, v in LSTM_LAUNCHES.items() if "_graph_" not in k}
+    keep = ("B", "H", "gates", "cell_state", "ms", "fwd_ms", "bwd_ms", "fwd_bwd_autograd_ms",
+            "plain_fwd_ms", "plain_ms", "bound_ms", "bound_fwd_ms", "bound_bwd_ms",
+            "bound_share", "dgates_rel_f64", "dc_rel_f64", "eager_dgates_rel_f64",
+            "eager_dc_rel_f64", "library_fwd_ms", "library_bwd_ms", "library_h_max_abs_diff",
+            "library_error")
+    return {
+        "name": "lstm_cell",
+        "route": "cuda",
+        "source": "consistent__style_transfer_torch/csrc/lstm_cell.cu",
+        "replaces": None,  # the JAX package leaves the cell to XLA
+        "launches": sum(v["forward"] + v["backward"] for v in paths.values()),
+        "launches_by_path": paths,
+        "launches_per_graph_replay": {k: v for k, v in LSTM_LAUNCHES.items() if "_graph_" in k},
+        "launch_counter": "lstm_cell_fwd.launches + lstm_cell_bwd.launches: eager calls, and "
+                          "each replay adds the calls its graph captured",
+        "max_abs_err": 0.0,  # the forward bit for bit, every shape and pair (phase 2)
+        "ms": main["ms"],
+        "kernel_ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "bound_share": main["bound_share"],
+        "library_ms": (main["library_fwd_ms"] + main["library_bwd_ms"]
+                       if "library_fwd_ms" in main else None),
+        "library": main["library"],
+        "device_ops_per_call": main["device_ops_per_call"],  # graph nodes, exact
+        "ptxas": build["ptxas"],
+        "shape": {"B": main["B"], "H": main["H"], "gates": main["gates"],
+                  "cell_state": main["cell_state"]},
+        "shapes": {k: {f: v[f] for f in keep if f in v} for k, v in cells.items()},
+    }
 
 
 def main() -> int:
@@ -4069,6 +4448,7 @@ def main() -> int:
     card, build = phase("1", phase_card_and_build)
     timed = phase("2, decode head", phase_kernel_vs_plain)
     sinkhorn = phase("2, Sinkhorn", phase_sinkhorn_vs_plain)
+    cells = phase("2, LSTM cell", phase_lstm_cell_vs_plain)
     with tempfile.TemporaryDirectory() as work:
         served = phase("3", phase_serve_and_infer, work)
         full = phase("4", phase_full_width, card, timed[f"bfloat16_V{YELP_V}"]["kernel_ms"])
@@ -4194,7 +4574,7 @@ def main() -> int:
                                        "max_abs_err_h", "ids_mismatch")}
                  for k, v in book["decode_head"].items()},
         "book_launches_per_batch": book["L"],
-    }, *sinkhorn_rows]}), flush=True)
+    }, lstm_cell_row(cells, build["lstm_cell"]), *sinkhorn_rows]}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

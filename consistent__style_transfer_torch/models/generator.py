@@ -59,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.decode_step import fused_decode_logits
+from ..kernels.lstm_cell import lstm_cell
 from ..ops.sampling import hard_sample_st
 from . import initializers as init
 from .transformer import dropout
@@ -88,8 +89,10 @@ def gumbel_noise(shape, generator: torch.Generator | None, device) -> torch.Tens
 class LSTM(nn.Module):
     """One LSTM layer with torch's gate order (i, f, g, o), holding
     ``nn.LSTM``'s parameter names (``weight_ih_l0``, ..., plus a ``_reverse``
-    set when bidirectional). :meth:`cell` is one step; :meth:`scan` runs it
-    over a sequence."""
+    set when bidirectional). :meth:`cell` is one step: the two products, then
+    :func:`~..kernels.lstm_cell.lstm_cell` (one CUDA kernel forward and one
+    backward on the card, the plain equations on the CPU); :meth:`scan` runs
+    it over a sequence."""
 
     def __init__(self, input_size: int, hidden: int, bidirectional: bool = False):
         super().__init__()
@@ -104,12 +107,9 @@ class LSTM(nn.Module):
     def cell(self, x, h, c, reverse: bool = False):
         """(x (B, in), h, c (B, hidden)) -> (h, c) after one step."""
         sfx = "_reverse" if reverse else ""
-        gates = (F.linear(x, getattr(self, f"weight_ih_l0{sfx}"), getattr(self, f"bias_ih_l0{sfx}"))
-                 + F.linear(h, getattr(self, f"weight_hh_l0{sfx}"), getattr(self, f"bias_hh_l0{sfx}")))
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        return h, c
+        a = F.linear(x, getattr(self, f"weight_ih_l0{sfx}"), getattr(self, f"bias_ih_l0{sfx}"))
+        b = F.linear(h, getattr(self, f"weight_hh_l0{sfx}"), getattr(self, f"bias_hh_l0{sfx}"))
+        return lstm_cell(a, b, c)
 
     def scan(self, xs, h, c, reverse: bool = False):
         """xs (B, L, in), read from t=0 on -> (outputs (B, L, hidden), (h, c))."""

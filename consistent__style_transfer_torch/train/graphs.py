@@ -45,6 +45,8 @@ The hand-written kernels count their launches (``.launches`` on
 nothing and counts into ``.captured`` instead; a graph notes how many
 calls of each kernel it captured and adds them to ``.launches`` at every
 replay, so ``.launches`` counts the kernels that ran, eager or replayed.
+When spans record, each replay also adds them to the recorder's counter
+``kernel.<name>`` (the wrapper's name: ``kernel.lstm_cell_fwd``, ...).
 
 :func:`step_runner` gives a stage one loop for both devices: a
 :class:`GraphedStep` on the card, ``fn`` called eagerly on the CPU.
@@ -60,11 +62,12 @@ from typing import Callable, Hashable
 import torch
 
 from ..kernels.decode_step import fused_decode_logits
+from ..kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
 from ..kernels.sinkhorn import sinkhorn_cuda
 from ..utils import profiling
 from ..utils.profiling import span
 
-COUNTED_KERNELS = (fused_decode_logits, sinkhorn_cuda)
+COUNTED_KERNELS = (fused_decode_logits, sinkhorn_cuda, lstm_cell_fwd, lstm_cell_bwd)
 
 
 @contextmanager
@@ -128,6 +131,7 @@ class GraphedStep:
             self.replays += 1
             for kernel, n in self.replay_launches[key]:
                 kernel.launches += n
+                profiling.count(f"kernel.{kernel.__name__}", n)
         if timed:
             profiling.device_step(start, t_ns)
         return self.outputs[key]

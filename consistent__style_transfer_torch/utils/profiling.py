@@ -412,9 +412,12 @@ def report_launches(command: str, seconds: float, rank: int = 0) -> None:
     if os.environ.get("TPUST_KERNEL_COUNTS", "0") != "1":
         return
     from ..kernels.decode_step import fused_decode_logits
+    from ..kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
     from ..kernels.sinkhorn import sinkhorn_cuda
 
     print(json.dumps({"kernel_launches": {
         "rank": rank, "command": command, "seconds": seconds,
         "fused_decode_logits": fused_decode_logits.launches,
-        "sinkhorn": sinkhorn_cuda.launches}}), file=sys.stderr, flush=True)
+        "sinkhorn": sinkhorn_cuda.launches,
+        "lstm_cell_fwd": lstm_cell_fwd.launches,
+        "lstm_cell_bwd": lstm_cell_bwd.launches}}), file=sys.stderr, flush=True)
