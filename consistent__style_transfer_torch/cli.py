@@ -7,7 +7,7 @@ Commands:
   w2v           train/load the WMD word2vec dump
   pretrain      stage 1: the three scorers (classifier, matcher, LM denoiser)
   warmup        stage 2: the generator's denoising warmup -> warmup/G.pth
-                (warmup/G_transformer.pth with --backbone transformer)
+                (warmup/G_<backbone>.pth with --backbone transformer or lfm2_moe)
   optimize      stage 3: adversarial style transfer -> optimize-<ver>/G_epoch_<n>.pth
                 (--mode=test: inference, as infer)
   serve         stdin->stdout batch transfer with the current best G
@@ -25,11 +25,14 @@ Commands:
                 wo_s, wo_c, wo_adv, wo_bt, wo_allc}
 
 Two flags choose the generator and its decode: ``--backbone
-lstm|transformer`` (every command that trains or runs G: the reference's
-LSTM, or the T5-small-wide transformer, which computes in float32 whatever
-``--dtype`` says) and ``--beam_size K`` (``serve``, ``infer`` and the test
-half of ``run``/``ablate`` decode with a length-normalised beam of K,
-either backbone, instead of greedy).
+lstm|transformer|lfm2_moe`` (every command that trains or runs G: the
+reference's LSTM, the T5-small-wide transformer, which computes in float32
+whatever ``--dtype`` says, or LFM2-8B-A1B at its published widths, a
+conv/GQA hybrid with 32 experts, top 4, which follows ``--dtype``;
+``--lfm2_layers N`` holds the first N of its 24 layers) and
+``--beam_size K`` (``serve``, ``infer`` and the test half of
+``run``/``ablate`` decode with a length-normalised beam of K, any
+backbone, instead of greedy).
 
 Data parallelism: one process per GPU under the PyTorch launcher,
 

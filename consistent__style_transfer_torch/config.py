@@ -79,8 +79,10 @@ class Config:
     # tokens. 0 = off (reference-faithful decode, through the fused head kernel)
     device: str = "cuda"  # cuda (default; raises when absent) | cpu | cuda:<n>
     backbone: str = "lstm"  # generator family: lstm (reference parity) | transformer
-    # (T5-small widths; computes in float32 whatever dtype says)
-    beam_size: int = 1  # >1: beam decode at inference (serve, infer), either backbone
+    # (T5-small widths; computes in float32 whatever dtype says) | lfm2_moe
+    # (LFM2-8B-A1B's widths: conv/GQA hybrid, 32-expert top-4 MoE; follows dtype)
+    lfm2_layers: int = 24  # lfm2_moe: the first N of LFM2-8B-A1B's 24 layer_types
+    beam_size: int = 1  # >1: beam decode at inference (serve, infer), any backbone
     fuse_gan_steps: bool = False  # reuse the G-step's fake decode for the D
     # step (saves one of the three rollouts per batch; the reference
     # recomputes it under no_grad each batch, so the default stays faithful)
@@ -171,7 +173,7 @@ PRESETS = {
 }
 
 
-BACKBONES = ("lstm", "transformer")
+BACKBONES = ("lstm", "transformer", "lfm2_moe")
 
 
 def make_config(dataset: str = "yelp", preset: str | None = None, **overrides) -> Config:

@@ -12,6 +12,8 @@ import torch
 from ..config import BACKBONES, Config
 from ..data.corpus import StyleCorpus
 from ..models import DenoiseSeq2Seq, PairMatcher, RelGANDiscriminator, TextCNN, TransformerLM
+from ..models import lfm2_moe
+from ..models.lfm2_moe import Lfm2MoeGenerator
 from ..models.seq2seq_transformer import TransformerSeq2Seq, generate
 from ..parallel.mesh import barrier, is_main, make_mesh
 from ..parallel.sharding import data_index, data_size
@@ -104,24 +106,30 @@ def get_corpus(cfg: Config, split: str, tokenizer) -> StyleCorpus:
 
 
 def build_generator(cfg: Config, n_vocab: int, device: torch.device,
-                    training: bool = False) -> DenoiseSeq2Seq | TransformerSeq2Seq:
+                    training: bool = False
+                    ) -> DenoiseSeq2Seq | TransformerSeq2Seq | Lfm2MoeGenerator:
     """The generator of ``cfg.backbone`` on ``device`` with fresh weights
     from ``cfg.seed`` (a checkpoint load replaces them), in train mode with
     ``training``, else in eval mode.
 
-    The LSTM: for serving, in the compute dtype; for training, float32
+    The LSTM and LFM2-8B-A1B (the first ``cfg.lfm2_layers`` of its
+    layers): for serving, in the compute dtype; for training, float32
     master parameters, a bfloat16 compute dtype then being autocast's (the
-    training stages'); ``rep_penalty`` applies to it only. The transformer
-    keeps float32 parameters and computes in float32 in both, as the JAX
-    package's does whatever ``dtype`` says."""
+    training stages'); ``rep_penalty`` applies to the LSTM only. The
+    transformer keeps float32 parameters and computes in float32 in both,
+    as the JAX package's does whatever ``dtype`` says."""
     kw = dict(n_vocab=n_vocab, n_class=cfg.n_class, max_len=cfg.max_len, p_drop=cfg.p_drop,
               seed=cfg.seed)
     if cfg.backbone == "transformer":
         model = TransformerSeq2Seq(**kw).to(device)
         return model.train(training)
-    if cfg.backbone != "lstm":
+    if cfg.backbone == "lfm2_moe":
+        with torch.device(device):  # made where it runs: 9.4 GB at the published widths
+            model = Lfm2MoeGenerator(n_layers=cfg.lfm2_layers, **kw)
+    elif cfg.backbone == "lstm":
+        model = DenoiseSeq2Seq(rep_penalty=cfg.rep_penalty, **kw).to(device)
+    else:
         raise ValueError(f"backbone must be one of {BACKBONES}, got {cfg.backbone!r}")
-    model = DenoiseSeq2Seq(rep_penalty=cfg.rep_penalty, **kw).to(device)
     if training:
         return model.train()
     return model.to(dtype=compute_dtype(cfg)).eval()
@@ -136,6 +144,12 @@ def autocast(device: torch.device, dtype: torch.dtype):
         return contextlib.nullcontext()
     capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
     return torch.autocast(device.type, dtype=dtype, cache_enabled=not capturing)
+
+
+def one_weight_cast(model):
+    """The generator's ``one_cast()`` scope where it has one (LFM2-8B-A1B:
+    the calls inside share one cast of its weights), else nothing."""
+    return model.one_cast() if hasattr(model, "one_cast") else contextlib.nullcontext()
 
 
 def _scorer_size_kw(cfg: Config) -> dict:
@@ -176,21 +190,22 @@ def generator_call(model, inp, label_i, x, label, mode: str = "sched", tau: floa
     """Generator invocation with the reference call semantics (inp,
     input-style, teacher x, output-style, decode mode), plus the st
     temperature, the soft output layout, the dropout/coin generator and
-    given sched coins, for either backbone (JAX ``train/common.py:85-114``).
+    given sched coins, for any backbone (JAX ``train/common.py:85-114``).
 
     The LSTM handles every mode in its forward (``DenoiseSeq2Seq.forward``).
-    The transformer runs ``sched`` with a teacher as its parallel causal
-    pass, which draws no coins (``coins`` is ignored), and every other mode
-    through :func:`~..models.seq2seq_transformer.generate` over the
-    teacher's length, or ``max_len`` without one; it decodes batch-major,
+    The transformer and LFM2-8B-A1B run ``sched`` with a teacher as their
+    parallel causal pass, which draws no coins (``coins`` is ignored), and
+    every other mode through their module's ``generate`` over the
+    teacher's length, or ``max_len`` without one; they decode batch-major,
     so ``time_major_out`` on a soft output is a transpose. Integer ids are
-    batch-major under both."""
-    if isinstance(model, TransformerSeq2Seq):
+    batch-major under all three."""
+    if isinstance(model, (TransformerSeq2Seq, Lfm2MoeGenerator)):
         if mode == "sched" and x is not None:
             out = model(inp, label_i, x, label, generator=generator)
         else:
-            out = generate(model, inp, label_i, label, mode=mode, tau=tau, generator=generator,
-                           L_out=None if x is None else x.shape[1])
+            gen = lfm2_moe.generate if isinstance(model, Lfm2MoeGenerator) else generate
+            out = gen(model, inp, label_i, label, mode=mode, tau=tau, generator=generator,
+                      L_out=None if x is None else x.shape[1])
         return out.transpose(0, 1) if time_major_out and out.dim() == 3 else out
     return model(inp, label_i, x, label, mode=mode, tau=tau, time_major_out=time_major_out,
                  generator=generator, coins=coins)

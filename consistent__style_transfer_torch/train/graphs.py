@@ -46,7 +46,10 @@ nothing and counts into ``.captured`` instead; a graph notes how many
 calls of each kernel it captured and adds them to ``.launches`` at every
 replay, so ``.launches`` counts the kernels that ran, eager or replayed.
 When spans record, each replay also adds them to the recorder's counter
-``kernel.<name>`` (the wrapper's name: ``kernel.lstm_cell_fwd``, ...).
+``kernel.<name>`` (the wrapper's name: ``kernel.lstm_cell_fwd``, ...,
+``kernel.grouped_swiglu``, the expert layer's grouped products), and the
+counts its capture made through ``utils/profiling.py::count_step``
+(``moe.rows``).
 
 :func:`step_runner` gives a stage one loop for both devices: a
 :class:`GraphedStep` on the card, ``fn`` called eagerly on the CPU.
@@ -64,10 +67,12 @@ import torch
 from ..kernels.decode_step import fused_decode_logits
 from ..kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
 from ..kernels.sinkhorn import sinkhorn_cuda
+from ..models.moe import grouped_swiglu
 from ..utils import profiling
 from ..utils.profiling import span
 
-COUNTED_KERNELS = (fused_decode_logits, sinkhorn_cuda, lstm_cell_fwd, lstm_cell_bwd)
+COUNTED_KERNELS = (fused_decode_logits, sinkhorn_cuda, lstm_cell_fwd, lstm_cell_bwd,
+                   grouped_swiglu)
 
 
 @contextmanager
@@ -95,8 +100,13 @@ class GraphedStep:
     recorder's graphs (default: ``fn``'s qualified name)."""
 
     def __init__(self, fn: Callable, generators=(), before_capture: Callable | None = None,
-                 name: str | None = None):
+                 name: str | None = None, share_pool: bool = False):
         self.fn = fn
+        # with share_pool every branch's graph takes its memory from one pool
+        # (the first capture's): branches never run at once, and a call's
+        # outputs are read before the next call of any branch overwrites them
+        self.share_pool = share_pool
+        self.pool = None
         self.name = name or getattr(fn, "__qualname__", type(fn).__name__)
         self.generators = tuple(g for g in generators if g is not None)
         self.before_capture = before_capture
@@ -105,6 +115,8 @@ class GraphedStep:
         self.outputs: dict[Hashable, object] = {}
         # per branch: (kernel wrapper, calls captured) for each counted kernel
         self.replay_launches: dict[Hashable, tuple] = {}
+        # per branch: (counter, n) of each profiling.count_step its capture made
+        self.replay_counts: dict[Hashable, tuple] = {}
         self.replays = 0  # of every branch
         self.branches: dict[Hashable, int] = {}  # key -> index in the recorder's graphs
         self.stream: torch.cuda.Stream | None = None
@@ -132,6 +144,8 @@ class GraphedStep:
             for kernel, n in self.replay_launches[key]:
                 kernel.launches += n
                 profiling.count(f"kernel.{kernel.__name__}", n)
+            for name, n in self.replay_counts.get(key, ()):
+                profiling.count(name, n)
         if timed:
             profiling.device_step(start, t_ns)
         return self.outputs[key]
@@ -151,9 +165,16 @@ class GraphedStep:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = [k.captured for k in COUNTED_KERNELS]
-        with span("step.capture", always=True) as capture, gc_paused(), torch.cuda.graph(
-                graph, stream=side, capture_error_mode="thread_local"):
-            self.outputs[key] = self.fn(static, key)
+        profiling.RECORDER.step_counts = counts = []
+        try:
+            with span("step.capture", always=True) as capture, gc_paused(), torch.cuda.graph(
+                    graph, pool=self.pool, stream=side, capture_error_mode="thread_local"):
+                self.outputs[key] = self.fn(static, key)
+        finally:
+            profiling.RECORDER.step_counts = None
+        self.replay_counts[key] = tuple(counts)
+        if self.share_pool and self.pool is None:
+            self.pool = graph.pool()
         self.replay_launches[key] = tuple(
             (k, k.captured - b) for k, b in zip(COUNTED_KERNELS, before) if k.captured > b)
         self.branches[key] = profiling.record_graph(self.name, key, first.seconds,

@@ -93,7 +93,7 @@ from ..utils.io import RunLogger
 from ..utils.profiling import read_device_times, span
 from .common import (autocast, build_classifier, build_discriminator, build_generator,
                      build_lm, build_matcher, compute_dtype, generator_call, get_corpus,
-                     get_device, get_mesh, get_tokenizer, rank_generators)
+                     get_device, get_mesh, get_tokenizer, one_weight_cast, rank_generators)
 from .checkpoint import StateCheckpointer
 from .graphs import GraphedStep, step_runner
 from .infer import run_inference
@@ -188,10 +188,10 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
                           models.nt_checker, models.disc)
     g_params, d_params = list(G.parameters()), list(D.parameters())
     dtype = compute_dtype(cfg)
-    # an LSTM layout: the transformer decodes batch-major, where the flag
+    # an LSTM layout: the other backbones decode batch-major, where the flag
     # would only move the transpose (JAX optimize.py:175)
     tm = cfg.time_major_probs and cfg.backbone == "lstm"
-    # the transformer's teacher-forced decodes draw no sched coins
+    # the other backbones' teacher-forced decodes draw no sched coins
     draw_coins = cfg.backbone == "lstm"
     ranks = 1 if group is None else dist.get_world_size(group)
     if copy_weights is not None:
@@ -214,7 +214,8 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
         x, labels = batch["x"], batch["labels"]
         if coins is None and draw_coins:
             coins = sched_coins(x.shape[1], coin_generator or generator, x.device)
-        with autocast(x.device, dtype):
+        # G's decode and back-translation pass share one cast of its weights
+        with autocast(x.device, dtype), one_weight_cast(G):
             sample_p = st_decode(batch, generator, tm)
             s_logits = CLS(sample_p, generator, time_major=tm)
             c_logits = MAT(sample_p, x, generator, time_major=tm)
@@ -362,7 +363,9 @@ class GraphedFusedStep(GraphedStep):
     ``copy_scale`` is a 0-dim tensor on the card that the caller fills (each
     epoch), not a constant baked into the capture. A call returns the graph's
     static outputs ``(aux, d_loss)``, which the next replay of that branch
-    overwrites: copy what must outlive it."""
+    overwrites: copy what must outlive it. The two branches' graphs share
+    one memory pool (``GraphedStep``'s ``share_pool``): the next call of
+    either branch may overwrite a call's outputs."""
 
     NAME = "optimize.fused_step"  # its branches' name in the recorder's graphs
 
@@ -374,7 +377,8 @@ class GraphedFusedStep(GraphedStep):
                               copy_scale=copy_scale, coins=static.get("coins"),
                               coin_generator=coin_generator)
 
-        super().__init__(run, (generator, d_generator, coin_generator), name=self.NAME)
+        super().__init__(run, (generator, d_generator, coin_generator), name=self.NAME,
+                         share_pool=True)
         self.given_coins = given_coins
 
     def __call__(self, batch: dict, do_apply: bool, coins: torch.Tensor | None = None):

@@ -110,6 +110,7 @@ class Recorder:
         self.last_end = None  # the newest read replay's end event
         self.spare_events: list = []
         self.sm_clock: int | None = None  # the newest sm_clock_mhz reading
+        self.step_counts: list | None = None  # count_step's, while a graph captures
         self.local = threading.local()
         self.seq = itertools.count()
         self.batch_ids = itertools.count()
@@ -226,6 +227,17 @@ def count(name: str, n: float = 1) -> None:
     recording."""
     if RECORDER.env or _autograd_profiler._is_profiler_enabled:
         RECORDER.counters.append((name, time.perf_counter_ns(), n))
+
+
+def count_step(name: str, n: float) -> None:
+    """Add ``n`` to the counter ``name`` for work a CUDA graph may capture:
+    while a :class:`~..train.graphs.GraphedStep` captures, the count is kept
+    with its graph and added again at each replay (``train/graphs.py``);
+    otherwise as :func:`count`."""
+    if RECORDER.step_counts is not None:
+        RECORDER.step_counts.append((name, n))
+    else:
+        count(name, n)
 
 
 def next_batch_id() -> int:
@@ -414,10 +426,12 @@ def report_launches(command: str, seconds: float, rank: int = 0) -> None:
     from ..kernels.decode_step import fused_decode_logits
     from ..kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
     from ..kernels.sinkhorn import sinkhorn_cuda
+    from ..models.moe import grouped_swiglu
 
     print(json.dumps({"kernel_launches": {
         "rank": rank, "command": command, "seconds": seconds,
         "fused_decode_logits": fused_decode_logits.launches,
         "sinkhorn": sinkhorn_cuda.launches,
         "lstm_cell_fwd": lstm_cell_fwd.launches,
-        "lstm_cell_bwd": lstm_cell_bwd.launches}}), file=sys.stderr, flush=True)
+        "lstm_cell_bwd": lstm_cell_bwd.launches,
+        "grouped_swiglu": grouped_swiglu.launches}}), file=sys.stderr, flush=True)

@@ -168,6 +168,29 @@ print("BACKBONE OK")
 """
 
 
+_BLOCKED_LFM2 = r"""
+for name in ("models.lfm2_moe", "models.moe"):
+    assert "consistent__style_transfer_torch." + name in sys.modules, name
+from consistent__style_transfer_torch.models.beam import beam_decode_any
+from consistent__style_transfer_torch.models.lfm2_moe import Lfm2MoeGenerator, generate
+from consistent__style_transfer_torch.train.common import generator_call
+
+torch.set_num_threads(1)
+g = torch.Generator().manual_seed(0)
+m = Lfm2MoeGenerator(40, 2, 5, n_layers=4, d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
+                     d_ff=48, d_expert=16, n_experts=8, top_k=4, n_dense=1)
+x, li = torch.randint(3, 40, (3, 6), generator=g), torch.tensor([0, 1, 0])
+probs = generate(m, x, li, 1 - li, mode="st")
+logits = generator_call(m, x, li, x, 1 - li)
+(probs.sum() + logits.square().mean()).backward()
+assert all(p.grad is not None for n, p in m.named_parameters() if "router" not in n)
+ids, scores = beam_decode_any(m.eval(), x, li, 1 - li, beam_size=2)
+assert ids.shape == (3, 5) and torch.isfinite(scores).all()
+assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
+print("LFM2 OK")
+"""
+
+
 _BLOCKED_PARALLEL = r"""
 for name in ("parallel", "parallel.mesh", "parallel.sharding", "parallel.exercise"):
     assert "consistent__style_transfer_torch." + name in sys.modules, name
@@ -217,6 +240,12 @@ def test_beam_and_transformer_backbone_run_with_jax_blocked():
     """The transformer generator decodes, both backbones beam-decode and the
     transfer step takes the beam."""
     assert "BACKBONE OK" in _run_blocked(_BLOCKED_BACKBONE)
+
+
+def test_lfm2_moe_backbone_runs_with_jax_blocked():
+    """The LFM2-8B-A1B generator and its expert layer decode, take a
+    backward and beam-decode."""
+    assert "LFM2 OK" in _run_blocked(_BLOCKED_LFM2)
 
 
 def test_native_profiling_checkpoint_run_with_jax_blocked():

@@ -171,7 +171,8 @@ def test_library_path_keys_the_new_source(tmp_path):
 def test_the_cell_kernels_are_counted_kernels():
     for k in (lc.lstm_cell_fwd, lc.lstm_cell_bwd):
         assert k in graphs.COUNTED_KERNELS
-    assert len(graphs.COUNTED_KERNELS) == 4  # with the decode head and the Sinkhorn
+    # with the decode head, the Sinkhorn and the expert layer's grouped products
+    assert len(graphs.COUNTED_KERNELS) == 5
 
 
 def test_each_replay_adds_its_launches_to_the_recorder(monkeypatch):
