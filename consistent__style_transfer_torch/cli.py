@@ -28,7 +28,8 @@ Two flags choose the generator and its decode: ``--backbone
 lstm|transformer|lfm2_moe`` (every command that trains or runs G: the
 reference's LSTM, the T5-small-wide transformer, which computes in float32
 whatever ``--dtype`` says, or LFM2-8B-A1B at its published widths, a
-conv/GQA hybrid with 32 experts, top 4, which follows ``--dtype``;
+conv/GQA hybrid with 32 experts, top 4, which follows ``--dtype`` (on the
+card bfloat16 alone);
 ``--lfm2_layers N`` holds the first N of its 24 layers) and
 ``--beam_size K`` (``serve``, ``infer`` and the test half of
 ``run``/``ablate`` decode with a length-normalised beam of K, any

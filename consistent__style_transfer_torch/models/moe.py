@@ -28,11 +28,10 @@ so its backward is a sum over the k slots, not an index add.
 In bfloat16 the grouped products are ``torch._grouped_mm`` (on the card
 CUTLASS grouped GEMMs for sm_90 that read the offsets on the device,
 counted in ``grouped_swiglu.launches``). On the CPU in float32 they are a
-loop over the experts' row ranges, read on the host. On the card in
-float32, where ``torch._grouped_mm`` would read the offsets on
-the host (no capture), :meth:`SparseMoE.dense` computes every expert for
-every token and weights the ones not selected by zero: the same sum, E / k
-times the routed work, for float32 checks of the graphed steps.
+loop over the experts' row ranges, read on the host. On the card the
+layer takes bfloat16 alone (``torch._grouped_mm`` would read float32's
+offsets on the host, which no graph captures): another dtype raises
+TypeError.
 
 Each layer adds its routed rows per expert to ``load`` (an int64 (E,)
 buffer, not in the state dict) on the device at every call, inside a
@@ -139,8 +138,6 @@ class SparseMoE(nn.Module):
 
         with timed("moe.route"):
             gates, experts = self.router(x, cast)
-        if x.is_cuda and cast.dtype != torch.bfloat16:
-            return self.dense(x, gates, experts, cast, fresh)
         with timed("moe.dispatch"):
             flat = experts.reshape(-1)
             order = flat.argsort(stable=True)  # sorted row r is slot order[r]
@@ -157,18 +154,3 @@ class SparseMoE(nn.Module):
                 0, order, torch.arange(N * k, device=x.device))
             slots = ys[inverse].view(N, k, d)
             return (slots * gates.to(slots.dtype)[..., None]).sum(dim=1)
-
-    def dense(self, x, gates, experts, cast, fresh: bool = True):
-        """Every expert on every row, weighted by its gate (zero where not
-        selected): the float32 path on the card."""
-        weight = torch.zeros(x.shape[0], self.n_experts, dtype=gates.dtype,
-                             device=x.device).scatter(1, experts, gates)
-        if fresh:
-            flat = experts.reshape(-1)
-            self.load += torch.zeros_like(self.load).scatter_add_(0, flat, torch.ones_like(flat))
-        xc = x.to(cast.dtype)
-        out = 0
-        for e in range(self.n_experts):
-            h = F.silu(F.linear(xc, cast(self.w1)[e])) * F.linear(xc, cast(self.w3)[e])
-            out = out + weight[:, e:e + 1].to(h.dtype) * F.linear(h, cast(self.w2)[e])
-        return out

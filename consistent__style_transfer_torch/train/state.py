@@ -19,9 +19,6 @@ import torch.distributed as dist
 from ..parallel.sharding import all_reduce_mean, local_tensor
 
 
-FUSED_ABOVE = 2**30  # parameters
-
-
 class AdamWithClip:
     """``optax.chain(clip_by_global_norm(clip), adam(lr, 0.9, 0.999, 1e-8))``,
     the optimizer of every reference stage, over ``params``.
@@ -47,11 +44,11 @@ class AdamWithClip:
     On the card the Adam is ``capturable``: its step count lives on the
     device and the update reads nothing back to the host, so a step, its
     all-reduce included, can run inside a CUDA graph (the optimize stage);
-    eager steps take the same path. On the CPU, where ``capturable`` is
-    refused, it is the plain Adam. Above :data:`FUSED_ABOVE` parameters
-    (LFM2-8B-A1B's generator) the card's Adam is the fused one: the
-    multi-tensor path holds temporaries the size of every moment (9.4 GB
-    at 2.34B parameters) in each captured graph's memory."""
+    eager steps take the same path. On the card it is also the fused Adam,
+    one kernel over all the parameters, which holds no temporaries the size
+    of the moments (the multi-tensor path's would be 9.4 GB in each
+    captured graph's memory at LFM2-8B-A1B's 2.34B parameters). On the CPU,
+    where ``capturable`` is refused, it is the plain Adam."""
 
     def __init__(self, params, lr: float, clip: float, group=None):
         self.params = list(params)
@@ -61,9 +58,8 @@ class AdamWithClip:
         self.clip = clip
         self.group = group
         cuda = self.params[0].is_cuda
-        fused = cuda and sum(p.numel() for p in self.params) > FUSED_ABOVE
         self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                     capturable=cuda, fused=fused or None)
+                                     capturable=cuda, fused=cuda or None)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=False)

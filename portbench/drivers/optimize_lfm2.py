@@ -12,16 +12,24 @@ configuration's). The scorers and D take the seeded weights
 ``yelp.optimize`` gives them at the same seed; the generator takes its own
 (``reference/lfm2_moe.py::seeded_state``).
 
-What is judged is read from the first ``check_steps`` steps as in
-``drivers/optimize.py``: the ids the first replay of each branch produced
-(steps 3 and 5: the argmax of the straight-through transfer its graph
-hands D), the change of G and D after step 5, and the rows of G's
-embedding that moved. The reference follows the program's path
-(``reference/lfm2_moe.py``, "The program's path"): every expert layer's
-selection at every call of those steps and the tokens each decode fed
-back (the argmax of the transfers D scored), read from the hooks on the
-routers and on D, from each graph's capture for its replays; where its
-own experts differ it counts ``route_flip_pct``.
+What is judged is read from the graphs' replays. Each branch (D applied
+or not) first runs once, which on the card runs it eagerly and captures
+its graph. Then the parameters, Adam's moments and step counts, D's
+gradient sum and the generators go back to their seeded state twice:
+step 0 runs the D-held branch alone from it, and steps 1 to
+``check_steps`` run from it again, the D-apply branch first, every step
+a replay on the card. So the first replay of each branch (steps 0 and 1)
+starts from the seeded weights, which the reference shares: the ids its
+graph produced (the argmax of the straight-through transfer its graph
+hands D) are judged by the reference's logits from those weights, and
+its expert selections against the reference's own (``route_flip_pct``).
+The change of G and D after steps 1 to ``check_steps``, and the rows of
+G's embedding that moved, are judged against the reference's steps. The
+reference follows the program's path (``reference/lfm2_moe.py``, "The
+program's path"): every expert layer's selection at every call of those
+steps and the tokens each decode fed back (the argmax of the transfers D
+scored), read from the hooks on the routers and on D, from each graph's
+capture.
 
 Readings for the per-layer metrics: each expert layer's routed rows per
 expert over the window (its device ``load``, zeroed as the window opens,
@@ -34,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import os
+import sys
 import time
 
 import numpy as np
@@ -149,7 +158,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
     g_loss = torch.zeros(cap, device=dev)
     d_loss = torch.zeros(cap, device=dev)
     state = {"n": 0, "ep_steps": 0, "epoch": 0, "val": 0, "saves": 0}
-    cur = {"apply": None}
+    cur = {"apply": None, "seen": set()}
 
     def group(first_batches=None, on_step=None):
         a = time.perf_counter()
@@ -162,6 +171,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
         for i in range(stacked["x"].shape[0]):
             do_apply = state["ep_steps"] % every == 0
             cur["apply"] = do_apply
+            cur["seen"].add(do_apply)
             if on_step is not None:
                 on_step(None, do_apply)  # the step starts
             a = time.perf_counter()
@@ -192,9 +202,15 @@ def run(ctx: harness.Context) -> harness.Outcome:
         state["val"] += 1
         ctx.span("validation_and_save", a, time.perf_counter())
 
-    # ---- set-up: the first steps, which the reference follows
+    # ---- set-up: both branches captured, then the first steps from the
+    # seeded state, which the reference follows
     check_steps = int(t["check_steps"])
-    first_batches, routes, feeds, judged, calls, at = [], [], [], [], {}, {}
+    params = list(models.generator.parameters()) + list(models.disc.parameters())
+    gens = [g for g in (generator, d_generator, coin_generator) if g is not None]
+    seeded = ([p.detach().to("cpu", copy=True) for p in params], [g.get_state() for g in gens])
+    # the judged steps, the first of each branch from the seeded state:
+    # {step: the dropout generator's state as it starts}
+    first_batches, routes, feeds, judged, branches = [], [], [], {}, set()
     # per step, every router's selection and the soft transfers D scores
     # (G's and then D's own decode, whose argmax are the tokens each fed
     # back): a step's eager outputs, and per branch the tensors its capture
@@ -219,37 +235,63 @@ def run(ctx: harness.Context) -> harness.Outcome:
         if torch.is_floating_point(args[0]):  # a transfer, not the real batch's ids
             keep("probs", args[0])
 
-    def on_step(n, do_apply):
-        if n is None:  # a step starts
+    def on_capture(n, do_apply):
+        if n is None:
             eager["routes"].clear()
             eager["probs"].clear()
-            if calls.get(do_apply, 0) == 1:  # the branch's first replay: judged
-                at[state["n"]] = ({key: v.to("cpu", copy=True) for key, v in
-                                   models.generator.state_dict().items()},
-                                  generator.get_state())
+
+    def on_step(n, do_apply):
+        on_capture(n, do_apply)
+        if n is None:  # a step starts: a branch's first from the seeded state is judged
+            if do_apply not in branches:
+                branches.add(do_apply)
+                judged[state["n"]] = generator.get_state()
             return
-        calls[do_apply] = calls.get(do_apply, 0) + 1
-        got = held[do_apply] if cuda and calls[do_apply] > 1 else eager
+        got = held[do_apply] if cuda else eager  # on the card every step here replays
         routes.append(route_tables([r.clone() for r in got["routes"]], B, L, len(moes)))
         g_probs, d_probs = got["probs"]
         feeds.append({"g_st": g_probs.argmax(-1), "d_st": d_probs.argmax(-1)})
-        if calls[do_apply] == 2:  # the branch's first replay
-            judged.append(n)
 
     hooks = [m.register_forward_hook(hold_route) for m in models.generator.modules()
              if isinstance(m, Router)]
     hooks.append(models.disc.register_forward_hook(hold_probs))
-    while state["n"] < check_steps:
+    def restore():
+        """Back to the seeded state: weights, Adam, D's sum, generators."""
+        sync()
+        with torch.no_grad():
+            for p, v in zip(params, seeded[0]):
+                p.copy_(v)
+            for opt in (g_opt, d_opt):
+                for st in opt.adam.state.values():
+                    for v in st.values():
+                        if torch.is_tensor(v):
+                            v.zero_()
+            for a in acc:
+                a.zero_()
+        for g, v in zip(gens, seeded[1]):
+            g.set_state(v)
+
+    while cur["seen"] != {True, False}:  # each branch's first call: on the card, its capture
+        group(on_step=on_capture)
+    # step 0: the D-held branch alone from the seeded state; then steps 1 to
+    # check_steps from it again, the D-apply branch first
+    restore()
+    state.update(n=0, ep_steps=1)
+    group(first_batches, on_step)
+    restore()
+    state.update(ep_steps=0)
+    while state["n"] < check_steps + 1:
         group(first_batches, on_step)
+    del seeded
     for h in hooks:
         h.remove()
-    if len(judged) < 2:
-        raise ValueError(f"check_steps {check_steps} must reach the first replay of each "
-                         f"branch; the first replays were steps {judged}")
+    if branches != {True, False}:
+        raise ValueError(f"check_steps {check_steps} must reach both branches; "
+                         f"the steps were {sorted(judged)}")
     held.clear()
     sync()
-    routes = [{key: v.cpu() for key, v in r.items()} for r in routes[:check_steps]]
-    feeds = [{key: v.cpu() for key, v in f.items()} for f in feeds[:check_steps]]
+    routes = [{key: v.cpu() for key, v in r.items()} for r in routes[:check_steps + 1]]
+    feeds = [{key: v.cpu() for key, v in f.items()} for f in feeds[:check_steps + 1]]
     after = {f"{prefix}.{key}": p.detach().to("cpu", copy=True)
              for prefix, module in (("generator", models.generator), ("disc", models.disc))
              for key, p in module.named_parameters()}
@@ -298,11 +340,12 @@ def run(ctx: harness.Context) -> harness.Outcome:
                     gmm_bound_ms=moe_counts.gmm_bound_ms(c))
 
     # ---- free the program, then the reference
-    del run_step, run_val, steps, models, g_opt, d_opt, acc, feed, g_loss, d_loss, moes
+    del run_step, run_val, steps, models, params, gens, g_opt, d_opt, acc, feed, g_loss, d_loss
+    del moes, generator, d_generator, coin_generator
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    checks = check(ctx, first_batches[:check_steps], routes, feeds, after, cfg.seed, at)
+    checks = check(ctx, first_batches[:check_steps + 1], routes, feeds, after, cfg.seed, judged)
     return harness.Outcome(e2e, n_window, failed, checks, readings, memory_peak, trace)
 
 
@@ -323,39 +366,51 @@ def reference_modules(ctx: harness.Context) -> dict:
     return m
 
 
-def check(ctx, batches, routes, feeds, after, seed: int, at: dict):
-    """The reference's first steps along the program's path (its tokens and
-    its experts, ``feeds`` and ``routes``) from the same weights, batches
-    and generator seeds, against the program's: (name, value, limit) for
-    each number in the cell's limits. The tokens of the judged steps
-    (``at``: {step: (G's weights, the dropout generator's state) as it
-    starts, the program's}) are judged by the reference's logits along the
-    program's path from those weights, as every run's choices there are.
-    ``route_flip_pct``: at step 0, where every run has the seeded weights,
-    the token-layer pairs whose experts differ from the float32
-    reference's own. With ``ctx.control`` the readings of the control (the
-    generator's products in fp8, the scorers' through
-    ``lowp.Fp8Products``) and of the planted faults, each along the same
-    path, go to ``ctx.control_readings``, each with the compared numbers it
-    fails."""
+def check(ctx, batches, routes, feeds, after, seed: int, judged: dict):
+    """The program's steps against the plain reference's from the same
+    seeded weights, batches and generator seeds: (name, value, limit) for
+    each number in the cell's limits. ``batches``, ``routes`` and
+    ``feeds``: per step, the program's batch, every expert layer's
+    selection at every call and the tokens each decode fed back; step 0
+    ran alone from the seeded state, steps 1 on from it again. The judged
+    steps (``judged``: {step: the program's dropout generator state as it
+    starts}, both from the seeded state) are judged by the reference's
+    logits along the program's path from the seeded weights
+    (``reference/lfm2_moe.py::judge``): the ids the program fed back, and
+    in ``route_flip_pct`` its selections against the reference's own. The
+    change after the steps from 1 on, and the input rows moved, are judged
+    against the reference's steps along the same path. With
+    ``ctx.control`` the readings of the control (the generator's products
+    in fp8, the scorers' through ``lowp.Fp8Products``) and of the planted
+    faults, each along the same path, go to ``ctx.control_readings``, each
+    with the compared numbers it fails."""
     c, dev = ctx.config, ctx.device
     on_dev = [(torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
               for x, y in batches]
-    judged = tuple(sorted(at))
     routes_dev = [{key: v.to(dev) for key, v in r.items()} for r in routes]
     feeds_dev = [{key: v.to(dev) for key, v in f.items()} for f in feeds]
-    rows = torch.as_tensor(np.unique(np.concatenate([x.reshape(-1) for x, _ in batches])),
+    steps = tuple(sorted(judged))
+    rows = torch.as_tensor(np.unique(np.concatenate([x.reshape(-1) for x, _ in batches[1:]])),
                            device=dev).long()
+    variants = {"control": {"fp8": True}, "top3": {"fault": "top3"},
+                "conv_shift": {"fault": "conv_shift"}, "half_batch": {"fault": "half_batch"}}
 
-    # the reference's logits along the program's path, from its weights
+    # the judged steps, from the seeded weights, for the sound reference
+    # and, with the control, for each variant
     torch.backends.cuda.matmul.allow_tf32 = False
-    judge = ref_lfm2.build(c, c["vocab_size"], dev)
-    path = {}
-    for i in judged:
-        judge.load_state_dict(at[i][0], strict=True)
-        path[i] = ref_lfm2.path_logits(judge, *on_dev[i], feeds_dev[i]["g_st"], at[i][1],
-                                       routes_dev[i]["g_st"])
-    del judge
+    G = ref_lfm2.build(c, c["vocab_size"], dev)
+    G.load_state_dict(ref_lfm2.seeded_state(c, c["vocab_size"], ctx.seed, dev), strict=True)
+    at = {i: (*on_dev[i], feeds_dev[i]["g_st"], routes_dev[i]["g_st"], judged[i])
+          for i in steps}
+    sound_judged = ref_lfm2.judge(G, at)
+    path = {i: logits for i, (logits, _) in sound_judged.items()}
+    own = {i: o for i, (_, o) in sound_judged.items()}
+    seen = {}
+    if ctx.control:
+        for name, kw in variants.items():
+            seen[name] = {i: (logits.argmax(-1), o)
+                          for i, (logits, o) in ref_lfm2.judge(G, at, **kw).items()}
+    del G, sound_judged
 
     def follow(fault=None, fp8=False, sound=False):
         m = reference_modules(ctx)
@@ -368,8 +423,8 @@ def check(ctx, batches, routes, feeds, after, seed: int, at: dict):
 
             products = Fp8Products()
         with products:
-            out = ref_lfm2.first_steps(m, c, on_dev, routes_dev, feeds_dev, gen, d_gen, fault,
-                                       sound)
+            out = ref_lfm2.first_steps(m, c, on_dev[1:], routes_dev[1:], feeds_dev[1:], gen,
+                                       d_gen, fault, sound)
         del m
         return out
 
@@ -391,22 +446,25 @@ def check(ctx, batches, routes, feeds, after, seed: int, at: dict):
                 "moved": change(base.INPUT_TABLE)[rows].abs().amax(-1) > 0}
 
     sound = summary(ref.pop("params"))
+    del ref
 
     def flips(selection):
-        """Step 0's token-layer pairs whose experts differ from the float32
-        reference's own, over its three generator calls."""
-        n = [ref_lfm2.differs(selection[key][:, :ref["own"][key].shape[1]].reshape(
-            -1, s.shape[-1]).to(dev), ref["own"][key][:, :selection[key].shape[1]].reshape(
-            -1, s.shape[-1])) for key, s in selection.items()]
+        """The judged steps' token-layer pairs of G's transfer whose experts
+        in ``selection`` ({step: (n_moe, b, 2L, k)}) differ from the sound
+        reference's own there."""
+        n = [ref_lfm2.differs(selection[i].to(dev).reshape(-1, own[i].shape[-1]),
+                              own[i][:, :selection[i].shape[1]].reshape(-1, own[i].shape[-1]))
+             for i in steps]
         return float(torch.cat(n).float().mean())
 
     def readings(run, tokens, selection):
-        out = {"change_gap": compare.worst_leaf_gap(run["change"], sound["change"])[0]}
+        out = dict(zip(("change_gap", "change_leaf"),
+                       compare.worst_leaf_gap(run["change"], sound["change"])))
         gaps = [compare.logit_gap(path[i][:tokens[i].shape[0]], tokens[i].to(dev))
-                for i in judged]
+                for i in steps]
         out["token_gaps"], out["token_gap"] = gaps, max(gaps)
         out["rows_missing"] = float(max(on_dev[i][0].shape[0] - tokens[i].shape[0]
-                                        for i in judged))
+                                        for i in steps))
         out["input_rows_unmoved"] = float((sound["moved"] & ~run["moved"]).sum())
         out["route_flip_pct"] = 100.0 * flips(selection)
         return out
@@ -415,16 +473,18 @@ def check(ctx, batches, routes, feeds, after, seed: int, at: dict):
         return [key for key, lim in ctx.limits.items() if not out[key] <= lim]
 
     if ctx.control:
-        for name, kw in (("control", {"fp8": True}), ("top3", {"fault": "top3"}),
-                         ("conv_shift", {"fault": "conv_shift"}),
-                         ("half_batch", {"fault": "half_batch"})):
+        for name, kw in variants.items():
             gc.collect()
-            out = follow(**kw)
-            got = readings(summary(out["params"]), out["tokens"], out["own"])
+            out = summary(follow(**kw)["params"])
+            got = readings(out, {i: t for i, (t, _) in seen[name].items()},
+                           {i: o for i, (_, o) in seen[name].items()})
             ctx.control_readings[name] = {**got, "fails": fails(got)}
-        got = readings(summary(init), ref["tokens"], ref["own"])
+        got = readings(summary(init), {i: path[i].argmax(-1) for i in steps}, own)
         ctx.control_readings["unchanged"] = {**got, "fails": fails(got)}
-    got = readings(summary(after), {i: feeds[i]["g_st"] for i in judged}, routes[0])
+    got = readings(summary(after), {i: feeds[i]["g_st"] for i in steps},
+                   {i: routes[i]["g_st"] for i in steps})
+    print(f"judged steps {steps}: token_gaps {got['token_gaps']}; change_gap's worst leaf "
+          f"{got['change_leaf']}", file=sys.stderr)
     if ctx.control:
         ctx.control_readings["program"] = got
     return [(name, got[name], lim) for name, lim in ctx.limits.items()]

@@ -32,15 +32,14 @@ whose two best logits nearly tie feeds back another token, after which
 the rows differ outright. So the reference follows the program's path:
 each call takes the program's selection, ``routes`` ((n_moe_layers, B, P,
 k) expert ids of every position of the call), and computes its gates from
-its own scores at those experts, counting a flip where its own top-k
-differs (:class:`Routes`; the flips are a number of their own); and each
+its own scores at those experts, noting where its own top-k differs
+(:class:`Routes`; the flips are a number of their own); and each
 straight-through decode feeds back the program's tokens, ``feed`` (B, L),
 with the straight-through gradient of its own probabilities. The tokens
-a step produced are judged by the reference's logits along that path from
-the program's own weights as the step starts (:func:`path_logits`): a
-float32 and a bfloat16 training step take Adam's first steps apart
-wherever a gradient is near nought, and those ±lr differences move the
-experts' near-ties step after step.
+a judged step produced are judged by the reference's logits along that
+path from the seeded weights, which are the program's too as its judged
+steps start (:func:`judge`), and the flips are counted there, at the
+same positions.
 
 ``fault`` plants a fault for the control runs: ``"top3"`` (each token
 routed to the first 3 of its k experts, the gates over those 3),
@@ -291,7 +290,8 @@ class Lfm2MoeRef(nn.Module):
             F.embedding(feed[:, t:t + 1].long(), self.token_embedding.weight)
             for t in range(L - 1)]
         tgt = torch.cat([self._drop(r + style, generator) for r in rows], 1)
-        return self.logits(torch.cat([src, tgt], 1), routes)[:, src.shape[1]:]
+        shift = src.shape[1] + 1 if self.fault == "conv_shift" else None
+        return self.logits(torch.cat([src, tgt], 1), routes, shift)[:, src.shape[1]:]
 
 
 # ------------------------------------------------------------- the weights
@@ -385,10 +385,8 @@ def first_steps(m: dict, cfg: dict, batches, routes, feeds, generator, d_generat
     program's selection (``routes``: per step {"g_st", "g_bt", "d_st"}
     tables), each decode feeds back the program's tokens (``feeds``: per
     step {"g_st", "d_st"} ids). Returns {"losses", "params" (every leaf
-    after the last step: the modules' own tensors), "tokens" ({step: the
-    ids this run chooses}), "own" (step 0's own top-k of each call: every
-    run starts from the seeded weights)}; with ``sound`` also "keep" (the
-    elements whose first gradient is above round-off:
+    after the last step: the modules' own tensors)}; with ``sound`` also
+    "keep" (the elements whose first gradient is above round-off:
     ``compare.moving``). Everything stays on the device."""
     from portbench.reference.compare import moving
 
@@ -401,13 +399,13 @@ def first_steps(m: dict, cfg: dict, batches, routes, feeds, generator, d_generat
     g_opt = Adam([p for _, p in g_named], o["lr"], o["clip"])
     d_opt = Adam([p for _, p in d_named], o["lr"], o["clip"])
     acc = [torch.zeros_like(p) for _, p in d_named]
-    losses, first, tokens, own = [], {}, {}, {}
+    losses, first = [], {}
     for i, (x, labels) in enumerate(batches):
         x, labels = _half(x, labels, fault)
         step = {key: Routes(None if t is None else t[:, :x.shape[0]])
                 for key, t in routes[i].items()}
         feed = {key: t[:x.shape[0]] for key, t in feeds[i].items()}
-        total, tokens[i] = g_loss(m, cfg, x, labels, generator, step, feed)
+        total, _ = g_loss(m, cfg, x, labels, generator, step, feed)
         g_grads = g_opt.step(torch.autograd.grad(total, g_opt.params))
         dl = d_loss(m, cfg, x, labels, d_generator, step, feed)
         d_grads = torch.autograd.grad(dl, d_opt.params)
@@ -417,17 +415,15 @@ def first_steps(m: dict, cfg: dict, batches, routes, feeds, generator, d_generat
             acc = [torch.zeros_like(p) for p in acc]
             if i == 0 and sound:
                 first.update({f"disc.{k}": g for (k, _), g in zip(d_named, applied)})
-        if i == 0:
-            own = {key: r.own for key, r in step.items()}
-            if sound:
-                first.update({f"generator.{k}": g for (k, _), g in zip(g_named, g_grads)})
-                first = moving(first)
+        if i == 0 and sound:
+            first.update({f"generator.{k}": g for (k, _), g in zip(g_named, g_grads)})
+            first = moving(first)
         del g_grads, d_grads
         losses.append((float(total.detach()), float(dl.detach())))
     G.fault = None
     params = {f"generator.{k}": p.detach() for k, p in g_named}
     params.update({f"disc.{k}": p.detach() for k, p in d_named})
-    out = {"losses": losses, "params": params, "tokens": tokens, "own": own}
+    out = {"losses": losses, "params": params}
     if sound:
         out["keep"] = first
     return out
@@ -435,12 +431,31 @@ def first_steps(m: dict, cfg: dict, batches, routes, feeds, generator, d_generat
 
 @torch.no_grad()
 def path_logits(G: Lfm2MoeRef, x, labels, feed, state, table):
-    """The reference's logits (B, L, V) at each step of a step's
-    straight-through transfer along the program's path: fed the program's
-    tokens ``feed`` (B, L), taking that decode's selection ``table``, from
-    G's weights as they are (the program's as the step starts) and the
-    dropout draws of a generator in ``state``."""
+    """(The reference's logits (B, L, V) at each step of a step's
+    straight-through transfer along the program's path, its
+    :class:`Routes` there): fed the program's tokens ``feed`` (B, L),
+    taking that decode's selection ``table``, from G's weights as they are
+    and the dropout draws of a generator in ``state``."""
     generator = torch.Generator(x.device)
     generator.set_state(state)
     G.train()
-    return G.forced_st_logits(x, labels, 1 - labels, feed, generator, Routes(table))
+    routes = Routes(table)
+    return G.forced_st_logits(x, labels, 1 - labels, feed, generator, routes), routes
+
+
+def judge(G: Lfm2MoeRef, steps: dict, fault: str | None = None, fp8: bool = False) -> dict:
+    """G's transfers at the judged steps along the program's path, from
+    G's weights as they are (the seeded ones): ``steps`` {step: (x,
+    labels, the fed-back ids, the decode's selection table, the dropout
+    generator's state as the step starts)}. Returns {step: (logits (b, L,
+    V), own top-k (n_moe, b, 2L, k))}, b the rows the fault keeps."""
+    G.fault, G.fp8 = fault, fp8
+    out = {}
+    for i, (x, labels, feed, table, state) in steps.items():
+        x, labels = _half(x, labels, fault)
+        b = x.shape[0]
+        logits, routes = path_logits(G, x, labels, feed[:b], state, table[:, :b])
+        out[i] = (logits.clone(), routes.own)
+        del logits, routes
+    G.fault, G.fp8 = None, False
+    return out

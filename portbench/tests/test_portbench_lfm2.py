@@ -3,7 +3,8 @@ tiny width: the routed FLOP count against FlopCounterMode over the plain
 reference, the grouped products' roofline bound, the per-layer readers, a
 sound run correct with the control and the planted faults reading far
 above it, and the program with a planted fault (each token routed to its
-top 3 experts; a conv state handed one step late in decode) not correct.
+top 3 experts; a conv state handed one step late in decode; Adam's steps
+twice as long) not correct.
 """
 
 from __future__ import annotations
@@ -199,6 +200,23 @@ def test_a_conv_state_left_behind_in_decode_is_not_correct(checkout, sound, narr
     out = run_cell(checkout)
     assert not out["correct"], out["checks"]
     assert out["checks"]["token_gap"]["value"] > out["checks"]["token_gap"]["limit"]
+
+
+def test_a_wrong_update_is_not_correct(checkout, sound, narrow_port, monkeypatch):
+    """Every Adam step twice as long: the judged transfers start from the
+    seeded weights and read nothing of it, the change after the steps
+    does."""
+    from consistent__style_transfer_torch.train import state
+
+    real = state.AdamWithClip.__init__
+
+    def doubled(self, params, lr, clip, group=None):
+        real(self, params, 2 * lr, clip, group)
+
+    monkeypatch.setattr(state.AdamWithClip, "__init__", doubled)
+    out = run_cell(checkout)
+    assert not out["correct"], out["checks"]
+    assert out["checks"]["change_gap"]["value"] > out["checks"]["change_gap"]["limit"]
 
 
 def test_the_configuration_keeps_the_catalog_row():

@@ -6,13 +6,15 @@ This file imports no JAX, so it runs on a machine that has only PyTorch
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_lfm2_moe_cuda.py
 
-In float32 (the expert layer's dense path on the card) replays give the
-eager steps' bits: the losses, every parameter, the accumulator and the
-generators' states. In bfloat16 (sorted rows and ``torch._grouped_mm``)
-an eager step runs under ``torch.cuda.set_sync_debug_mode("error")``, so
-a host sync anywhere in it raises, and the captured step replays, adding
-its grouped products to ``grouped_swiglu.launches`` and its routed rows to
-each layer's ``load``.
+In bfloat16, the expert layer's one path on the card (sorted rows,
+``torch._grouped_mm``, the combine by the inverse permutation), replays
+give the eager steps' bits: the losses, G's parameters and Adam state, the
+generators' states, and D's parameters while D is not applied (D's bf16
+weight gradients differ in their last bits between the two). An eager step runs under
+``torch.cuda.set_sync_debug_mode("error")``, so a host sync anywhere in it
+raises, and the captured step replays, adding its grouped products to
+``grouped_swiglu.launches`` and its routed rows to each layer's ``load``.
+In float32 the expert layer raises on the card.
 """
 
 from types import SimpleNamespace
@@ -30,6 +32,7 @@ from consistent__style_transfer_torch.models import (  # noqa: E402
     TextCNN,
     TransformerLM,
 )
+from consistent__style_transfer_torch.models.lfm2_moe import Cast  # noqa: E402
 from consistent__style_transfer_torch.models.moe import SparseMoE, grouped_swiglu  # noqa: E402
 from consistent__style_transfer_torch.train.optimize import (  # noqa: E402
     GraphedFusedStep,
@@ -81,19 +84,31 @@ def _batches(device, n):
             for _ in range(n)]
 
 
-def test_float32_replays_equal_eager_steps_bit_for_bit(cuda_device):
+@pytest.mark.parametrize("apply", [(False,) * STEPS, (True,)], ids=["d_held", "d_apply"])
+def test_bfloat16_replays_equal_eager_steps_bit_for_bit(cuda_device, apply):
     """Both branches captured first; then the parameters, both Adam states,
-    the accumulator and the generators' states are saved, and 6 eager steps
-    and 6 replays each start from them (D every 4th), dropout on."""
-    models, steps, opts, acc, gens = _setup(cuda_device, "float32")
+    the accumulator and the generators' states are saved, and the eager
+    steps and the replays each start from them, dropout on: 6 steps of the
+    D-held branch, or one of the D-apply branch. Held bit for bit: the
+    losses, G's parameters and Adam state, the generators' states, and D's
+    parameters where D is not applied. Not held: D's weight-gradient sum,
+    whose bf16 backward differs in its last bits between an eager step and
+    a replay (eager steps repeat it bit for bit), and so D after an apply;
+    G's steps, which go through D's forward and its input gradient, do
+    not read it."""
+    models, steps, opts, acc, gens = _setup(cuda_device, "bfloat16")
     scale = torch.ones((), device=cuda_device)
     runner = GraphedFusedStep(steps.fused_step, acc, *gens, scale)
-    batches = _batches(cuda_device, STEPS + 2)
+    batches = _batches(cuda_device, len(apply) + 2)
     runner(batches[0], True)
     runner(batches[1], False)
-    params = [p for m in (models.generator, models.disc) for p in m.parameters()]
-    state = params + acc + [t for o in opts for st in o.adam.state.values()
-                            for t in st.values() if isinstance(t, torch.Tensor)]
+    g_params = list(models.generator.parameters())
+    d_params = list(models.disc.parameters())
+    g_adam = [t for st in opts[0].adam.state.values() for t in st.values()
+              if isinstance(t, torch.Tensor)]
+    held = g_params + g_adam + ([] if any(apply) else d_params)
+    state = g_params + d_params + acc + [t for o in opts for st in o.adam.state.values()
+                                         for t in st.values() if isinstance(t, torch.Tensor)]
     torch.cuda.synchronize()
     saved = [t.detach().clone() for t in state]
     saved_gens = [g.get_state() for g in gens]
@@ -105,18 +120,18 @@ def test_float32_replays_equal_eager_steps_bit_for_bit(cuda_device):
         for g, s in zip(gens, saved_gens):
             g.set_state(s)
         losses = []
-        for i, b in enumerate(batches[2:]):
-            aux, d_loss = (runner(b, i % 4 == 0) if graphed
-                           else steps.fused_step(b, acc, i % 4 == 0, *gens, scale))
+        for do_apply, b in zip(apply, batches[2:]):
+            aux, d_loss = (runner(b, do_apply) if graphed
+                           else steps.fused_step(b, acc, do_apply, *gens, scale))
             losses.append(torch.stack([aux["loss"], aux["BK"], d_loss]).clone())
         torch.cuda.synchronize()
-        return (torch.stack(losses), [t.detach().clone() for t in state],
+        return (torch.stack(losses), [t.detach().clone() for t in held],
                 [g.get_state() for g in gens])
 
     l0, s0, g0 = run(False)
     l1, s1, g1 = run(True)
     assert torch.isfinite(l0).all()
-    assert any(not torch.equal(a, b) for a, b in zip(s0[:len(params)], saved))
+    assert any(not torch.equal(a, b) for a, b in zip(s0[:len(g_params)], saved))
     assert torch.equal(l1, l0), float((l1 - l0).abs().max())
     gaps = [float((a - b).abs().max()) for a, b in zip(s1, s0) if not torch.equal(a, b)]
     assert not gaps, f"{len(gaps)} of {len(s0)} tensors differ, by up to {max(gaps):.3g}"
@@ -148,3 +163,12 @@ def test_bfloat16_step_makes_no_host_sync_and_replays(cuda_device):
     # rows a step: 3 MoE layers, top 4, over the G decode (2L positions), the
     # back-translation pass (2L) and D's decode (2L)
     assert [int(m.load.sum()) for m in moes] == [3 * 2 * L * B * 4] * len(moes)
+
+
+def test_float32_expert_layer_raises_on_the_card(cuda_device):
+    moe = SparseMoE(G_SIZE["d_model"], G_SIZE["d_expert"], G_SIZE["n_experts"],
+                    G_SIZE["top_k"]).to(cuda_device)
+    moe.reset_parameters_from(torch.Generator(cuda_device).manual_seed(0))
+    x = torch.randn(5, G_SIZE["d_model"], device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        moe(x, Cast(torch.float32))
