@@ -19,7 +19,10 @@ so its ``.pth`` checkpoints and those of the JAX package's ``save_pth`` load
 with ``load_state_dict(strict=True)``. For serving the module runs in its
 parameter dtype (``.to(torch.bfloat16)``, what flax's ``dtype=bf16`` does);
 the training stages keep float32 parameters and run it under
-``torch.autocast``.
+``torch.autocast``. There a call casts each weight that a product reads
+once (:meth:`DenoiseSeq2Seq.one_cast`, ``models/weight_cast.py``), not once
+a timestep: the products take the values autocast gives them, and each
+weight's gradient is one float32 product over a pass's stacked steps.
 
 Decode modes (reference ``rnn.py:82-96``):
 - ``mode="greedy"``: token ids (B, max_len) int32. With ``rep_penalty == 0``
@@ -54,6 +57,8 @@ are always batch-major.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -63,6 +68,7 @@ from ..kernels.lstm_cell import lstm_cell
 from ..ops.sampling import hard_sample_st
 from . import initializers as init
 from .transformer import dropout
+from .weight_cast import Uses, WeightCast
 
 D_EMBED = 128
 D_ENC = 256
@@ -104,18 +110,30 @@ class LSTM(nn.Module):
             for name in ("bias_ih", "bias_hh"):
                 self.register_parameter(f"{name}_l0{sfx}", nn.Parameter(torch.empty(4 * hidden)))
 
-    def cell(self, x, h, c, reverse: bool = False):
-        """(x (B, in), h, c (B, hidden)) -> (h, c) after one step."""
+    def weights(self, reverse: bool = False) -> tuple:
+        """(W_ih, b_ih, W_hh, b_hh) of one direction."""
         sfx = "_reverse" if reverse else ""
-        a = F.linear(x, getattr(self, f"weight_ih_l0{sfx}"), getattr(self, f"bias_ih_l0{sfx}"))
-        b = F.linear(h, getattr(self, f"weight_hh_l0{sfx}"), getattr(self, f"bias_hh_l0{sfx}"))
-        return lstm_cell(a, b, c)
+        return tuple(getattr(self, f"{n}_l0{sfx}")
+                     for n in ("weight_ih", "bias_ih", "weight_hh", "bias_hh"))
 
-    def scan(self, xs, h, c, reverse: bool = False):
+    def uses(self, reverse: bool = False, cast: WeightCast | None = None) -> tuple:
+        """The input and the recurrent product of one direction for one pass
+        (:class:`~.weight_cast.Uses`, reading ``cast``'s copies if given)."""
+        w_ih, b_ih, w_hh, b_hh = self.weights(reverse)
+        return Uses(w_ih, b_ih, cast=cast), Uses(w_hh, b_hh, cast=cast)
+
+    def cell(self, x, h, c, reverse: bool = False, uses: tuple | None = None):
+        """(x (B, in), h, c (B, hidden)) -> (h, c) after one step; ``uses``
+        the pass's products (:meth:`uses`), else the weights themselves."""
+        ih, hh = uses or self.uses(reverse)
+        return lstm_cell(ih(x), hh(h), c)
+
+    def scan(self, xs, h, c, reverse: bool = False, cast: WeightCast | None = None):
         """xs (B, L, in), read from t=0 on -> (outputs (B, L, hidden), (h, c))."""
+        uses = self.uses(reverse, cast)
         outs = []
         for t in range(xs.shape[1]):
-            h, c = self.cell(xs[:, t], h, c, reverse)
+            h, c = self.cell(xs[:, t], h, c, reverse, uses)
             outs.append(h)
         return torch.stack(outs, dim=1), (h, c)
 
@@ -137,6 +155,7 @@ class DenoiseSeq2Seq(nn.Module):
         self.transfer = nn.Linear(2 * D_ENC, D_DEC, bias=False)
         self.fn_1 = nn.Linear(D_DEC + 2 * D_ENC, D_DEC)
         self.fn_2 = nn.Linear(D_DEC, n_vocab, bias=False)
+        self._cast: WeightCast | None = None
         self.reset_parameters(torch.Generator().manual_seed(seed))
 
     @torch.no_grad()
@@ -154,6 +173,37 @@ class DenoiseSeq2Seq(nn.Module):
         init.linear_bias_(self.fn_1.bias, self.fn_1.in_features, generator)
         init.linear_kernel_(self.fn_2.weight, generator)
 
+    def product_weights(self) -> list[nn.Parameter]:
+        """The 17 weights and biases that products read: both encoder
+        directions, the decoder, ``transfer``, ``fn_1``, ``fn_2`` and the
+        token table (the soft input's and the st/gumbel feedback's product)."""
+        return [*self.encoder.weights(), *self.encoder.weights(reverse=True),
+                *self.decoder.weights(), self.transfer.weight, self.fn_1.weight,
+                self.fn_1.bias, self.fn_2.weight, self.token_embedding.weight]
+
+    @contextlib.contextmanager
+    def one_cast(self):
+        """The calls inside share one cast of :meth:`product_weights` to the
+        caller's autocast dtype (:class:`~.weight_cast.WeightCast`, counted
+        as ``generator.weight_casts``), made here, so a CUDA graph that
+        captures the scope recasts the updated masters at each replay; each
+        weight's gradient is summed in float32. Engages only under autocast
+        in a dtype other than the parameters' (the training stages); else
+        the products read the weights themselves. The weights must not
+        change inside."""
+        table = self.token_embedding.weight
+        kind, outer = table.device.type, self._cast
+        if torch.is_autocast_enabled(kind) and torch.get_autocast_dtype(kind) != table.dtype:
+            self._cast = WeightCast(self.product_weights(), torch.get_autocast_dtype(kind),
+                                    "generator.weight_casts")
+        try:
+            yield
+        finally:
+            self._cast = outer
+
+    def _uses(self, weight, bias=None, transposed: bool = False) -> Uses:
+        return Uses(weight, bias, transposed, self._cast)
+
     def _drop(self, t, generator):
         return dropout(t, self.p_drop, self.training, generator)
 
@@ -162,14 +212,14 @@ class DenoiseSeq2Seq(nn.Module):
         [c_fwd; c_bwd] (B, 2*D_ENC))."""
         if torch.is_floating_point(inp):
             table = self.token_embedding.weight
-            e = hard_sample_st(inp.to(table.dtype)) @ table
+            e = self._uses(table, transposed=True)(hard_sample_st(inp.to(table.dtype)))
         else:
             e = self._drop(self.token_embedding(inp.long()), generator)
         h0_f, h0_b = self.enc_style_embedding(label_i).chunk(2, dim=-1)
         c0 = torch.zeros_like(h0_f)
-        mem_f, (_, c_f) = self.encoder.scan(e, h0_f, c0)
+        mem_f, (_, c_f) = self.encoder.scan(e, h0_f, c0, cast=self._cast)
         # full-length flip of the padded sequence, as the JAX package does
-        mem_b, (_, c_b) = self.encoder.scan(e.flip(1), h0_b, c0, reverse=True)
+        mem_b, (_, c_b) = self.encoder.scan(e.flip(1), h0_b, c0, reverse=True, cast=self._cast)
         memory = torch.cat([mem_f, mem_b.flip(1)], dim=-1)
         return memory, torch.cat([c_f, c_b], dim=-1)
 
@@ -180,24 +230,31 @@ class DenoiseSeq2Seq(nn.Module):
         package takes it, made on the device (no host copy, so a CUDA graph
         can capture it)."""
         h = self.style_embedding(label)
-        c = F.leaky_relu(self.transfer(c_end), 0.1)
+        c = F.leaky_relu(self._uses(self.transfer.weight)(c_end), 0.1)
         x_t = self.start_embedding(torch.zeros(memory.shape[0], dtype=torch.long,
                                                device=memory.device))
         scale = torch.full((), memory.shape[-1], dtype=memory.dtype, device=memory.device).sqrt()
         return h, c, x_t, scale
 
-    def decoder_step(self, x_t, h, c, memory, scale):
-        """One decoder step before the head: the LSTM cell, then attention
-        of its output over every memory position (PADs included, no mask).
+    def decoder_step(self, x_t, h, c, memory, scale, uses: tuple | None = None):
+        """One decoder step before the head: the LSTM cell (through the
+        pass's ``uses``, ``decoder.uses``, if given), then attention of its
+        output over every memory position (PADs included, no mask).
         Returns (h, c, the FFN input [h; a_t]) without dropout."""
-        h, c = self.decoder.cell(x_t, h, c)
+        h, c = self.decoder.cell(x_t, h, c, uses=uses)
         scores = torch.bmm(memory, h.unsqueeze(-1)).squeeze(-1) / scale
         a_t = torch.bmm(scores.softmax(dim=-1).unsqueeze(1), memory).squeeze(1)
         return h, c, torch.cat([h, a_t], dim=-1)
 
-    def head(self, i_ffn):
-        """The unfused FFN head: vocab logits fn_2(LeakyReLU_0.1(fn_1(i_ffn)))."""
-        return self.fn_2(F.leaky_relu(self.fn_1(i_ffn), 0.1))
+    def head_uses(self) -> tuple[Uses, Uses]:
+        """``fn_1``'s and ``fn_2``'s products for one pass."""
+        return self._uses(self.fn_1.weight, self.fn_1.bias), self._uses(self.fn_2.weight)
+
+    def head(self, i_ffn, uses: tuple | None = None):
+        """The unfused FFN head: vocab logits fn_2(LeakyReLU_0.1(fn_1(i_ffn))),
+        through the pass's ``uses`` (:meth:`head_uses`) if given."""
+        fn_1, fn_2 = uses or self.head_uses()
+        return fn_2(F.leaky_relu(fn_1(i_ffn), 0.1))
 
     def forward(self, inp, label_i, x, label, mode: str = "sched", tau: float = 1.0,
                 time_major_out: bool = False, generator: torch.Generator | None = None,
@@ -212,11 +269,22 @@ class DenoiseSeq2Seq(nn.Module):
         ``generator`` draws the dropout masks (training mode), the Gumbel
         noise unless ``noise`` ((L, B, V), one draw a step) is given and, in
         ``sched`` mode with a teacher, the coins unless ``coins`` ((L,) bool,
-        one a step) is given."""
+        one a step) is given.
+
+        A call other than ``greedy`` opens :meth:`one_cast` when none is
+        open, so it casts the weights once."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if mode == "teacher" and x is None:
             raise ValueError("mode 'teacher' needs a teacher x")
+        scope = (self.one_cast() if self._cast is None and mode != "greedy"
+                 else contextlib.nullcontext())
+        with scope:
+            return self._decode(inp, label_i, x, label, mode, tau, time_major_out, generator,
+                                coins, noise)
+
+    def _decode(self, inp, label_i, x, label, mode, tau, time_major_out, generator, coins,
+                noise):
         label_i, label = label_i.long(), label.long()
         memory, c_end = self.encode(inp, label_i, generator)
         B, device = memory.shape[0], memory.device
@@ -234,23 +302,26 @@ class DenoiseSeq2Seq(nn.Module):
         if greedy and self.rep_penalty > 0:
             counts = memory.new_zeros(B, self.n_vocab)
             rows = torch.arange(B, device=device)
+        # each weight's products of this decode, one a step
+        dec, head = self.decoder.uses(cast=self._cast), self.head_uses()
+        feedback = self._uses(table, transposed=True) if mode in ("st", "gumbel") else None
         outs = []
         for t in range(L_out):
-            h, c, i_ffn = self.decoder_step(x_t, h, c, memory, scale)
+            h, c, i_ffn = self.decoder_step(x_t, h, c, memory, scale, dec)
             i_ffn = self._drop(i_ffn, generator)
             if greedy and counts is None:
                 out_t, _ = fused_decode_logits(i_ffn, self.fn_1.weight, self.fn_1.bias,
                                                self.fn_2.weight)
                 x_next = self.token_embedding(out_t)
             else:
-                logits_t = self.head(i_ffn)
+                logits_t = self.head(i_ffn, head)
                 if mode in ("st", "gumbel"):
                     if mode == "gumbel":
                         g = (gumbel_noise(logits_t.shape, generator, device) if noise is None
                              else noise[t])
                         logits_t = logits_t + g.to(logits_t.dtype)
                     out_t = torch.softmax(logits_t / tau, dim=-1)
-                    x_next = hard_sample_st(out_t) @ table
+                    x_next = feedback(hard_sample_st(out_t))
                 elif greedy:
                     # the penalty acts before the argmax, so the fused head
                     # cannot carry it

@@ -147,8 +147,9 @@ def autocast(device: torch.device, dtype: torch.dtype):
 
 
 def one_weight_cast(model):
-    """The generator's ``one_cast()`` scope where it has one (LFM2-8B-A1B:
-    the calls inside share one cast of its weights), else nothing."""
+    """The generator's ``one_cast()`` scope where it has one (the LSTM and
+    LFM2-8B-A1B: the calls inside share one cast of its weights), else
+    nothing."""
     return model.one_cast() if hasattr(model, "one_cast") else contextlib.nullcontext()
 
 

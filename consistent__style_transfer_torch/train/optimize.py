@@ -295,7 +295,7 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
         """(D's gradients, loss) on a fresh fake decode of the current G, in
         train mode under no_grad (``main_optimize.py:118-119``)."""
         G.train()
-        with torch.no_grad(), autocast(batch["x"].device, dtype):
+        with torch.no_grad(), autocast(batch["x"].device, dtype), one_weight_cast(G):
             fake_p = st_decode(batch, d_generator, tm)
         return d_grads_reuse(fake_p, batch, d_generator)
 
@@ -319,7 +319,8 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
         rows = batch.get("row_mask")
         x, labels = batch["x"], batch["labels"]
         with autocast(x.device, dtype):
-            tokens = st_decode(batch, None, False).argmax(dim=-1)
+            with one_weight_cast(G):
+                tokens = st_decode(batch, None, False).argmax(dim=-1)
             s_loss = cross_entropy(CLS(tokens), 1 - labels, mask=rows)
             nt_loss = softmax_cross_entropy_tokens(NT(tokens), tokens, row_mask=rows)
             c_logits = MAT(tokens, x)
