@@ -354,6 +354,24 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def launched(kernel: str) -> float:
+    """The launches of the port's kernel wrapper ``kernel``
+    (``fused_decode_logits``, ``sinkhorn_cuda``, ``lstm_cell_fwd``, ...) since
+    its :func:`zero_launches`, replays included: its ``kernel.<name>`` total
+    (``utils/profiling.py::count_step``)."""
+    from consistent__style_transfer_torch.utils import profiling
+
+    return profiling.total(f"kernel.{kernel}")
+
+
+def zero_launches(*kernels: str) -> None:
+    """Zero the launch totals of the kernel wrappers ``kernels``."""
+    from consistent__style_transfer_torch.utils import profiling
+
+    for kernel in kernels:
+        profiling.RECORDER.totals[f"kernel.{kernel}"] = 0
+
+
 def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     """Mean device time of fn() over back-to-back calls (CUDA events)."""
     import torch
@@ -976,9 +994,7 @@ LSTM_LAUNCHES: dict[str, dict] = {}
 
 def zero_lstm_launches() -> None:
     """Zero the fused LSTM cell's launch counters (forward and backward)."""
-    from consistent__style_transfer_torch.kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
-
-    lstm_cell_fwd.launches = lstm_cell_bwd.launches = 0
+    zero_launches("lstm_cell_fwd", "lstm_cell_bwd")
 
 
 def lstm_launches(what: str, fwd: int | None, bwd: int | None = 0, counts=None,
@@ -988,10 +1004,8 @@ def lstm_launches(what: str, fwd: int | None, bwd: int | None = 0, counts=None,
     read elsewhere: each equal to ``fwd`` / ``bwd`` where that is a number,
     above 0 where it is None; kept in LSTM_LAUNCHES under ``what`` unless
     ``keep`` is false (a total of paths kept under their own names)."""
-    from consistent__style_transfer_torch.kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
-
     if counts is None:
-        counts = (lstm_cell_fwd.launches, lstm_cell_bwd.launches)
+        counts = (launched("lstm_cell_fwd"), launched("lstm_cell_bwd"))
     got = {"forward": counts[0], "backward": counts[1]}
     for (name, n), want in zip(got.items(), (fwd, bwd)):
         check(n > 0 if want is None else n == want,
@@ -1028,23 +1042,19 @@ def launches_inside(module, names: tuple):
     (``run`` calls ``train/optimize.py``'s ``run_optimize`` and then
     ``run_test``): a dict {name: {"head": n, "sinkhorn": n, "lstm_fwd": n,
     "lstm_bwd": n}}, filled as the calls return."""
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
-
-    counters = {"head": fused_decode_logits, "sinkhorn": sinkhorn_cuda, "lstm_fwd": lstm_cell_fwd,
-                "lstm_bwd": lstm_cell_bwd}
+    counters = {"head": "fused_decode_logits", "sinkhorn": "sinkhorn_cuda",
+                "lstm_fwd": "lstm_cell_fwd", "lstm_bwd": "lstm_cell_bwd"}
     seen = {n: dict.fromkeys(counters, 0) for n in names}
     real = {n: getattr(module, n) for n in names}
 
     def counted(name):
         def call(*args, **kw):
-            before = {c: k.launches for c, k in counters.items()}
+            before = {c: launched(k) for c, k in counters.items()}
             try:
                 return real[name](*args, **kw)
             finally:
                 for c, k in counters.items():
-                    seen[name][c] += k.launches - before[c]
+                    seen[name][c] += launched(k) - before[c]
         return call
 
     for n in names:
@@ -1206,8 +1216,6 @@ def phase_serve_and_infer(work: str) -> dict:
 
     from consistent__style_transfer_torch.config import make_config
     from consistent__style_transfer_torch.data.noise import align
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
     from consistent__style_transfer_torch.train.common import build_generator, get_tokenizer
     from consistent__style_transfer_torch.train.infer import make_transfer_step, transfer_split
@@ -1233,33 +1241,31 @@ def phase_serve_and_infer(work: str) -> dict:
     serve_batches = -(-len(requests) // cfg.batch_size)
 
     shape = (cfg.batch_size, cfg.max_len)
-    fused_decode_logits.launches = 0
-    sinkhorn_cuda.launches = 0
+    zero_launches("fused_decode_logits", "sinkhorn_cuda")
     zero_lstm_launches()
     t0 = time.perf_counter()
     with watch_graphs() as made:
         served = run_cli(["serve", *flags], "\n".join(requests) + "\n")
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    serve_launches = fused_decode_logits.launches
+    serve_launches = launched("fused_decode_logits")
     serve_cells = lstm_launches("serve", greedy_cells(serve_launches))
     serve_graphs = check_replayed(made, [shape], serve_batches, "serve")
-    check(sinkhorn_cuda.launches == 0, "serve launched the Sinkhorn")
+    check(launched("sinkhorn_cuda") == 0, "serve launched the Sinkhorn")
     check(len(served) == len(requests), f"serve printed {len(served)} lines for {len(requests)}")
     check(serve_launches == cfg.max_len * serve_batches,
           f"serve: {serve_launches} kernel launches, want {cfg.max_len} x {serve_batches}")
 
-    fused_decode_logits.launches = 0
-    sinkhorn_cuda.launches = 0
+    zero_launches("fused_decode_logits", "sinkhorn_cuda")
     zero_lstm_launches()
     t0 = time.perf_counter()
     with watch_graphs() as made:
         run_cli(["infer", *flags])
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
-    infer_launches = fused_decode_logits.launches
+    infer_launches = launched("fused_decode_logits")
     infer_cells = lstm_launches("infer", greedy_cells(infer_launches))
-    check(sinkhorn_cuda.launches == 0, "infer launched the Sinkhorn")
+    check(launched("sinkhorn_cuda") == 0, "infer launched the Sinkhorn")
     infer_batches, n_infer = 0, 0
     for split in ("train", "test"):
         n_split = 0
@@ -1375,10 +1381,7 @@ def phase_full_width(card: str, head_graph_ms: float) -> dict:
     bf16 at most BF16_TOKEN_SHARE of the tokens differ."""
     import torch
 
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
-    from consistent__style_transfer_torch.train.common import generator_call
     from consistent__style_transfer_torch.train.infer import make_transfer_step
 
     g = torch.Generator().manual_seed(1)
@@ -1392,7 +1395,7 @@ def phase_full_width(card: str, head_graph_ms: float) -> dict:
 
         @torch.inference_mode()
         def eager(x, labels):
-            return generator_call(model, x, labels, None, 1 - labels, mode="greedy")
+            return model(x, labels, None, 1 - labels, mode="greedy")
 
         return make_transfer_step(model), eager
 
@@ -1418,16 +1421,15 @@ def phase_full_width(card: str, head_graph_ms: float) -> dict:
         for _ in range(3):
             step(x, labels)
         torch.cuda.synchronize()
-        fused_decode_logits.launches = 0
-        sinkhorn_cuda.launches = 0
+        zero_launches("fused_decode_logits", "sinkhorn_cuda")
         zero_lstm_launches()
         t0 = time.perf_counter()
         for _ in range(n):
             ids = step(x, labels)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / n
-        launches = fused_decode_logits.launches
-        check(sinkhorn_cuda.launches == 0, "serving launched the Sinkhorn")
+        launches = launched("fused_decode_logits")
+        check(launched("sinkhorn_cuda") == 0, "serving launched the Sinkhorn")
         check(launches == YELP_L * n, f"{name}: {launches} launches, want {YELP_L} x {n}")
         cells = lstm_launches(f"full_width_{name}", 3 * YELP_L * n)
         check(ids.shape == (YELP_B, YELP_L) and ids.dtype == torch.int32, "ids shape/dtype")
@@ -1672,8 +1674,6 @@ def phase_pretrain(work: str, card: str) -> dict:
     from consistent__style_transfer_torch.data.pipeline import make_batches
     from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
     from consistent__style_transfer_torch.data.wmd_labels import SinkhornWmdLabeler
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models import PairMatcher, TextCNN, TransformerLM
     from consistent__style_transfer_torch.train.common import (
         build_classifier,
@@ -1707,18 +1707,17 @@ def phase_pretrain(work: str, card: str) -> dict:
     n_train, n_dev = count_lines(cfg.train_files()), count_lines(cfg.split_files("dev"))
     labeled = n_train // B + -(-n_dev // B)  # train drops its last partial batch
 
-    sinkhorn_cuda.launches = 0
-    fused_decode_logits.launches = 0
+    zero_launches("sinkhorn_cuda", "fused_decode_logits")
     zero_lstm_launches()
     t0 = time.perf_counter()
     with watch_graphs() as made:
         run_cli(["pretrain", *flags, "--epochs", "1"])
     torch.cuda.synchronize()
     pretrain_s = time.perf_counter() - t0
-    launches = sinkhorn_cuda.launches
+    launches = launched("sinkhorn_cuda")
     check(launches == labeled,
           f"pretrain: {launches} Sinkhorn launches, want one per labeled batch = {labeled}")
-    check(fused_decode_logits.launches == 0, "pretrain launched the decode head")
+    check(launched("fused_decode_logits") == 0, "pretrain launched the decode head")
     lstm_launches("pretrain", 0)  # the scorers only: no LSTM
 
     for task, cls in (("cls", TextCNN), ("mat", PairMatcher), ("dn", TransformerLM)):
@@ -2035,11 +2034,9 @@ def optimize_steady(steps, acc: list, gens, d_every: int, stream, graphed: bool 
 
 def replayed_cells(runner, key) -> tuple[int, int]:
     """The fused LSTM cell's (forward, backward) launches that each replay
-    of ``runner``'s graph of ``key`` adds (the calls its capture made)."""
-    from consistent__style_transfer_torch.kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
-
-    n = dict(runner.replay_launches[key])
-    return n.get(lstm_cell_fwd, 0), n.get(lstm_cell_bwd, 0)
+    of ``runner``'s graph of ``key`` adds (the calls its capture kept)."""
+    n = dict(runner.replay_counts[key])
+    return n.get("kernel.lstm_cell_fwd", 0), n.get("kernel.lstm_cell_bwd", 0)
 
 
 def phase_training(work: str, card: str) -> dict:
@@ -2048,8 +2045,6 @@ def phase_training(work: str, card: str) -> dict:
     from consistent__style_transfer_torch.config import make_config
     from consistent__style_transfer_torch.data.pipeline import make_batches
     from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
     from consistent__style_transfer_torch.train.common import (
         build_generator,
@@ -2074,17 +2069,16 @@ def phase_training(work: str, card: str) -> dict:
     shutil.rmtree(task, ignore_errors=True)
 
     def launches_during(argv, made=None):
-        fused_decode_logits.launches = 0
-        sinkhorn_cuda.launches = 0
+        zero_launches("fused_decode_logits", "sinkhorn_cuda")
         zero_lstm_launches()
         t0 = time.perf_counter()
         with watch_graphs() as graphed:
             run_cli(argv)
         torch.cuda.synchronize()
-        check(sinkhorn_cuda.launches == 0, f"{argv[0]} launched the Sinkhorn")
+        check(launched("sinkhorn_cuda") == 0, f"{argv[0]} launched the Sinkhorn")
         if made is not None:
             made[:] = graphed
-        return fused_decode_logits.launches, time.perf_counter() - t0
+        return launched("fused_decode_logits"), time.perf_counter() - t0
 
     def load_strict(path):
         check(os.path.exists(path), f"missing {path}")
@@ -2181,7 +2175,7 @@ def phase_training(work: str, card: str) -> dict:
     models, steps, _, acc, gens = build_optimize(cfg, V, device)
     opt_steady = optimize_steady(steps, acc, gens, cfg.d_update_every,
                                  stream("optimize", cfg.batch_size), graphed=False, batches=20)
-    check(fused_decode_logits.launches == infer_launches and sinkhorn_cuda.launches == 0,
+    check(launched("fused_decode_logits") == infer_launches and launched("sinkhorn_cuda") == 0,
           "a training step launched a kernel")
     del models, steps, acc
 
@@ -2191,7 +2185,7 @@ def phase_training(work: str, card: str) -> dict:
     print(json.dumps({"training_validation_replay_vs_eager": val_replay}), flush=True)
     for v in val_replay.values():
         check_validation_equal(v)
-    check(fused_decode_logits.launches == infer_launches, "validation launched the decode head")
+    check(launched("fused_decode_logits") == infer_launches, "validation launched the decode head")
     steady_cells = lstm_launches("training_steady_and_validation", None, None)
 
     def rates(epoch, steady, batch_size):
@@ -2461,8 +2455,6 @@ def phase_eval(work: str, card: str) -> dict:
     from consistent__style_transfer_torch.evaluate.run_eval import run_eval
     from consistent__style_transfer_torch.text.native import default_threads
     from consistent__style_transfer_torch.utils.io import read_lines
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.text.fasttext_cls import GRAPH_CHUNK, FastTextClassifier
 
     t_phase = time.perf_counter()
@@ -2476,15 +2468,14 @@ def phase_eval(work: str, card: str) -> dict:
               for s in ("train", "test") for k in (0, 1)), "phase 6's .tsf files are missing")
 
     def cli_run(argv):
-        fused_decode_logits.launches = 0
-        sinkhorn_cuda.launches = 0
+        zero_launches("fused_decode_logits", "sinkhorn_cuda")
         zero_lstm_launches()
         t0 = time.perf_counter()
         with watch_graphs() as made:
             lines = run_cli(argv)
         torch.cuda.synchronize()
-        return (lines, time.perf_counter() - t0, fused_decode_logits.launches,
-                sinkhorn_cuda.launches, made)
+        return (lines, time.perf_counter() - t0, launched("fused_decode_logits"),
+                launched("sinkhorn_cuda"), made)
 
     # 1. eval-prepare: the classifier fit on the card (its epochs as CUDA
     # graphs), the lexicon, the masked word2vec and v0's adversarial LR
@@ -2684,13 +2675,10 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     from consistent__style_transfer_torch.config import make_config
     from consistent__style_transfer_torch.data.pipeline import make_batches
     from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.train.checkpoint import StateCheckpointer
     from consistent__style_transfer_torch.train.common import get_corpus, get_tokenizer
     from consistent__style_transfer_torch.train.optimize import GraphedFusedStep
     from consistent__style_transfer_torch.train.state import newest_checkpoint
-    from consistent__style_transfer_torch.utils.profiling import StepTimer
 
     t_phase = time.perf_counter()
     dirs = dict(data_dir=os.path.join(ROOT, "data"), dump_dir=os.path.join(work, "dump"),
@@ -2824,8 +2812,7 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = True
 
     # 2. one epoch through the CLI with megastep_k=8, writing the full state
-    fused_decode_logits.launches = 0
-    sinkhorn_cuda.launches = 0
+    zero_launches("fused_decode_logits", "sinkhorn_cuda")
     zero_lstm_launches()
     t0 = time.perf_counter()
     with watch_graphs() as made:
@@ -2833,7 +2820,7 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
                  "--resume", "1"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    check(fused_decode_logits.launches == 0 and sinkhorn_cuda.launches == 0,
+    check(launched("fused_decode_logits") == 0 and launched("sinkhorn_cuda") == 0,
           "the graphed optimize launched a kernel of the port")
     events = read_events(cfg, f"optimize-{ver}")
     losses = check_finite_losses(events, ("G", "STI", "CP", "BK", "D", "loss", "val_loss"),
@@ -2860,11 +2847,12 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     runner = GraphedFusedStep(steps.fused_step, acc, *gens, torch.ones((), device=device))
     state = {"i": 0}
     batches = stream()
-    timer = StepTimer()
+    enqueue_s = []  # host seconds of each runner call
 
     def step():
-        with timer:
-            out = runner(next(batches)[1], state["i"] % cfg.d_update_every == 0)
+        t0 = time.perf_counter()
+        out = runner(next(batches)[1], state["i"] % cfg.d_update_every == 0)
+        enqueue_s.append(time.perf_counter() - t0)
         state["i"] += 1
         return out
 
@@ -2884,20 +2872,23 @@ def phase_megastep(work: str, card: str, eager_steady: dict) -> dict:
     graphed["lstm_cell_launches_per_replay"] = {
         str(k): lstm_launches(f"optimize_megastep_graph_{k}", *fused_step_cells(cfg),
                               counts=replayed_cells(runner, k)) for k in runner.graphs}
-    graphed["enqueue_ms_per_step"] = {k: v for k, v in timer.summary().items() if k != "steps"}
+    ts = sorted(enqueue_s)
+    graphed["enqueue_ms_per_step"] = {"p50_ms": ts[len(ts) // 2] * 1e3,
+                                      "p95_ms": ts[min(int(len(ts) * 0.95), len(ts) - 1)] * 1e3,
+                                      "mean_ms": sum(ts) / len(ts) * 1e3}
     del models, steps, acc, runner
     check(graphed["ms_per_step_steady"] > 0, "no graphed step time")
 
     # 3. infer from the G the run keeps
     best = newest_checkpoint(os.path.join(cfg.ds_dump_dir, f"optimize-{ver}"))
     check(best is not None and os.path.basename(best).startswith("G_epoch_"), f"best G {best}")
-    fused_decode_logits.launches = 0
+    zero_launches("fused_decode_logits")
     zero_lstm_launches()
     t0 = time.perf_counter()
     run_cli(["infer", *flags])
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
-    infer_launches = fused_decode_logits.launches
+    infer_launches = launched("fused_decode_logits")
     infer_batches = sum(-(-count_lines(cfg.split_files(s)) // B) for s in ("train", "test"))
     check(infer_launches == L * infer_batches > 0,
           f"infer after megastep: {infer_launches} decode-head launches, want {L} x {infer_batches}")
@@ -2988,14 +2979,11 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     from consistent__style_transfer_torch.data.noise import align
     from consistent__style_transfer_torch.data.pipeline import make_batches
     from consistent__style_transfer_torch.data.prefetch import DevicePrefetcher
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models.beam import beam_decode_any
     from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
     from consistent__style_transfer_torch.models.seq2seq_transformer import TransformerSeq2Seq
     from consistent__style_transfer_torch.train.common import (
         build_generator,
-        generator_call,
         get_corpus,
         get_tokenizer,
     )
@@ -3014,17 +3002,16 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
     result = {"card": card, "beam_size": K, "length_penalty": 0.6}
 
     def zero_counts():
-        fused_decode_logits.launches = 0
-        sinkhorn_cuda.launches = 0
+        zero_launches("fused_decode_logits", "sinkhorn_cuda")
         zero_lstm_launches()
 
     def no_kernel(what, cells=0):
         """Neither the decode head nor the Sinkhorn launched since
         zero_counts, and the fused LSTM cell ``cells`` times forward, never
         backward."""
-        check(fused_decode_logits.launches == 0, f"{what} launched the decode head "
-              f"{fused_decode_logits.launches} times")
-        check(sinkhorn_cuda.launches == 0, f"{what} launched the Sinkhorn")
+        check(launched("fused_decode_logits") == 0, f"{what} launched the decode head "
+              f"{launched('fused_decode_logits')} times")
+        check(launched("sinkhorn_cuda") == 0, f"{what} launched the Sinkhorn")
         lstm_launches(what, cells)
 
     def batch_rate(step, x, labels, n, what, cells):
@@ -3037,7 +3024,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
             ids = step(x, labels)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / n
-        launches = fused_decode_logits.launches
+        launches = launched("fused_decode_logits")
         lstm = lstm_launches(what, cells)
         prof = profile_breakdown(lambda: step(x, labels), batches=1)
         device_ms = prof.get("device_ms_per_batch")
@@ -3238,7 +3225,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
 
     @torch.inference_mode()
     def eager_greedy(x, labels):
-        return generator_call(model, x, labels, None, 1 - labels, mode="greedy")
+        return model(x, labels, None, 1 - labels, mode="greedy")
 
     _, _, tf_greedy = batch_rate(graphed_greedy, bx, bl, 5, "transformer_greedy", 0)
     tf_greedy["graph_nodes"] = graph_nodes(graphed_greedy.runner.graphs[tuple(bx.shape)])
@@ -3253,7 +3240,7 @@ def phase_beam_and_transformer(work: str, card: str, greedy_full: dict) -> dict:
         lambda x, labels: beam_decode_any(model, x, labels, 1 - labels, beam_size=K)[0],
         bx, bl, 1, "transformer_beam_eager", 0)
     tf_beam_replay = beam_graphed_vs_eager(model, bx, bl, K)
-    check(fused_decode_logits.launches == 0, "the transformer launched the decode head")
+    check(launched("fused_decode_logits") == 0, "the transformer launched the decode head")
     enc = [tokenizer.encode(r.split("\t", 1)[1])[:L] for r in requests[::125]]
     xs, _ = align(enc, 0, L)
     xs = torch.from_numpy(xs)
@@ -3619,11 +3606,12 @@ def phase_launcher(work: str, card: str) -> dict:
                    if line.startswith('{"kernel_launches"')]
         check(len(reports) == 1 and reports[0]["rank"] == 0 and reports[0]["command"] == command,
               f"launcher {command}: kernel reports {reports}")
+        n = {k: reports[0].get(f"kernel.{k}", 0) for k in (
+            "fused_decode_logits", "sinkhorn_cuda", "lstm_cell_fwd", "lstm_cell_bwd")}
         runs[command] = {"wall_s": wall, "command_s": reports[0]["seconds"],
-                         "decode_head_launches": reports[0]["fused_decode_logits"],
-                         "sinkhorn_launches": reports[0]["sinkhorn"],
-                         "lstm_cell_launches": (reports[0]["lstm_cell_fwd"],
-                                                reports[0]["lstm_cell_bwd"])}
+                         "decode_head_launches": n["fused_decode_logits"],
+                         "sinkhorn_launches": n["sinkhorn_cuda"],
+                         "lstm_cell_launches": (n["lstm_cell_fwd"], n["lstm_cell_bwd"])}
         log(f"phase 10: launcher {command} in {wall:.1f} s")
     labeled = n_train // B + -(-n_dev // B)
     r = runs["pretrain"]
@@ -3722,8 +3710,6 @@ def phase_full_run(work: str, card: str) -> dict:
     from consistent__style_transfer_torch.config import make_config
     from consistent__style_transfer_torch.evaluate.prepare import eval_paths
     from consistent__style_transfer_torch.evaluate.run_eval import run_eval
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.train import optimize as optimize_stage
     from consistent__style_transfer_torch.train.common import get_tokenizer
 
@@ -3746,8 +3732,7 @@ def phase_full_run(work: str, card: str) -> dict:
     dev_batches = -(-n_dev // B)
 
     def stage(argv):
-        fused_decode_logits.launches = 0
-        sinkhorn_cuda.launches = 0
+        zero_launches("fused_decode_logits", "sinkhorn_cuda")
         zero_lstm_launches()
         t0 = time.perf_counter()
         with watch_graphs() as made:
@@ -3755,7 +3740,7 @@ def phase_full_run(work: str, card: str) -> dict:
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
         log(f"phase 11: {argv[0]} in {s:.1f} s")
-        return lines, s, made, fused_decode_logits.launches, sinkhorn_cuda.launches
+        return lines, s, made, launched("fused_decode_logits"), launched("sinkhorn_cuda")
 
     def epochs_of(events):
         return [e for e in events if "train_steps" in e]
@@ -3960,8 +3945,6 @@ def phase_book(work: str, card: str) -> dict:
     from consistent__style_transfer_torch.data.wmd_labels import SinkhornWmdLabeler
     from consistent__style_transfer_torch.evaluate.prepare import eval_paths
     from consistent__style_transfer_torch.evaluate.run_eval import run_eval
-    from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits
-    from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda
     from consistent__style_transfer_torch.models import PairMatcher, TextCNN, TransformerLM
     from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq
     from consistent__style_transfer_torch.text.fasttext_cls import GRAPH_CHUNK, FastTextClassifier
@@ -3996,8 +3979,7 @@ def phase_book(work: str, card: str) -> dict:
     cli_s = {}
 
     def stage(argv, stdin_text=""):
-        fused_decode_logits.launches = 0
-        sinkhorn_cuda.launches = 0
+        zero_launches("fused_decode_logits", "sinkhorn_cuda")
         zero_lstm_launches()
         t0 = time.perf_counter()
         with watch_graphs() as made, watch_graphs(optimize_stage, "GraphedFusedStep") as fused:
@@ -4005,7 +3987,7 @@ def phase_book(work: str, card: str) -> dict:
         torch.cuda.synchronize()
         cli_s[argv[0]] = time.perf_counter() - t0
         log(f"phase 12: {argv[0]} in {cli_s[argv[0]]:.1f} s")
-        return lines, made, fused, fused_decode_logits.launches, sinkhorn_cuda.launches
+        return lines, made, fused, launched("fused_decode_logits"), launched("sinkhorn_cuda")
 
     def no_kernel(what, head, sink):
         check(head == 0 and sink == 0, f"book {what} launched a kernel: head {head}, "
@@ -4214,8 +4196,7 @@ def phase_book(work: str, card: str) -> dict:
         stream.close()
     pre_steady["graph_nodes"] = graph_nodes(runner.graphs[full])
     del towers, pre_step, runner
-    fused_decode_logits.launches = 0
-    sinkhorn_cuda.launches = 0
+    zero_launches("fused_decode_logits", "sinkhorn_cuda")
 
     def stream_of(stage_name, batch_size, seed=1):
         return iter(DevicePrefetcher(make_batches(corpus, batch_size, L, stage_name, shuffle=True,
@@ -4245,7 +4226,7 @@ def phase_book(work: str, card: str) -> dict:
     opt_steady = optimize_steady(steps, acc, gens, cfg.d_update_every, stream_of("optimize", B),
                                  batches=12, cells=fused_step_cells(cfg), what="optimize_book")
     del models, steps, acc
-    check(fused_decode_logits.launches == 0 and sinkhorn_cuda.launches == 0,
+    check(launched("fused_decode_logits") == 0 and launched("sinkhorn_cuda") == 0,
           "a graphed book warmup or optimize step launched a kernel of the port")
 
     lap("the graphed steps' steady times")
@@ -4284,7 +4265,7 @@ def phase_book(work: str, card: str) -> dict:
     for _ in range(3):
         step(x, labels)
     torch.cuda.synchronize()
-    fused_decode_logits.launches = 0
+    zero_launches("fused_decode_logits")
     zero_lstm_launches()
     n = 20
     t0 = time.perf_counter()
@@ -4292,8 +4273,8 @@ def phase_book(work: str, card: str) -> dict:
         step(x, labels)
     torch.cuda.synchronize()
     serve_ms = (time.perf_counter() - t0) * 1e3 / n
-    check(fused_decode_logits.launches == L * n, f"book serving: "
-          f"{fused_decode_logits.launches} head launches, want {L} x {n}")
+    check(launched("fused_decode_logits") == L * n, f"book serving: "
+          f"{launched("fused_decode_logits")} head launches, want {L} x {n}")
     serving_cells = lstm_launches("serving_book", greedy_cells(L * n))
     prof = profile_breakdown(lambda: step(x, labels), watch=("ffn_", "vocab_argmax"))
     device_ms = prof.get("device_ms_per_batch")
@@ -4407,8 +4388,8 @@ def lstm_cell_row(cells: dict, build: dict) -> dict:
         "launches": sum(v["forward"] + v["backward"] for v in paths.values()),
         "launches_by_path": paths,
         "launches_per_graph_replay": {k: v for k, v in LSTM_LAUNCHES.items() if "_graph_" in k},
-        "launch_counter": "lstm_cell_fwd.launches + lstm_cell_bwd.launches: eager calls, and "
-                          "each replay adds the calls its graph captured",
+        "launch_counter": "kernel.lstm_cell_fwd + kernel.lstm_cell_bwd totals: eager calls, "
+                          "and each replay adds the calls its graph captured",
         "max_abs_err": 0.0,  # the forward bit for bit, every shape and pair (phase 2)
         "ms": main["ms"],
         "kernel_ms": main["ms"],
@@ -4478,7 +4459,7 @@ def main() -> int:
                              "pretrain_launcher": launch["pretrain"]["sinkhorn_launches"],
                              "pretrain_full_run": full_run["pretrain"]["sinkhorn_launches"],
                              "pretrain_book": book["pretrain"]["sinkhorn_launches"]},
-        "launch_counter": "sinkhorn_cuda.launches (one kernel behind both names)",
+        "launch_counter": "the kernel.sinkhorn_cuda total (one kernel behind both names)",
         "launches_per_batch": 1,
         "max_abs_err": max(real["max_abs_err"], sinkhorn["max_abs_err"]),
         # graph-timed on a real yelp label batch (sinkhorn_times)
@@ -4541,8 +4522,8 @@ def main() -> int:
                              "run_book": book["infer"]["decode_head_launches"],
                              "serve_book": book["serve"]["decode_head_launches"]},
         "launches_per_batch": full["launches_per_batch"],
-        "launch_counter": "fused_decode_logits.launches: eager calls, and each replay adds the "
-                          "calls its graph captured",
+        "launch_counter": "the kernel.fused_decode_logits total: eager calls, and each replay "
+                          "adds the calls its graph captured",
         "max_abs_err": yelp["max_abs_err_h"],
         "max_abs_err_h": yelp["max_abs_err_h"],
         "ids_mismatch": yelp["ids_mismatch"],

@@ -7,16 +7,14 @@ with x = [o_t; a_t] (B, 1024), W1 = ``fn_1.weight`` (512, 1024) and W2 =
 ``kernels/decode_step.py::fused_decode_logits``) never writes the (B, V)
 logits. On a CUDA tensor :func:`fused_decode_logits` launches that kernel or
 raises; on a CPU tensor it runs :func:`decode_head_reference`, the plain
-version. ``fused_decode_logits.launches`` counts kernel launches: one per
-call, which is two device kernels (the FFN, then the vocab product with the
-argmax in its epilogue) and nothing else on the stream. A call on a stream
-that a CUDA graph is capturing counts into ``.captured`` instead, and the
-graph adds its captured calls to ``.launches`` at every replay
-(``train/graphs.py::GraphedStep``), so ``.launches`` counts the calls that
-ran on the card. The launch captures as it is: the vocab kernel, a
-programmatic dependent of the FFN kernel, becomes a programmatic edge of
-the graph, and the per-device shared-memory attribute is set by an eager
-call before any capture. bfloat16 runs on the tensor cores (wgmma on
+version. ``kernel.fused_decode_logits`` counts kernel launches
+(``utils/profiling.py::count_step``; a graph replays its captured ones):
+one per call, which is two device kernels (the FFN, then the vocab product
+with the argmax in its epilogue) and nothing else on the stream. The
+launch captures as it is: the vocab kernel, a programmatic dependent of
+the FFN kernel, becomes a programmatic edge of the graph, and the
+per-device shared-memory attribute is set by an eager call before any
+capture. bfloat16 runs on the tensor cores (wgmma on
 TMA-fed tiles), float32 on the CUDA cores without TF32.
 """
 
@@ -28,7 +26,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import count_launch
+from ..utils.profiling import count_step
 from ._build import load_library
 
 _ENTRY = {torch.float32: "decode_head_f32", torch.bfloat16: "decode_head_bf16"}
@@ -109,12 +107,9 @@ def fused_decode_logits(x, w1, b1, w2):
     if err != 0:
         msg = lib.decode_step_error_string(err).decode()
         raise RuntimeError(f"decode head kernel launch failed: CUDA error {err} ({msg})")
-    count_launch(fused_decode_logits)
+    count_step("kernel.fused_decode_logits", 1)
     # each row's argmax key holds its column in its low word (little-endian):
     # the ids are an int32 view of the workspace, one per key
     ids = workspace[: 8 * B].view(torch.int32)[::2]
     return ids, h
 
-
-fused_decode_logits.launches = 0
-fused_decode_logits.captured = 0

@@ -16,10 +16,8 @@ CPU tensors run :func:`lstm_cell_reference`; CUDA tensors of any other
 dtype pair, shape or device mix raise (a tensor with a column stride other
 than 1 is copied first).
 
-Launch counts: ``lstm_cell_fwd.launches`` and ``lstm_cell_bwd.launches``
-count the kernels. A call on a stream that a CUDA graph is capturing counts
-into ``.captured``, and the graph adds those to ``.launches`` at every
-replay (``train/graphs.py::GraphedStep``).
+Launch counts: ``kernel.lstm_cell_fwd`` and ``kernel.lstm_cell_bwd``
+(``utils/profiling.py::count_step``; a graph replays its captured ones).
 """
 
 from __future__ import annotations
@@ -29,7 +27,7 @@ import functools
 
 import torch
 
-from . import count_launch
+from ..utils.profiling import count_step
 from ._build import load_library
 
 # (gates dtype, cell-state dtype) -> csrc/lstm_cell.cu's Pair
@@ -125,7 +123,7 @@ def lstm_cell_fwd(a, b, c, keep_gates: bool):
             pair, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), c.data_ptr(),
             c.stride(0), h.data_ptr(), c_new.data_ptr(),
             None if gates is None else gates.data_ptr(), B, H, stream))
-    count_launch(lstm_cell_fwd)
+    count_step("kernel.lstm_cell_fwd", 1)
     return h, c_new, gates
 
 
@@ -149,12 +147,8 @@ def lstm_cell_bwd(gates, c, c_new, dh, dc_new, want_dgates: bool, want_dc: bool)
         _check(_library().lstm_cell_backward(
             pair, gates.data_ptr(), c.data_ptr(), c.stride(0), c_new.data_ptr(), ptr(dh), ld(dh),
             ptr(dc_new), ld(dc_new), ptr(dgates), ptr(dc), B, H, stream))
-    count_launch(lstm_cell_bwd)
+    count_step("kernel.lstm_cell_bwd", 1)
     return dgates, dc
-
-
-lstm_cell_fwd.launches = lstm_cell_fwd.captured = 0
-lstm_cell_bwd.launches = lstm_cell_bwd.captured = 0
 
 
 class FusedCell(torch.autograd.Function):

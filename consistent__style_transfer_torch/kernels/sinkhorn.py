@@ -12,11 +12,9 @@ barrier), with the JAX signature less the TPU-only ``group``, ``lanes`` and
 
 On a CUDA tensor each entry launches that kernel or raises; on a CPU tensor
 it runs :func:`~..ops.emd.sinkhorn_ot_cost`, the plain version.
-``sinkhorn_cuda.launches`` counts the kernel's launches through either name;
-a call on a stream that a CUDA graph is capturing counts into
-``.captured``, and the graph adds those to ``.launches`` at every replay
-(``train/graphs.py::GraphedStep``). The pretrain path launches it in the
-collate, outside any graph.
+``kernel.sinkhorn_cuda`` counts the kernel's launches through either name
+(``utils/profiling.py::count_step``; a graph replays its captured ones).
+The pretrain path launches it in the collate, outside any graph.
 """
 
 from __future__ import annotations
@@ -27,7 +25,7 @@ import functools
 import torch
 
 from ..ops.emd import sinkhorn_ot_cost
-from . import count_launch
+from ..utils.profiling import count_step
 from ._build import load_library
 
 MAX_ATOMS = 64  # csrc/sinkhorn.cu kCap
@@ -83,12 +81,8 @@ def sinkhorn_cuda(p, q, D, epsilon: float = 0.05, n_iters: int = 100) -> torch.T
     if err != 0:
         msg = lib.sinkhorn_error_string(err).decode()
         raise RuntimeError(f"Sinkhorn kernel launch failed: CUDA error {err} ({msg})")
-    count_launch(sinkhorn_cuda)
+    count_step("kernel.sinkhorn_cuda", 1)
     return out
-
-
-sinkhorn_cuda.launches = 0
-sinkhorn_cuda.captured = 0
 
 
 def _entry(p, q, D, epsilon: float, n_iters: int) -> torch.Tensor:

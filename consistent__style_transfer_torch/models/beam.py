@@ -10,10 +10,10 @@ and, after ``max_len`` steps, returns the prefix whose sum over
 
 :func:`beam_decode_any` picks the search by backbone: the LSTM takes the
 stateful beam (``models/generator.py::stateful_beam_decode``: one encoder
-pass, (h, c) carried a beam), the transformer the prefix rescoring of
-:func:`beam_search`, one full teacher-forced pass through
-``train.common.generator_call`` (``sched`` with a teacher) a step, the
-encoder included, as the JAX package does.
+pass, (h, c) carried a beam), the transformer and LFM2-8B-A1B the prefix
+rescoring of :func:`beam_search`, one full teacher-forced pass of the model
+(``sched`` with a teacher) a step, the encoder included, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -61,9 +61,8 @@ def best_beam(seqs: torch.Tensor, scores: torch.Tensor, B: int, K: int, L: int,
 def beam_decode_any(model, x, label_i, tgt_label, beam_size: int = 4,
                     length_penalty: float = 0.6):
     """Beam decode of x (B, L) from style ``label_i`` to ``tgt_label`` for
-    either backbone, without dropout: (ids (B, max_len) int32, scores
+    any backbone, without dropout: (ids (B, max_len) int32, scores
     (B,))."""
-    from ..train.common import generator_call
     from .generator import DenoiseSeq2Seq, stateful_beam_decode
 
     if isinstance(model, DenoiseSeq2Seq):
@@ -75,7 +74,7 @@ def beam_decode_any(model, x, label_i, tgt_label, beam_size: int = 4,
 
     def next_logp(prefix, t, expanded):
         args = (x_rep, li_rep, prefix, tl_rep) if expanded else (x, label_i, prefix, tgt_label)
-        logits = generator_call(model, *args, mode="sched")
+        logits = model(*args, mode="sched")
         return torch.log_softmax(logits[:, t].float(), dim=-1)
 
     return beam_search(next_logp, B, L, model.n_vocab, K, length_penalty, device=x.device)

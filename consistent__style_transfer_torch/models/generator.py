@@ -139,6 +139,9 @@ class LSTM(nn.Module):
 
 
 class DenoiseSeq2Seq(nn.Module):
+    time_major_soft = True  # its soft decode stacks steps (L, B, V) without a transpose
+    draws_sched_coins = True  # its teacher-forced decode is sched sampling, a coin a step
+
     def __init__(self, n_vocab: int, n_class: int, max_len: int,
                  rep_penalty: float = 0.0, p_drop: float = P_DROP, seed: int = 0):
         super().__init__()

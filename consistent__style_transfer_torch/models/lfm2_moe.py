@@ -31,13 +31,16 @@ source (L tokens, each plus the embedding of style ``label_i``), then a
 start embedding and the teacher or the generated tokens (each plus the
 embedding of ``label``), causal throughout at positions 0..2L-1. Dropout
 ``p_drop`` acts on the embedded inputs only (the source block, then the
-decoder side as a block in :meth:`forward` or one row a step in
-:func:`generate`), its masks drawn from the explicit ``torch.Generator``.
-:meth:`Lfm2MoeGenerator.forward` is the teacher-forced ``sched`` pass and
-draws no sched coins; :func:`generate` runs ``st``, ``sched`` without a
-teacher and ``greedy`` one cached step at a time, the shapes of each step
-fixed, so a CUDA graph captures it. Beam search is
-``models/beam.py::beam_decode_any``'s prefix rescoring.
+decoder side as a block in :meth:`~Lfm2MoeGenerator.teacher_pass` or one
+row a step in :func:`generate`), its masks drawn from the explicit
+``torch.Generator``. :meth:`Lfm2MoeGenerator.forward` is the stages' call
+of a generator, as the transformer backbone's
+(``models/seq2seq_transformer.py::batch_major_call``): ``sched`` with a
+teacher is :meth:`~Lfm2MoeGenerator.teacher_pass`, which draws no sched
+coins; :func:`generate` runs ``st``, ``sched`` without a teacher and
+``greedy`` one cached step at a time, the shapes of each step fixed, so a
+CUDA graph captures it. Beam search is ``models/beam.py::beam_decode_any``'s
+prefix rescoring.
 
 Departures from the published model: ``expert_bias`` is held at zero and
 never updated (no update rate is published) and there is no auxiliary
@@ -69,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.sampling import hard_sample_st
 from .moe import SparseMoE, _uniform_
+from .seq2seq_transformer import batch_major_call
 from .transformer import dropout
 
 LAYER_TYPES = ("conv", "conv", "full_attention", "conv", "conv", "conv", "full_attention",
@@ -224,6 +228,9 @@ class Lfm2Layer(nn.Module):
 
 
 class Lfm2MoeGenerator(nn.Module):
+    time_major_soft = False  # its soft decode is (B, L, V)
+    draws_sched_coins = False  # its teacher pass is parallel
+
     def __init__(self, n_vocab: int, n_class: int, max_len: int, p_drop: float = 0.1,
                  seed: int = 0, n_layers: int = len(LAYER_TYPES), **widths):
         super().__init__()
@@ -319,7 +326,16 @@ class Lfm2MoeGenerator(nn.Module):
     def head(self, h, cast):
         return _linear(self.embedding_norm(h), self.token_embedding.weight, cast)
 
-    def forward(self, inp, label_i, x, label, generator: torch.Generator | None = None):
+    def forward(self, inp, label_i, x, label, mode: str = "sched", tau: float = 1.0,
+                time_major_out: bool = False, generator: torch.Generator | None = None,
+                coins: torch.Tensor | None = None):
+        """Decode from ``inp`` in style ``label_i`` to style ``label``
+        (``batch_major_call``), with the signature of
+        ``DenoiseSeq2Seq.forward``; ``coins`` is ignored."""
+        return batch_major_call(self, generate, inp, label_i, x, label, mode, tau,
+                                time_major_out, generator)
+
+    def teacher_pass(self, inp, label_i, x, label, generator: torch.Generator | None = None):
         """The teacher-forced ``sched`` pass: logits (B, L, V) of x (B, L)
         from ``inp`` in style ``label_i``, to style ``label``."""
         cast = self.cast(x.device)

@@ -27,7 +27,7 @@ so its backward is a sum over the k slots, not an index add.
 
 In bfloat16 the grouped products are ``torch._grouped_mm`` (on the card
 CUTLASS grouped GEMMs for sm_90 that read the offsets on the device,
-counted in ``grouped_swiglu.launches``). On the CPU in float32 they are a
+counted as ``kernel.grouped_swiglu``). On the CPU in float32 they are a
 loop over the experts' row ranges, read on the host. On the card the
 layer takes bfloat16 alone (``torch._grouped_mm`` would read float32's
 offsets on the host, which no graph captures): another dtype raises
@@ -50,7 +50,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import count_launch
 from ..utils.profiling import count_step, span
 
 GATE_EPS = 1e-6
@@ -90,7 +89,7 @@ def grouped_swiglu(xs, ends, w1, w3, w2):
     dtype."""
     if xs.dtype == torch.bfloat16:
         if xs.is_cuda:
-            count_launch(grouped_swiglu)
+            count_step("kernel.grouped_swiglu", 1)
         a = torch._grouped_mm(xs, w1.transpose(1, 2), offs=ends)
         b = torch._grouped_mm(xs, w3.transpose(1, 2), offs=ends)
         return torch._grouped_mm(F.silu(a) * b, w2.transpose(1, 2), offs=ends)
@@ -102,9 +101,6 @@ def grouped_swiglu(xs, ends, w1, w3, w2):
         out.append(F.linear(F.silu(F.linear(x, w1[e])) * F.linear(x, w3[e]), w2[e]))
         start = end
     return torch.cat(out)
-
-
-grouped_swiglu.launches = grouped_swiglu.captured = 0
 
 
 class SparseMoE(nn.Module):

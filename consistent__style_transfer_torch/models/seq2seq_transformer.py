@@ -6,9 +6,11 @@ layers, ff 2048), pre-LN with a final ``enc_norm`` / ``dec_norm``
 style conditioning by adding the style embedding to every encoder-input and
 decoder-input token embedding, a bias-free ``lm_head``.
 
-- :meth:`TransformerSeq2Seq.forward` is the teacher-forced ``sched`` path:
-  one parallel causal pass over the teacher shifted right behind the start
-  embedding (``decode_teacher``). It draws no sched coins;
+- :meth:`TransformerSeq2Seq.forward` is the stages' call of a generator
+  (:func:`batch_major_call`, the LSTM's signature): ``sched`` with a
+  teacher is :meth:`~TransformerSeq2Seq.teacher_pass`, one parallel causal
+  pass over the teacher shifted right behind the start embedding
+  (``decode_teacher``), which draws no sched coins;
 - :func:`generate` runs the autoregressive modes (``st``, ``sched`` without
   a teacher, ``greedy``) one KV-cached ``decode_step`` at a time. The JAX
   package writes each step's K/V into a preallocated (B, L, h, hd) cache and
@@ -17,9 +19,7 @@ decoder-input token embedding, a bias-free ``lm_head``.
   softmax (exp(-1e30 - max) is 0 in float32) and keeps every saved tensor
   intact for the backward of ``st``. Shapes are fixed for each t, so a CUDA
   graph can capture it. The cross-attention K/V of the memory are projected
-  once per decode, where the JAX package projects them at every step;
-- :func:`beam_decode` is the length-normalised prefix-rescoring beam
-  (``models/beam.py``).
+  once per decode, where the JAX package projects them at every step.
 
 Scores are divided by sqrt(float32(hd)) after the product; the causal mask
 is -1e30, not -inf; the cross-attention has no mask, so PAD memory
@@ -39,6 +39,7 @@ models.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -149,7 +150,25 @@ class _DecLayer(nn.Module):
         return x + self.ffn(self.ln3(x)), (k, v)
 
 
+def batch_major_call(model, generate_fn, inp, label_i, x, label, mode: str, tau: float,
+                     time_major_out: bool, generator: torch.Generator | None):
+    """The stages' call of a generator that decodes batch-major (this
+    backbone and LFM2-8B-A1B): ``sched`` with a teacher ``x`` is
+    ``model.teacher_pass``, every other mode ``generate_fn`` over the
+    teacher's length, or ``max_len`` without one. ``time_major_out`` on a
+    soft output is a transpose; ids are batch-major."""
+    if mode == "sched" and x is not None:
+        out = model.teacher_pass(inp, label_i, x, label, generator)
+    else:
+        out = generate_fn(model, inp, label_i, label, mode=mode, tau=tau, generator=generator,
+                          L_out=None if x is None else x.shape[1])
+    return out.transpose(0, 1) if time_major_out and out.dim() == 3 else out
+
+
 class TransformerSeq2Seq(nn.Module):
+    time_major_soft = False  # its soft decode is (B, L, V)
+    draws_sched_coins = False  # its teacher pass is parallel
+
     def __init__(self, n_vocab: int, n_class: int, max_len: int, p_drop: float = 0.1,
                  seed: int = 0, d_model: int = D_MODEL, n_heads: int = N_HEADS,
                  n_enc: int = N_ENC, n_dec: int = N_DEC, d_ff: int = D_FF,
@@ -238,12 +257,25 @@ class TransformerSeq2Seq(nn.Module):
             new.append(cache)
         return self.lm_head(self.dec_norm(h)[:, 0]), new
 
-    def forward(self, inp, label_i, x, label, generator: torch.Generator | None = None):
+    def teacher_pass(self, inp, label_i, x, label, generator: torch.Generator | None = None):
         """The teacher-forced ``sched`` path: logits (B, L, V) of x (B, L)
         from ``inp`` (ids or soft) in style ``label_i``, to style ``label``."""
         with _float32(x.device):
             memory = self.encode(inp, label_i, generator)
             return self.decode_teacher(memory, x, label, generator)
+
+    def forward(self, inp, label_i, x, label, mode: str = "sched", tau: float = 1.0,
+                time_major_out: bool = False, generator: torch.Generator | None = None,
+                coins: torch.Tensor | None = None):
+        """Decode from ``inp`` in style ``label_i`` to style ``label``
+        (:func:`batch_major_call`), with the signature of
+        ``DenoiseSeq2Seq.forward``; ``coins`` is ignored."""
+        return batch_major_call(self, generate, inp, label_i, x, label, mode, tau,
+                                time_major_out, generator)
+
+    def one_cast(self):
+        """Nothing to share: this backbone computes in float32."""
+        return contextlib.nullcontext()
 
 
 def generate(model: TransformerSeq2Seq, inp, label_i, label, mode: str = "greedy",
@@ -278,13 +310,3 @@ def generate(model: TransformerSeq2Seq, inp, label_i, label, mode: str = "greedy
                 out_t = ids_t.to(torch.int32) if mode == "greedy" else logits_t
             outs.append(out_t)
         return torch.stack(outs, dim=1)
-
-
-def beam_decode(model: TransformerSeq2Seq, x, label_i, tgt_label, beam_size: int = 4,
-                length_penalty: float = 0.6):
-    """Length-normalised beam search over the ``max_len`` rollout by
-    teacher-forced rescoring of the growing prefixes (one parallel causal
-    pass a step): (ids (B, L) int32, scores (B,))."""
-    from .beam import beam_decode_any
-
-    return beam_decode_any(model, x, label_i, tgt_label, beam_size, length_penalty)

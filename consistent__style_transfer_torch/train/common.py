@@ -11,10 +11,8 @@ import torch
 
 from ..config import BACKBONES, Config
 from ..data.corpus import StyleCorpus
-from ..models import DenoiseSeq2Seq, PairMatcher, RelGANDiscriminator, TextCNN, TransformerLM
-from ..models import lfm2_moe
-from ..models.lfm2_moe import Lfm2MoeGenerator
-from ..models.seq2seq_transformer import TransformerSeq2Seq, generate
+from ..models import (DenoiseSeq2Seq, Lfm2MoeGenerator, PairMatcher, RelGANDiscriminator,
+                      TextCNN, TransformerLM, TransformerSeq2Seq)
 from ..parallel.mesh import barrier, is_main, make_mesh
 from ..parallel.sharding import data_index, data_size
 from ..text.bpe import BPETokenizer, train_tokenizer
@@ -146,13 +144,6 @@ def autocast(device: torch.device, dtype: torch.dtype):
     return torch.autocast(device.type, dtype=dtype, cache_enabled=not capturing)
 
 
-def one_weight_cast(model):
-    """The generator's ``one_cast()`` scope where it has one (the LSTM and
-    LFM2-8B-A1B: the calls inside share one cast of its weights), else
-    nothing."""
-    return model.one_cast() if hasattr(model, "one_cast") else contextlib.nullcontext()
-
-
 def _scorer_size_kw(cfg: Config) -> dict:
     """Matcher/LM size overrides (``Config.scorer_*``); an empty dict keeps
     the reference dims of the model defaults."""
@@ -184,29 +175,3 @@ def build_lm(cfg: Config, n_vocab: int, device: torch.device) -> TransformerLM:
 def build_discriminator(cfg: Config, n_vocab: int, device: torch.device) -> RelGANDiscriminator:
     return RelGANDiscriminator(n_vocab=n_vocab, seed=cfg.seed + 99).to(device)
 
-
-def generator_call(model, inp, label_i, x, label, mode: str = "sched", tau: float = 1.0,
-                   time_major_out: bool = False, generator: torch.Generator | None = None,
-                   coins: torch.Tensor | None = None):
-    """Generator invocation with the reference call semantics (inp,
-    input-style, teacher x, output-style, decode mode), plus the st
-    temperature, the soft output layout, the dropout/coin generator and
-    given sched coins, for any backbone (JAX ``train/common.py:85-114``).
-
-    The LSTM handles every mode in its forward (``DenoiseSeq2Seq.forward``).
-    The transformer and LFM2-8B-A1B run ``sched`` with a teacher as their
-    parallel causal pass, which draws no coins (``coins`` is ignored), and
-    every other mode through their module's ``generate`` over the
-    teacher's length, or ``max_len`` without one; they decode batch-major,
-    so ``time_major_out`` on a soft output is a transpose. Integer ids are
-    batch-major under all three."""
-    if isinstance(model, (TransformerSeq2Seq, Lfm2MoeGenerator)):
-        if mode == "sched" and x is not None:
-            out = model(inp, label_i, x, label, generator=generator)
-        else:
-            gen = lfm2_moe.generate if isinstance(model, Lfm2MoeGenerator) else generate
-            out = gen(model, inp, label_i, label, mode=mode, tau=tau, generator=generator,
-                      L_out=None if x is None else x.shape[1])
-        return out.transpose(0, 1) if time_major_out and out.dim() == 3 else out
-    return model(inp, label_i, x, label, mode=mode, tau=tau, time_major_out=time_major_out,
-                 generator=generator, coins=coins)

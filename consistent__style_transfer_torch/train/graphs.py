@@ -25,7 +25,7 @@ Each captured branch is kept in ``utils/profiling.py``'s recorder (always,
 once a capture): the step's ``name``, the key, the host seconds of its
 eager first call and of its capture, and its node count. When spans record
 (``utils/profiling.py``), a call makes the spans ``step.copy_in`` (the
-copies into the static buffers), ``step.replay`` (the replay and its launch
+copies into the static buffers), ``step.replay`` (the replay and its
 counts; its id is the branch's index in the recorder's ``graphs``) or
 ``step.first_call`` and ``step.capture``, and on the card a pair of CUDA
 events times each replayed call (the copies and the replay) on the device.
@@ -40,16 +40,11 @@ collector is held off during a capture (:func:`gc_paused`): a collection
 there may free a dead graph of an earlier step, and destroying a graph
 while a stream captures invalidates that capture.
 
-The hand-written kernels count their launches (``.launches`` on
-:data:`COUNTED_KERNELS`). A call made while a stream captures launches
-nothing and counts into ``.captured`` instead; a graph notes how many
-calls of each kernel it captured and adds them to ``.launches`` at every
-replay, so ``.launches`` counts the kernels that ran, eager or replayed.
-When spans record, each replay also adds them to the recorder's counter
-``kernel.<name>`` (the wrapper's name: ``kernel.lstm_cell_fwd``, ...,
-``kernel.grouped_swiglu``, the expert layer's grouped products), and the
-counts its capture made through ``utils/profiling.py::count_step``
-(``moe.rows``).
+A capture keeps what ``utils/profiling.py::count_step`` counts on its
+stream (the hand-written kernels' launches, ``kernel.<wrapper>``; the
+expert layer's ``moe.rows``; ``generator.weight_casts``), and every replay
+counts that list again (``profiling.count_replay``): into the always-kept
+totals and, when spans record, as counter events inside the replay's span.
 
 :func:`step_runner` gives a stage one loop for both devices: a
 :class:`GraphedStep` on the card, ``fn`` called eagerly on the CPU.
@@ -64,15 +59,8 @@ from typing import Callable, Hashable
 
 import torch
 
-from ..kernels.decode_step import fused_decode_logits
-from ..kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
-from ..kernels.sinkhorn import sinkhorn_cuda
-from ..models.moe import grouped_swiglu
 from ..utils import profiling
 from ..utils.profiling import span
-
-COUNTED_KERNELS = (fused_decode_logits, sinkhorn_cuda, lstm_cell_fwd, lstm_cell_bwd,
-                   grouped_swiglu)
 
 
 @contextmanager
@@ -113,9 +101,7 @@ class GraphedStep:
         self.static: dict[Hashable, dict[str, torch.Tensor]] = {}
         self.graphs: dict[Hashable, torch.cuda.CUDAGraph] = {}
         self.outputs: dict[Hashable, object] = {}
-        # per branch: (kernel wrapper, calls captured) for each counted kernel
-        self.replay_launches: dict[Hashable, tuple] = {}
-        # per branch: (counter, n) of each profiling.count_step its capture made
+        # per branch: (counter, n), the sums of profiling.count_step its capture kept
         self.replay_counts: dict[Hashable, tuple] = {}
         self.replays = 0  # of every branch
         self.branches: dict[Hashable, int] = {}  # key -> index in the recorder's graphs
@@ -141,11 +127,7 @@ class GraphedStep:
         with span("step.replay", step=self.branches[key]):
             graph.replay()
             self.replays += 1
-            for kernel, n in self.replay_launches[key]:
-                kernel.launches += n
-                profiling.count(f"kernel.{kernel.__name__}", n)
-            for name, n in self.replay_counts.get(key, ()):
-                profiling.count(name, n)
+            profiling.count_replay(self.replay_counts[key])
         if timed:
             profiling.device_step(start, t_ns)
         return self.outputs[key]
@@ -164,19 +146,14 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes can be counted
         for gen in self.generators:
             graph.register_generator_state(gen)
-        before = [k.captured for k in COUNTED_KERNELS]
-        profiling.RECORDER.step_counts = counts = []
-        try:
-            with span("step.capture", always=True) as capture, gc_paused(), torch.cuda.graph(
-                    graph, pool=self.pool, stream=side, capture_error_mode="thread_local"):
-                self.outputs[key] = self.fn(static, key)
-        finally:
-            profiling.RECORDER.step_counts = None
-        self.replay_counts[key] = tuple(counts)
+        with (span("step.capture", always=True) as capture, gc_paused(),
+              profiling.kept_counts(side.cuda_stream) as counts,
+              torch.cuda.graph(graph, pool=self.pool, stream=side,
+                               capture_error_mode="thread_local")):
+            self.outputs[key] = self.fn(static, key)
+        self.replay_counts[key] = tuple(counts.items())
         if self.share_pool and self.pool is None:
             self.pool = graph.pool()
-        self.replay_launches[key] = tuple(
-            (k, k.captured - b) for k, b in zip(COUNTED_KERNELS, before) if k.captured > b)
         self.branches[key] = profiling.record_graph(self.name, key, first.seconds,
                                                     capture.seconds, profiling.graph_nodes(graph))
         self.graphs[key] = graph

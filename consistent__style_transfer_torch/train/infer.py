@@ -33,7 +33,7 @@ from ..data.prefetch import DevicePrefetcher
 from ..models.beam import beam_decode_any
 from ..parallel.mesh import barrier, is_main
 from ..parallel.sharding import all_gather_rows, data_group, shard_batch
-from .common import generator_call, get_corpus
+from .common import get_corpus
 from .graphs import step_runner
 
 
@@ -59,7 +59,7 @@ def make_transfer_step(model, beam_size: int = 1):
         x, labels = inputs["x"], inputs["labels"]
         if beam:
             return beam_decode_any(model, x, labels, 1 - labels, beam_size=beam_size)
-        return generator_call(model, x, labels, None, 1 - labels, mode="greedy")
+        return model(x, labels, None, 1 - labels, mode="greedy")
 
     runner = step_runner(decode, next(model.parameters()).device)
 

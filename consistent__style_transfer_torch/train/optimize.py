@@ -92,8 +92,8 @@ from ..parallel.sharding import data_group, global_means, replicate, shard_stack
 from ..utils.io import RunLogger
 from ..utils.profiling import read_device_times, span
 from .common import (autocast, build_classifier, build_discriminator, build_generator,
-                     build_lm, build_matcher, compute_dtype, generator_call, get_corpus,
-                     get_device, get_mesh, get_tokenizer, one_weight_cast, rank_generators)
+                     build_lm, build_matcher, compute_dtype, get_corpus, get_device, get_mesh,
+                     get_tokenizer, rank_generators)
 from .checkpoint import StateCheckpointer
 from .graphs import GraphedStep, step_runner
 from .infer import run_inference
@@ -188,20 +188,17 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
                           models.nt_checker, models.disc)
     g_params, d_params = list(G.parameters()), list(D.parameters())
     dtype = compute_dtype(cfg)
-    # an LSTM layout: the other backbones decode batch-major, where the flag
-    # would only move the transpose (JAX optimize.py:175)
-    tm = cfg.time_major_probs and cfg.backbone == "lstm"
-    # the other backbones' teacher-forced decodes draw no sched coins
-    draw_coins = cfg.backbone == "lstm"
+    # a layout of a time-major decode: a batch-major one would only move the
+    # transpose (JAX optimize.py:175)
+    tm = cfg.time_major_probs and G.time_major_soft
     ranks = 1 if group is None else dist.get_world_size(group)
     if copy_weights is not None:
         copy_weights = torch.as_tensor(copy_weights, device=g_params[0].device).to(
             torch.promote_types(g_params[0].dtype, torch.float32))
 
     def st_decode(batch, generator, time_major: bool):
-        return generator_call(G, batch["x"], batch["labels"], None, 1 - batch["labels"],
-                              mode="st", tau=cfg.tau, time_major_out=time_major,
-                              generator=generator)
+        return G(batch["x"], batch["labels"], None, 1 - batch["labels"], mode="st", tau=cfg.tau,
+                 time_major_out=time_major, generator=generator)
 
     def g_loss_fn(batch, generator=None, coins=None, copy_scale: float = 1.0,
                   coin_generator=None):
@@ -212,10 +209,10 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
             m.train()
         D.eval()
         x, labels = batch["x"], batch["labels"]
-        if coins is None and draw_coins:
+        if coins is None and G.draws_sched_coins:
             coins = sched_coins(x.shape[1], coin_generator or generator, x.device)
         # G's decode and back-translation pass share one cast of its weights
-        with autocast(x.device, dtype), one_weight_cast(G):
+        with autocast(x.device, dtype), G.one_cast():
             sample_p = st_decode(batch, generator, tm)
             s_logits = CLS(sample_p, generator, time_major=tm)
             c_logits = MAT(sample_p, x, generator, time_major=tm)
@@ -223,8 +220,8 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
             bk_inp = sample_p.detach().argmax(dim=-1)
             if tm:
                 bk_inp = bk_inp.t()  # (L, B) -> (B, L) ids
-            bk_logits = generator_call(G, bk_inp, 1 - labels, x, labels, mode="sched",
-                                       time_major_out=tm, generator=generator, coins=coins)
+            bk_logits = G(bk_inp, 1 - labels, x, labels, mode="sched", time_major_out=tm,
+                          generator=generator, coins=coins)
             # CE over B*L is transpose-invariant: time-major logits take
             # time-major targets
             tgt = x.t() if tm else x
@@ -237,8 +234,8 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
             if cfg.w_rec > 0:
                 # same-style teacher-forced reconstruction: anchors G to its
                 # input content (no reference equivalent)
-                rec_logits = generator_call(G, x, labels, x, labels, mode="sched",
-                                            time_major_out=tm, generator=generator, coins=coins)
+                rec_logits = G(x, labels, x, labels, mode="sched", time_major_out=tm,
+                               generator=generator, coins=coins)
                 rec_loss = softmax_cross_entropy_tokens(rec_logits, tgt)
                 total = total + cfg.w_rec * rec_loss
                 aux["REC"] = rec_loss
@@ -295,7 +292,7 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
         """(D's gradients, loss) on a fresh fake decode of the current G, in
         train mode under no_grad (``main_optimize.py:118-119``)."""
         G.train()
-        with torch.no_grad(), autocast(batch["x"].device, dtype), one_weight_cast(G):
+        with torch.no_grad(), autocast(batch["x"].device, dtype), G.one_cast():
             fake_p = st_decode(batch, d_generator, tm)
         return d_grads_reuse(fake_p, batch, d_generator)
 
@@ -319,7 +316,7 @@ def make_optimize_steps(cfg: Config, models: OptimizeModels, g_opt: AdamWithClip
         rows = batch.get("row_mask")
         x, labels = batch["x"], batch["labels"]
         with autocast(x.device, dtype):
-            with one_weight_cast(G):
+            with G.one_cast():
                 tokens = st_decode(batch, None, False).argmax(dim=-1)
             s_loss = cross_entropy(CLS(tokens), 1 - labels, mask=rows)
             nt_loss = softmax_cross_entropy_tokens(NT(tokens), tokens, row_mask=rows)

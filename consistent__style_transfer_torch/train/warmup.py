@@ -48,8 +48,8 @@ from ..parallel.mesh import barrier, is_main
 from ..parallel.sharding import data_group, global_means, replicate, shard_batch
 from ..utils.io import RunLogger
 from ..utils.profiling import read_device_times, span
-from .common import (autocast, build_generator, compute_dtype, generator_call, get_corpus,
-                     get_device, get_mesh, get_tokenizer, rank_generators)
+from .common import (autocast, build_generator, compute_dtype, get_corpus, get_device,
+                     get_mesh, get_tokenizer, rank_generators)
 from .graphs import step_runner
 from .loop import EarlyStopper, Throughput, clock_of, validate
 from .state import AdamWithClip, BestKeeper, save_state_dict
@@ -80,9 +80,8 @@ def make_warmup_steps(model, optimizer: AdamWithClip, dtype: torch.dtype = torch
 
     def loss(batch, generator, coins, row_mask=None):
         with autocast(batch["x"].device, dtype):
-            logits = generator_call(model, batch["nx"], batch["labels"], batch["x"],
-                                    batch["labels"], mode="sched", generator=generator,
-                                    coins=coins)
+            logits = model(batch["nx"], batch["labels"], batch["x"], batch["labels"],
+                           mode="sched", generator=generator, coins=coins)
             return softmax_cross_entropy_tokens(logits, batch["x"], row_mask=row_mask)
 
     def train_step(batch, generator=None, coins=None, coin_generator=None):

@@ -9,9 +9,9 @@ and then costs nothing; the trace goes to ``log_dir``, else
 
 ``report_launches`` (on when ``TPUST_KERNEL_COUNTS=1``) prints, after a CLI
 command, one JSON line to stderr with the rank, the command's seconds and
-the launch counts of the port's kernels in this process: a process started
-by the launcher counts its own launches, which no caller can read
-otherwise.
+the launch counts of the port's kernels in this process (every
+``kernel.*`` total): a process started by the launcher counts its own
+launches, which no caller can read otherwise.
 
 **Spans and counters** (:data:`RECORDER`). ``with span(name, step=, batch=)``
 around a layer's work records (name, start ns, end ns, its sequence number,
@@ -31,11 +31,26 @@ stage loops' ``epoch`` and ``validate``, a graph's first call and capture:
 once an epoch or a capture) is timed and recorded whether on or not, and
 gives its ``seconds``.
 
+**Work a CUDA graph replays.** ``count_step(name, n)`` counts work that a
+graph may capture: each hand-written kernel's launches
+(``kernel.<wrapper>``: ``kernel.lstm_cell_fwd``, ``kernel.sinkhorn_cuda``,
+...), the expert layer's routed rows (``moe.rows``), the generator's weight
+casts (``generator.weight_casts``). Work done now adds to an always-kept
+total (:func:`total`) and, when recording, is an event as ``count``'s. On a
+stream that a :func:`kept_counts` scope captures it is kept in the scope's
+sums instead, and the graph counts those again at each replay
+(:func:`count_replay`), so a total counts what ran, eager or replayed. The
+sums belong to the capturing stream, not to a thread: the autograd engine
+runs a captured backward on its own thread, on the capturing stream, while
+another thread's work during a capture (the prefetcher's Sinkhorn) runs on
+its own stream and counts now. Work captured outside such a scope never
+runs, and counts nothing.
+
 Kept always, once a capture: :data:`RECORDER`'s ``graphs``, one entry per
 captured branch of a ``train/graphs.py::GraphedStep`` (its step's name, the
 branch key, the eager first call's and the capture's host seconds, the
 graph's node count), readable after the step objects are gone, as the
-kernels' ``.launches`` are. On the card, when on, each replayed call (its
+totals are. On the card, when on, each replayed call (its
 copies into the static buffers and the replay) is timed on the device by a
 pair of CUDA events; the pairs are read once done, at a later replay or
 the stage's next sync (:func:`read_device_times`, which never waits), as
@@ -110,13 +125,16 @@ class Recorder:
         self.last_end = None  # the newest read replay's end event
         self.spare_events: list = []
         self.sm_clock: int | None = None  # the newest sm_clock_mhz reading
-        self.step_counts: list | None = None  # count_step's, while a graph captures
+        self.totals: collections.Counter = collections.Counter()  # count_step's, always
+        self.totals_lock = threading.Lock()  # threads count the same names
+        self.kept: dict[int, collections.Counter] = {}  # capturing stream -> kept_counts
         self.local = threading.local()
         self.seq = itertools.count()
         self.batch_ids = itertools.count()
 
     def clear(self) -> None:
-        """Forget every span, counter and device timing (not the graphs)."""
+        """Forget every span, counter and device timing (not the graphs and
+        totals)."""
         self.spans.clear()
         self.counters.clear()
         self.pending.clear()
@@ -229,15 +247,56 @@ def count(name: str, n: float = 1) -> None:
         RECORDER.counters.append((name, time.perf_counter_ns(), n))
 
 
+def capturing_stream() -> int | None:
+    """The handle of the current CUDA stream while it captures a graph;
+    None otherwise, and always off the card."""
+    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
+        return torch.cuda.current_stream().cuda_stream
+    return None
+
+
+def _done(name: str, n: float) -> None:
+    with RECORDER.totals_lock:
+        RECORDER.totals[name] += n
+    count(name, n)
+
+
 def count_step(name: str, n: float) -> None:
-    """Add ``n`` to the counter ``name`` for work a CUDA graph may capture:
-    while a :class:`~..train.graphs.GraphedStep` captures, the count is kept
-    with its graph and added again at each replay (``train/graphs.py``);
-    otherwise as :func:`count`."""
-    if RECORDER.step_counts is not None:
-        RECORDER.step_counts.append((name, n))
-    else:
-        count(name, n)
+    """Count ``n`` of the work ``name``, which a CUDA graph may capture (see
+    the module note): done now, it adds to the total and, when recording,
+    to the counter; on a stream a :func:`kept_counts` scope captures it is
+    added to the scope's sums; on any other capturing stream it counts
+    nothing."""
+    stream = capturing_stream()
+    if stream is None:
+        _done(name, n)
+    elif stream in RECORDER.kept:
+        RECORDER.kept[stream][name] += n
+
+
+@contextlib.contextmanager
+def kept_counts(stream: int):
+    """The sums by name (a ``Counter``) that :func:`count_step` keeps
+    inside, of the work captured on the CUDA stream with handle
+    ``stream``."""
+    kept = RECORDER.kept[stream] = collections.Counter()
+    try:
+        yield kept
+    finally:
+        del RECORDER.kept[stream]
+
+
+def count_replay(kept) -> None:
+    """Count one replay of a graph whose capture kept ``kept``, (name, n)
+    pairs."""
+    for name, n in kept:
+        _done(name, n)
+
+
+def total(name: str) -> float:
+    """All the work ``name`` counted through :func:`count_step` in this
+    process: done eagerly, or replayed."""
+    return RECORDER.totals[name]
 
 
 def next_batch_id() -> int:
@@ -389,49 +448,12 @@ if RECORDER.env:
     atexit.register(_export_at_exit)
 
 
-class StepTimer:
-    """Per-step wall times on the host clock (a ``with`` block each), with
-    p50/p95/mean summaries. A device step is timed only if the block ends
-    in a synchronisation."""
-
-    def __init__(self):
-        self.times: list[float] = []
-        self._t0: float | None = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-
-    def summary(self) -> dict:
-        if not self.times:
-            return {}
-        ts = sorted(self.times)
-        n = len(ts)
-        return {
-            "steps": n,
-            "p50_ms": ts[n // 2] * 1e3,
-            "p95_ms": ts[min(int(n * 0.95), n - 1)] * 1e3,
-            "mean_ms": sum(ts) / n * 1e3,
-        }
-
-
 def report_launches(command: str, seconds: float, rank: int = 0) -> None:
     """Print ``{"kernel_launches": ...}`` for this process to stderr when
-    ``TPUST_KERNEL_COUNTS=1``; nothing otherwise."""
+    ``TPUST_KERNEL_COUNTS=1``: the rank, the command, its seconds and every
+    ``kernel.*`` total; nothing otherwise."""
     if os.environ.get("TPUST_KERNEL_COUNTS", "0") != "1":
         return
-    from ..kernels.decode_step import fused_decode_logits
-    from ..kernels.lstm_cell import lstm_cell_bwd, lstm_cell_fwd
-    from ..kernels.sinkhorn import sinkhorn_cuda
-    from ..models.moe import grouped_swiglu
-
-    print(json.dumps({"kernel_launches": {
-        "rank": rank, "command": command, "seconds": seconds,
-        "fused_decode_logits": fused_decode_logits.launches,
-        "sinkhorn": sinkhorn_cuda.launches,
-        "lstm_cell_fwd": lstm_cell_fwd.launches,
-        "lstm_cell_bwd": lstm_cell_bwd.launches,
-        "grouped_swiglu": grouped_swiglu.launches}}), file=sys.stderr, flush=True)
+    kernels = {k: n for k, n in RECORDER.totals.items() if k.startswith("kernel.")}
+    print(json.dumps({"kernel_launches": {"rank": rank, "command": command, "seconds": seconds,
+                                          **kernels}}), file=sys.stderr, flush=True)

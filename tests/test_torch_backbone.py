@@ -14,6 +14,8 @@ training stages and entry points:
   frameworks);
 - the configuration (``--backbone``, ``--beam_size``, the warmup checkpoint
   name, the generator each backbone builds and its dtype);
+- the call every generator answers for the stages, on each backbone at
+  narrow widths;
 - a tiny CPU run of ``warmup``, ``optimize``, ``infer`` and ``serve``
   through the CLI with ``--backbone transformer --beam_size 4 --device cpu``
   at the full T5-small widths.
@@ -48,16 +50,17 @@ from consistent__style_transfer_torch.config import config_from_args, make_confi
 from consistent__style_transfer_torch.data.prefetch import to_device  # noqa: E402
 from consistent__style_transfer_torch.models import (  # noqa: E402
     DenoiseSeq2Seq,
+    Lfm2MoeGenerator,
     PairMatcher,
     RelGANDiscriminator,
     TextCNN,
     TransformerLM,
     TransformerSeq2Seq,
 )
+from consistent__style_transfer_torch.models import lfm2_moe, seq2seq_transformer  # noqa: E402
 from consistent__style_transfer_torch.train import optimize, warmup  # noqa: E402
 from consistent__style_transfer_torch.train.common import (  # noqa: E402
     build_generator,
-    generator_call,
     get_tokenizer,
 )
 from consistent__style_transfer_torch.train.state import AdamWithClip  # noqa: E402
@@ -67,6 +70,8 @@ V, B, L = 30, 4, 6
 LR, CLIP = 1e-3, 1.0
 NARROW = dict(D_MODEL=32, N_HEADS=4, HEAD_DIM=8, N_ENC=2, N_DEC=2, D_FF=64)
 PORT_NARROW = dict(d_model=32, n_heads=4, n_enc=2, n_dec=2, d_ff=64)
+LFM2_NARROW = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=96,
+                   d_expert=32, n_experts=8, top_k=4, n_dense=1)
 SCORER = dict(scorer_layers=1, scorer_d_model=16, scorer_heads=2)
 PORT_SIZE = dict(n_layers=1, d_model=16, n_heads=2)
 LOSS_W = dict(w_rec=0.5, w_copy=1.0)  # every branch of the G loss
@@ -291,25 +296,52 @@ def test_build_generator_per_backbone():
         assert g.lm_head.out_features == 20 and len(g.enc_layers) == 6
 
 
-def test_generator_call_dispatch_and_layout():
-    """sched with a teacher is the parallel pass and ignores coins; every
-    other mode generates over the teacher's length (max_len without one);
-    ``time_major_out`` transposes soft outputs only."""
-    model = TransformerSeq2Seq(V, 2, L, p_drop=0.0, **PORT_NARROW).eval()
+def _narrow_generator(backbone: str):
+    """The backbone at narrow widths in eval mode, without dropout, and its
+    module's ``generate`` (None for the LSTM, which decodes in its forward)."""
+    if backbone == "lstm":
+        return DenoiseSeq2Seq(V, 2, L, p_drop=0.0).eval(), None
+    if backbone == "transformer":
+        return (TransformerSeq2Seq(V, 2, L, p_drop=0.0, **PORT_NARROW).eval(),
+                seq2seq_transformer.generate)
+    return Lfm2MoeGenerator(V, 2, L, p_drop=0.0, **LFM2_NARROW).eval(), lfm2_moe.generate
+
+
+@pytest.mark.parametrize("backbone", ["lstm", "transformer", "lfm2_moe"])
+def test_the_stages_call_on_each_backbone(backbone):
+    """``G(inp, label_i, x, label, mode=, tau=, time_major_out=, generator=,
+    coins=)``: ``sched`` with a teacher is the teacher-forced pass (the
+    LSTM's with every coin heads is its ``teacher`` mode; the batch-major
+    backbones' is their parallel pass, which ignores the coins); every other
+    mode decodes over the teacher's length, or ``max_len`` without one, the
+    batch-major backbones' exactly as their module's ``generate``;
+    ``time_major_out`` transposes soft outputs only; ``mode="teacher"``
+    raises where the backbone has no such mode, or (the LSTM) without a
+    teacher."""
+    model, generate = _narrow_generator(backbone)
     b = {k: torch.from_numpy(v) for k, v in _batch(1).items()}
     x, li = b["x"], b["labels"]
-    teacher = generator_call(model, x, li, x, 1 - li, mode="sched",
-                             coins=torch.zeros(L, dtype=torch.bool))
-    assert torch.equal(teacher, model(x, li, x, 1 - li))
-    st = generator_call(model, x, li, None, 1 - li, mode="st", tau=0.5)
-    st_tm = generator_call(model, x, li, None, 1 - li, mode="st", tau=0.5, time_major_out=True)
-    assert st.shape == (B, L, V) and torch.equal(st_tm, st.transpose(0, 1))
-    short = generator_call(model, x, li, x[:, :3], 1 - li, mode="st")
-    assert short.shape == (B, 3, V)
-    ids = generator_call(model, x, li, None, 1 - li, mode="greedy", time_major_out=True)
+    heads = torch.ones(L, dtype=torch.bool)
+    teacher = model(x, li, x, 1 - li, mode="sched", coins=heads)
+    st = model(x, li, None, 1 - li, mode="st", tau=0.5)
+    st_tm = model(x, li, None, 1 - li, mode="st", tau=0.5, time_major_out=True)
+    short = model(x, li, x[:, :3], 1 - li, mode="st")
+    ids = model(x, li, None, 1 - li, mode="greedy", time_major_out=True)
+    assert teacher.shape == st.shape == (B, L, V) and short.shape == (B, 3, V)
+    assert torch.equal(st_tm, st.transpose(0, 1))
     assert ids.shape == (B, L) and ids.dtype == torch.int32
+    if generate is None:
+        assert torch.equal(teacher, model(x, li, x, 1 - li, mode="teacher"))
+        with pytest.raises(ValueError, match="teacher"):
+            model(x, li, None, 1 - li, mode="teacher")
+        return
+    assert torch.equal(teacher, model.teacher_pass(x, li, x, 1 - li))
+    assert torch.equal(teacher, model(x, li, x, 1 - li, mode="sched", coins=~heads))
+    assert torch.equal(st, generate(model, x, li, 1 - li, mode="st", tau=0.5))
+    assert torch.equal(short, generate(model, x, li, 1 - li, mode="st", L_out=3))
+    assert torch.equal(ids, generate(model, x, li, 1 - li, mode="greedy"))
     with pytest.raises(ValueError, match="mode"):
-        generator_call(model, x, li, x, 1 - li, mode="teacher")
+        model(x, li, x, 1 - li, mode="teacher")
 
 
 # ------------------------------------------------------------- through the CLI

@@ -25,7 +25,6 @@ from consistent__style_transfer_torch.models.beam import beam_decode_any, beam_s
 from consistent__style_transfer_torch.models.generator import DenoiseSeq2Seq  # noqa: E402
 from consistent__style_transfer_torch.models.seq2seq_transformer import (  # noqa: E402
     TransformerSeq2Seq,
-    beam_decode,
     generate,
 )
 from consistent__style_transfer_torch.train.infer import make_transfer_step  # noqa: E402
@@ -132,10 +131,19 @@ def test_scores_are_teacher_forced_logprobs(models, backbone):
 
 
 def test_transformer_beam_decode_is_the_prefix_beam(models):
+    """The transformer's beam is :func:`beam_search` over its own
+    teacher-forced log-probs of each prefix."""
     _, _, pm = models["transformer"]
     x, li = (torch.tensor(a) for a in _inputs(4))
-    a = beam_decode(pm, x, li, 1 - li, beam_size=3)
-    b = beam_decode_any(pm, x, li, 1 - li, beam_size=3)
+    K = 3
+
+    def next_logp(prefix, t, expanded):
+        rows = (x.repeat_interleave(K, 0), li.repeat_interleave(K, 0)) if expanded else (x, li)
+        logits = pm.teacher_pass(rows[0], rows[1], prefix, 1 - rows[1])
+        return torch.log_softmax(logits[:, t].float(), dim=-1)
+
+    a = beam_search(next_logp, B, L, V, K, 0.6)
+    b = beam_decode_any(pm, x, li, 1 - li, beam_size=K)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 

@@ -32,9 +32,9 @@ from consistent__style_transfer_torch.kernels.decode_step import (  # noqa: E402
     decode_head_reference,
     fused_decode_logits,
 )
-from consistent__style_transfer_torch.kernels.sinkhorn import sinkhorn_cuda  # noqa: E402
 from consistent__style_transfer_torch.text.bpe import BPETokenizer  # noqa: E402
 from consistent__style_transfer_torch.text.word2vec import train_token_w2v  # noqa: E402
+from consistent__style_transfer_torch.utils.profiling import total  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,9 +94,9 @@ def test_labeler_on_the_card_equals_the_cpu_at_45_atoms(cuda_device, book):
         p, q, _, _ = card.pair_inputs(nx1, nl1, nx2, nl2)
         assert p.shape == q.shape == (BOOK_B, ATOMS)
         over_32 += int((((p > 0).sum(-1) > 32) | ((q > 0).sum(-1) > 32)).sum())
-        launches = sinkhorn_cuda.launches
+        launches = total("kernel.sinkhorn_cuda")
         got = card.label_pairs(nx1, nl1, nx2, nl2)
-        assert sinkhorn_cuda.launches == launches + 1
+        assert total("kernel.sinkhorn_cuda") == launches + 1
         want = cpu.label_pairs(nx1, nl1, nx2, nl2)
         assert got.device.type == "cuda" and got.shape == (BOOK_B,)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
@@ -113,9 +113,9 @@ def test_decode_head_at_b128_matches_the_plain_version(cuda_device, dtype, V):
 
     x, w1, b1, w2 = u((BOOK_B, 1024), 1.0), u((512, 1024), 1024 ** -0.5), \
         u((512,), 1024 ** -0.5), u((V, 512), 512 ** -0.5)
-    launches = fused_decode_logits.launches
+    launches = total("kernel.fused_decode_logits")
     ids, h = fused_decode_logits(x, w1, b1, w2)
-    assert fused_decode_logits.launches == launches + 1
+    assert total("kernel.fused_decode_logits") == launches + 1
     ref_ids, ref_h = decode_head_reference(x, w1, b1, w2)
     assert ids.shape == (BOOK_B,) and ids.dtype == torch.int32 and h.shape == (BOOK_B, 512)
     if dtype == torch.float32:

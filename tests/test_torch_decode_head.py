@@ -19,6 +19,7 @@ from consistent__style_transfer_torch.kernels.decode_step import (  # noqa: E402
     decode_head_reference,
     fused_decode_logits,
 )
+from consistent__style_transfer_torch.utils.profiling import total  # noqa: E402
 
 H_ATOL = 1e-5  # f32 h: the same sums in another order
 
@@ -77,6 +78,6 @@ def test_tie_goes_to_first_index():
 
 def test_cpu_wrapper_does_not_count_launches():
     x, w1, b1, w2 = _inputs(4, 4, 16, 16, 64)
-    before = fused_decode_logits.launches
+    before = total("kernel.fused_decode_logits")
     _port_head(fused_decode_logits, x, w1, b1, w2)
-    assert fused_decode_logits.launches == before
+    assert total("kernel.fused_decode_logits") == before

@@ -16,6 +16,7 @@ from consistent__style_transfer_torch.kernels.decode_step import (  # noqa: E402
     decode_head_reference,
     fused_decode_logits,
 )
+from consistent__style_transfer_torch.utils.profiling import total  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -50,9 +51,9 @@ def test_kernel_matches_plain_f32(cuda_device, shape):
     """f32 without TF32: ids equal, h within 1e-4 (the same f32 sums in
     another order)."""
     arrays = _inputs(5, *shape)
-    before = fused_decode_logits.launches
+    before = total("kernel.fused_decode_logits")
     ids, h = _run(fused_decode_logits, arrays, cuda_device)
-    assert fused_decode_logits.launches == before + 1
+    assert total("kernel.fused_decode_logits") == before + 1
     ref_ids, ref_h = _run(decode_head_reference, arrays, cuda_device)
     np.testing.assert_array_equal(ids, ref_ids)
     np.testing.assert_allclose(h, ref_h, rtol=0, atol=1e-4)
@@ -87,9 +88,9 @@ def _check_bf16(arrays, device):
     inputs; an id that differs from the plain version's must be a near-tie
     (within 1e-2) of the f32 logits' maximum. One launch per call."""
     x, w1, b1, w2 = (torch.tensor(a, device=device).to(torch.bfloat16) for a in arrays)
-    before = fused_decode_logits.launches
+    before = total("kernel.fused_decode_logits")
     ids, h = fused_decode_logits(x, w1, b1, w2)
-    assert fused_decode_logits.launches == before + 1
+    assert total("kernel.fused_decode_logits") == before + 1
     ref_ids, ref_h = decode_head_reference(x, w1, b1, w2)
     h32 = decode_head_reference(x.float(), w1.float(), b1.float(), w2.float())[1]
     logits32 = h32 @ w2.float().t()

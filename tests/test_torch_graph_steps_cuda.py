@@ -41,7 +41,6 @@ torch = pytest.importorskip("torch")
 
 from consistent__style_transfer_torch.config import make_config  # noqa: E402
 from consistent__style_transfer_torch.data.pipeline import Batch  # noqa: E402
-from consistent__style_transfer_torch.kernels.decode_step import fused_decode_logits  # noqa: E402
 from consistent__style_transfer_torch.models import (  # noqa: E402
     DenoiseSeq2Seq,
     PairMatcher,
@@ -52,7 +51,6 @@ from consistent__style_transfer_torch.models import (  # noqa: E402
 )
 from consistent__style_transfer_torch.models.beam import beam_decode_any  # noqa: E402
 from consistent__style_transfer_torch.train import state as state_module  # noqa: E402
-from consistent__style_transfer_torch.train.common import generator_call  # noqa: E402
 from consistent__style_transfer_torch.train.graphs import GraphedStep  # noqa: E402
 from consistent__style_transfer_torch.train.infer import make_transfer_step  # noqa: E402
 from consistent__style_transfer_torch.train.loop import validate  # noqa: E402
@@ -67,6 +65,7 @@ from consistent__style_transfer_torch.train.warmup import (  # noqa: E402
     WARMUP_INPUTS,
     make_warmup_steps,
 )
+from consistent__style_transfer_torch.utils.profiling import total  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 V, B, L = 300, 16, 6
@@ -75,6 +74,7 @@ SIZE = dict(d_model=32, n_heads=2, n_layers=2)
 G_SIZE = dict(d_model=32, n_heads=4, n_enc=2, n_dec=2, d_ff=64)
 LOSS_REL, SHARE, BF16_TOKEN_SHARE = 1e-5, 1e-3, 0.01
 P_DROP = 0.1
+HEAD = "kernel.fused_decode_logits"  # the decode head's launches
 
 
 @pytest.fixture
@@ -112,15 +112,15 @@ def test_graphed_greedy_serving_equals_eager(cuda_device, backbone, dtype, rep_p
     step = make_transfer_step(model)
     rng = np.random.default_rng(0)
     got, want = [], []
-    launches = fused_decode_logits.launches
+    launches = total(HEAD)
     for _ in range(4):  # the eager first call with its capture, then replays
         x, labels = _ints(rng, V, (B, length + 2), cuda_device), _labels(rng, cuda_device)
         got.append(step(x, labels).clone())
         with torch.inference_mode():
-            want.append(generator_call(model, x, labels, None, 1 - labels, mode="greedy"))
+            want.append(model(x, labels, None, 1 - labels, mode="greedy"))
     assert isinstance(step.runner, GraphedStep) and list(step.runner.graphs) == [(B, length + 2)]
     if backbone == "lstm" and rep_penalty == 0:  # 4 steps and 4 eager decodes, L heads each
-        assert fused_decode_logits.launches - launches == 8 * length
+        assert total(HEAD) - launches == 8 * length
     got, want = torch.stack(got), torch.stack(want)
     assert got.shape == (4, B, length) and got.dtype == torch.int32
     if dtype == torch.float32:
@@ -179,15 +179,15 @@ def test_decode_head_launches_count_replays(cuda_device, dtype):
     step = make_transfer_step(_generator("lstm", cuda_device, dtype))
     rng = np.random.default_rng(2)
     x, labels = _ints(rng, V, (B, L), cuda_device), _labels(rng, cuda_device)
-    launches, captured = fused_decode_logits.launches, fused_decode_logits.captured
+    launches = total(HEAD)
     n = 5
     for _ in range(n):
         step(x, labels)
     torch.cuda.synchronize()
     # the first call runs L heads eagerly and captures L more, which run
     # at each of the n - 1 replays
-    assert fused_decode_logits.captured - captured == L
-    assert fused_decode_logits.launches - launches == n * L
+    assert dict(step.runner.replay_counts[(B, L)])[HEAD] == L
+    assert total(HEAD) - launches == n * L
 
 
 def _snapshot(tensors):
@@ -324,7 +324,7 @@ def test_graphed_beam_equals_eager_and_launches_no_head(cuda_device, backbone, K
     model = _generator(backbone, cuda_device)
     step = make_transfer_step(model, K)
     rng = np.random.default_rng(5)
-    launches, captured = fused_decode_logits.launches, fused_decode_logits.captured
+    launches = total(HEAD)
     for _ in range(4):  # the eager first call with its capture, then replays
         x, labels = _ints(rng, V, (B, L + 2), cuda_device), _labels(rng, cuda_device)
         ids, scores = (t.clone() for t in step.runner({"x": x, "labels": labels}, (B, L + 2)))
@@ -334,7 +334,7 @@ def test_graphed_beam_equals_eager_and_launches_no_head(cuda_device, backbone, K
     torch.cuda.synchronize()
     assert isinstance(step.runner, GraphedStep) and list(step.runner.graphs) == [(B, L + 2)]
     assert step.runner.replays == 4
-    assert fused_decode_logits.launches == launches and fused_decode_logits.captured == captured
+    assert total(HEAD) == launches and HEAD not in dict(step.runner.replay_counts[(B, L + 2)])
 
 
 def _dev(rng, shapes, n=4, last_valid=5):

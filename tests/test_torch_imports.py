@@ -7,7 +7,8 @@ runs the eval commands so), names none of them in its sources or in
 chip_smoke.py, builds its native library from ``native/tpust.cc`` into its
 own build directory (never loading the JAX package's ``native/libtpust.so``),
 and its entry points refuse to carry on without CUDA unless asked for the
-CPU."""
+CPU. Its lower layers (models, kernels, utils, data) import nothing of
+its training stages."""
 
 import ast
 import os
@@ -121,7 +122,7 @@ eager = step_runner(lambda inputs, key: inputs["a"] + 1, torch.device("cpu"))
 assert not isinstance(eager, GraphedStep) and int(eager({"a": torch.ones(())})) == 2
 from consistent__style_transfer_torch.text.native import native_w2v_train
 from consistent__style_transfer_torch.train.checkpoint import StateCheckpointer
-from consistent__style_transfer_torch.utils.profiling import StepTimer, trace
+from consistent__style_transfer_torch.utils.profiling import trace
 
 vecs = native_w2v_train([[0, 1, 2, 1]] * 20, 3, dim=4, epochs=1, n_threads=1)
 assert vecs.shape == (3, 4), vecs.shape
@@ -135,11 +136,9 @@ with tempfile.TemporaryDirectory() as d:
     ckpt = StateCheckpointer(d)
     ckpt.save(0, {"w": torch.ones(2), "best": 1.0})
     assert ckpt.restore()["best"] == 1.0
-    timer = StepTimer()
-    with trace(d, enabled=True), timer:
+    with trace(d, enabled=True):
         torch.ones(3).sum()
     assert [f for f in os.listdir(d) if f.startswith("trace-")], os.listdir(d)
-    assert timer.summary()["steps"] == 1
 assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
 print("NEW MODULES OK")
 """
@@ -148,7 +147,6 @@ print("NEW MODULES OK")
 _BLOCKED_BACKBONE = r"""
 from consistent__style_transfer_torch.models.beam import beam_decode_any
 from consistent__style_transfer_torch.models.seq2seq_transformer import TransformerSeq2Seq, generate
-from consistent__style_transfer_torch.train.common import generator_call
 from consistent__style_transfer_torch.train.infer import make_transfer_step
 from consistent__style_transfer_torch.train.warmup import warmup_ckpt_name
 from consistent__style_transfer_torch.utils.interop import transformer_generator_state_dict_from_jax
@@ -157,7 +155,7 @@ tf = TransformerSeq2Seq(n_vocab=40, n_class=2, max_len=5, d_model=16, n_heads=2,
                         n_dec=1, d_ff=32).eval()
 x, li = torch.randint(3, 40, (3, 6), generator=g), torch.tensor([0, 1, 0])
 assert generate(tf, x, li, 1 - li, mode="st").shape == (3, 5, 40)
-assert generator_call(tf, x, li, x, 1 - li).shape == (3, 6, 40)
+assert tf(x, li, x, 1 - li).shape == (3, 6, 40)
 for m in (tf, model):
     ids, scores = beam_decode_any(m, x, li, 1 - li, beam_size=3)
     assert ids.shape == (3, 5) and torch.isfinite(scores).all()
@@ -173,7 +171,6 @@ for name in ("models.lfm2_moe", "models.moe"):
     assert "consistent__style_transfer_torch." + name in sys.modules, name
 from consistent__style_transfer_torch.models.beam import beam_decode_any
 from consistent__style_transfer_torch.models.lfm2_moe import Lfm2MoeGenerator, generate
-from consistent__style_transfer_torch.train.common import generator_call
 
 torch.set_num_threads(1)
 g = torch.Generator().manual_seed(0)
@@ -181,7 +178,7 @@ m = Lfm2MoeGenerator(40, 2, 5, n_layers=4, d_model=32, n_heads=4, n_kv_heads=2, 
                      d_ff=48, d_expert=16, n_experts=8, top_k=4, n_dense=1)
 x, li = torch.randint(3, 40, (3, 6), generator=g), torch.tensor([0, 1, 0])
 probs = generate(m, x, li, 1 - li, mode="st")
-logits = generator_call(m, x, li, x, 1 - li)
+logits = m(x, li, x, 1 - li)
 (probs.sum() + logits.square().mean()).backward()
 assert all(p.grad is not None for n, p in m.named_parameters() if "router" not in n)
 ids, scores = beam_decode_any(m.eval(), x, li, 1 - li, beam_size=2)
@@ -312,6 +309,56 @@ def test_no_jax_import_in_sources():
                 continue
             for name in names:
                 assert name.split(".")[0] not in BLOCKED, f"{path}:{node.lineno} imports {name}"
+
+
+def _port_imports(path: str):
+    """(line, module) of each import of the port in ``path``, the module
+    named from the port's root (``train.common``), and the name of the
+    top-level function it sits in (None at module level)."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    package = os.path.relpath(os.path.dirname(path), PORT).split(os.sep)
+    package = [] if package == ["."] else package
+    for top in tree.body:
+        where = top.name if isinstance(top, (ast.FunctionDef, ast.ClassDef)) else None
+        for node in ast.walk(top):
+            if isinstance(node, ast.ImportFrom) and node.level > 0:
+                base = package[:len(package) - node.level + 1]
+                mods = ([node.module] if node.module
+                        else [a.name for a in node.names])
+                for mod in mods:
+                    yield node.lineno, ".".join([*base, mod]), where
+            elif isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                for name in names:
+                    head, _, rest = name.partition(".")
+                    if head == "consistent__style_transfer_torch" and rest:
+                        yield node.lineno, rest, where
+
+
+def test_lower_layers_import_no_higher_layer():
+    """The import arrows point one way: no module under ``models/``,
+    ``kernels/``, ``utils/`` or ``data/`` imports ``train/`` (but
+    ``data/style_weights.py``'s command, ``main``), and
+    ``train/graphs.py`` and ``utils/profiling.py`` import no kernel and no
+    model."""
+    seen = 0
+    for layer in ("models", "kernels", "utils", "data"):
+        for f in sorted(os.listdir(os.path.join(PORT, layer))):
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(PORT, layer, f)
+            for line, mod, where in _port_imports(path):
+                seen += 1
+                if (layer, f, where) == ("data", "style_weights.py", "main"):
+                    continue
+                assert mod.split(".")[0] != "train", f"{path}:{line} imports {mod}"
+    assert seen > 20
+    for rel in ("train/graphs.py", "utils/profiling.py"):
+        path = os.path.join(PORT, rel)
+        for line, mod, _ in _port_imports(path):
+            assert mod.split(".")[0] not in ("kernels", "models"), f"{path}:{line} imports {mod}"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):

@@ -33,7 +33,6 @@ from consistent__style_transfer_torch.models.lfm2_moe import (  # noqa: E402
 )
 from consistent__style_transfer_torch.train.common import (  # noqa: E402
     build_generator,
-    generator_call,
     get_tokenizer,
 )
 from consistent__style_transfer_torch.train.warmup import warmup_ckpt_name  # noqa: E402
@@ -139,8 +138,7 @@ def test_generator_gradients_of_an_optimize_step():
         return (probs * proj).sum() + ce
 
     def port_call(model, mode, gen):
-        return generator_call(model, x, labels, None, 1 - labels, mode=mode, tau=0.1,
-                              generator=gen)
+        return model(x, labels, None, 1 - labels, mode=mode, tau=0.1, generator=gen)
 
     def ref_call(model, mode, gen):
         return model.decode(x, labels, 1 - labels, L, mode=mode, tau=0.1, generator=gen)
@@ -259,15 +257,23 @@ def test_spans_and_counters_of_an_eager_call(monkeypatch):
     assert rows == [("moe.rows", 24)]
 
 
-def test_count_step_is_kept_with_a_capture():
-    """While a graph captures, ``count_step`` goes to the capture's list
-    (replayed by ``GraphedStep``), not to the counters."""
-    profiling.RECORDER.step_counts = kept = []
+def test_count_step_is_kept_with_a_capture(monkeypatch):
+    """While a ``kept_counts`` scope's stream captures, ``count_step`` goes
+    to the scope's sums (replayed by ``GraphedStep``), not to the totals or
+    the counters."""
+    monkeypatch.setattr(profiling.RECORDER, "env", True)
+    monkeypatch.setattr(profiling, "capturing_stream", lambda: 7)
+    profiling.RECORDER.clear()
+    before = profiling.total("moe.rows")
     try:
-        profiling.count_step("moe.rows", 12)
+        with profiling.kept_counts(7) as kept:
+            profiling.count_step("moe.rows", 12)
+            profiling.count_step("moe.rows", 3)
+        counters = list(profiling.RECORDER.counters)
     finally:
-        profiling.RECORDER.step_counts = None
-    assert kept == [("moe.rows", 12)]
+        profiling.RECORDER.clear()
+    assert dict(kept) == {"moe.rows": 15} and not counters
+    assert profiling.total("moe.rows") == before
 
 
 def test_cli_warmup_optimize_infer_serve(tiny_corpus, tmp_path, capsys):

@@ -13,7 +13,7 @@ generators' states, and D's parameters while D is not applied (D's bf16
 weight gradients differ in their last bits between the two). An eager step runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host sync anywhere in it
 raises, and the captured step replays, adding its grouped products to
-``grouped_swiglu.launches`` and its routed rows to each layer's ``load``.
+``kernel.grouped_swiglu`` and its routed rows to each layer's ``load``.
 In float32 the expert layer raises on the card.
 """
 
@@ -33,12 +33,13 @@ from consistent__style_transfer_torch.models import (  # noqa: E402
     TransformerLM,
 )
 from consistent__style_transfer_torch.models.lfm2_moe import Cast  # noqa: E402
-from consistent__style_transfer_torch.models.moe import SparseMoE, grouped_swiglu  # noqa: E402
+from consistent__style_transfer_torch.models.moe import SparseMoE  # noqa: E402
 from consistent__style_transfer_torch.train.optimize import (  # noqa: E402
     GraphedFusedStep,
     make_optimize_steps,
 )
 from consistent__style_transfer_torch.train.state import AdamWithClip  # noqa: E402
+from consistent__style_transfer_torch.utils.profiling import total  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 V, B, L, STEPS = 64, 8, 6, 6
@@ -153,12 +154,11 @@ def test_bfloat16_step_makes_no_host_sync_and_replays(cuda_device):
     moes = [m for m in models.generator.modules() if isinstance(m, SparseMoE)]
     for m in moes:
         m.load.zero_()
-    launches = grouped_swiglu.launches
+    launches = total("kernel.grouped_swiglu")
     aux, _ = runner(batches[2], False)
     torch.cuda.synchronize()
-    captured = runner.replay_launches[False]
-    n = dict((k.__name__, v) for k, v in captured)["grouped_swiglu"]
-    assert n > 0 and grouped_swiglu.launches - launches == n
+    n = dict(runner.replay_counts[False])["kernel.grouped_swiglu"]
+    assert n > 0 and total("kernel.grouped_swiglu") - launches == n
     assert torch.isfinite(aux["loss"])
     # rows a step: 3 MoE layers, top 4, over the G decode (2L positions), the
     # back-translation pass (2L) and D's decode (2L)

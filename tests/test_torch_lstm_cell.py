@@ -2,10 +2,11 @@
 (``kernels/lstm_cell.py``), on the CPU: which inputs the CUDA kernels take,
 that CUDA inputs they do not take raise and CPU tensors run the reference,
 the backward equations the kernel implements under ``gradcheck`` in
-float64, the library's name keyed by its source, and the replay counters a
-graphed step adds for each counted kernel. The kernels themselves run in
+float64, the library's name keyed by its source, the wrappers' launch
+counts and the replay counts a graphed step adds for them. The kernels themselves run in
 ``test_torch_lstm_cell_cuda.py`` on the card."""
 
+import contextlib
 import shutil
 from types import SimpleNamespace
 
@@ -69,10 +70,10 @@ def test_cuda_inputs_the_kernel_does_not_take_raise(case, error):
         c = Stub((2, 4, 8), F32)
     elif case == "devices":
         c = Stub((4, 8), F32, device="cuda:1")
-    fwd = lc.lstm_cell_fwd.launches
+    fwd = profiling.total("kernel.lstm_cell_fwd")
     with pytest.raises(error):
         lc.lstm_cell(a, b, c)
-    assert lc.lstm_cell_fwd.launches == fwd
+    assert profiling.total("kernel.lstm_cell_fwd") == fwd
 
 
 def test_the_kernel_takes_a_column_strided_c():
@@ -84,6 +85,11 @@ def test_the_kernel_takes_a_column_strided_c():
     got = lc._unit_cols(c)
     assert got.stride(-1) == 1 and torch.equal(got, c)
     assert lc._unit_cols(got) is got
+
+
+def launches() -> tuple:
+    """The forward and backward kernels' launch totals."""
+    return profiling.total("kernel.lstm_cell_fwd"), profiling.total("kernel.lstm_cell_bwd")
 
 
 def cell_inputs(B=3, H=5, gates=F32, state=F32, seed=0, grad=False):
@@ -98,12 +104,12 @@ def test_cpu_cells_run_the_reference_uncounted(gates, state):
     """CPU tensors of any dtype pair run the plain equations, as before the
     kernel, and count no launch."""
     a, b, c = cell_inputs(gates=gates, state=state)
-    fwd, bwd = lc.lstm_cell_fwd.launches, lc.lstm_cell_bwd.launches
+    before = launches()
     h, c_new = lc.lstm_cell(a, b, c)
     h_ref, c_ref = lc.lstm_cell_reference(a, b, c)
     assert torch.equal(h, h_ref) and torch.equal(c_new, c_ref)
     assert h.dtype == c_new.dtype == torch.promote_types(gates, state)
-    assert (lc.lstm_cell_fwd.launches, lc.lstm_cell_bwd.launches) == (fwd, bwd)
+    assert launches() == before
 
 
 def test_lstm_module_cell_is_the_reference_on_the_cpu():
@@ -168,18 +174,28 @@ def test_library_path_keys_the_new_source(tmp_path):
     assert _build.library_path("lstm_cell", str(csrc)) != before
 
 
-def test_the_cell_kernels_are_counted_kernels():
-    for k in (lc.lstm_cell_fwd, lc.lstm_cell_bwd):
-        assert k in graphs.COUNTED_KERNELS
-    # with the decode head, the Sinkhorn and the expert layer's grouped products
-    assert len(graphs.COUNTED_KERNELS) == 5
+def test_the_cell_kernels_are_counted_kernels(monkeypatch):
+    """Each wrapper counts its launch through ``count_step``, as
+    ``kernel.lstm_cell_fwd`` and ``kernel.lstm_cell_bwd`` (here the library
+    and the stream are stand-ins, so the wrappers take CPU tensors and
+    launch nothing)."""
+    lib = SimpleNamespace(lstm_cell_forward=lambda *args: 0, lstm_cell_backward=lambda *args: 0)
+    monkeypatch.setattr(lc, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    a, b, c = cell_inputs(gates=BF16)
+    fwd, bwd = launches()
+    _, c_new, gates = lc.lstm_cell_fwd(a, b, c, keep_gates=True)
+    assert launches() == (fwd + 1, bwd)
+    lc.lstm_cell_bwd(gates, c, c_new, c, c, want_dgates=True, want_dc=True)
+    assert launches() == (fwd + 1, bwd + 1)
 
 
 def test_each_replay_adds_its_launches_to_the_recorder(monkeypatch):
-    """A replayed branch adds its captured launches to each kernel's
-    ``.launches`` and, while spans record, to the counter
+    """A replayed branch adds the launches its capture kept to each
+    kernel's total always and, while spans record, to the counter
     ``kernel.<name>``."""
-    monkeypatch.setattr(profiling.RECORDER, "env", True)
     monkeypatch.setattr(profiling, "device_mark", lambda: None)
     monkeypatch.setattr(profiling, "device_step", lambda start, t_ns: None)
     profiling.RECORDER.clear()
@@ -189,15 +205,15 @@ def test_each_replay_adds_its_launches_to_the_recorder(monkeypatch):
     step.graphs[None] = SimpleNamespace(replay=lambda: replays.append(1))
     step.outputs[None] = "out"
     step.branches[None] = 0
-    step.replay_launches[None] = ((lc.lstm_cell_fwd, 162), (lc.lstm_cell_bwd, 108))
-    fwd, bwd = lc.lstm_cell_fwd.launches, lc.lstm_cell_bwd.launches
+    step.replay_counts[None] = (("kernel.lstm_cell_fwd", 162), ("kernel.lstm_cell_bwd", 108))
+    fwd, bwd = launches()
     try:
-        for _ in range(3):
+        for recording in (True, True, True, False):
+            monkeypatch.setattr(profiling.RECORDER, "env", recording)
             assert step({"x": torch.ones(2)}) == "out"
         counters = [(n, v) for n, _, v in profiling.RECORDER.counters if n.startswith("kernel.")]
     finally:
         profiling.RECORDER.clear()
-    assert len(replays) == 3
-    assert lc.lstm_cell_fwd.launches - fwd == 3 * 162
-    assert lc.lstm_cell_bwd.launches - bwd == 3 * 108
+    assert len(replays) == 4
+    assert launches() == (fwd + 4 * 162, bwd + 4 * 108)
     assert counters == [("kernel.lstm_cell_fwd", 162), ("kernel.lstm_cell_bwd", 108)] * 3

@@ -30,6 +30,7 @@ import torch.nn.functional as F  # noqa: E402
 from consistent__style_transfer_torch.kernels import lstm_cell as lc  # noqa: E402
 from consistent__style_transfer_torch.models.generator import LSTM  # noqa: E402
 from consistent__style_transfer_torch.train.graphs import GraphedStep  # noqa: E402
+from consistent__style_transfer_torch.utils.profiling import total  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 BF16, F32 = torch.bfloat16, torch.float32
@@ -65,12 +66,12 @@ def rel(x, ref):
 @pytest.mark.parametrize("pair", list(PAIRS))
 def test_forward_is_bit_identical_to_the_reference(cuda_device, pair, shape):
     a, b, c, _, _ = inputs(*SHAPES[shape], *PAIRS[pair])
-    fwd = lc.lstm_cell_fwd.launches
+    fwd = total("kernel.lstm_cell_fwd")
     with torch.autocast("cuda", dtype=BF16):
         h, c_new = lc.lstm_cell(a, b, c)
         h_ref, c_ref = lc.lstm_cell_reference(a, b, c)
     torch.cuda.synchronize()
-    assert lc.lstm_cell_fwd.launches == fwd + 1
+    assert total("kernel.lstm_cell_fwd") == fwd + 1
     assert h.dtype == h_ref.dtype and c_new.dtype == c_ref.dtype
     assert torch.equal(h, h_ref) and torch.equal(c_new, c_ref)
 
@@ -97,10 +98,10 @@ def test_a_column_strided_c_is_copied_for_the_kernel(cuda_device, pair):
     a, b, c, dh, dcn = inputs(64, 128, gates, state, seed=9)
     strided = torch.stack([c, c], dim=-1)[..., 0]
     assert strided.stride(-1) == 2
-    fwd, bwd = lc.lstm_cell_fwd.launches, lc.lstm_cell_bwd.launches
+    fwd, bwd = total("kernel.lstm_cell_fwd"), total("kernel.lstm_cell_bwd")
     got = grads(a, b, strided, dh, dcn, lc.lstm_cell)
     want = grads(a, b, c, dh, dcn, lc.lstm_cell)
-    assert (lc.lstm_cell_fwd.launches - fwd, lc.lstm_cell_bwd.launches - bwd) == (2, 2)
+    assert (total("kernel.lstm_cell_fwd") - fwd, total("kernel.lstm_cell_bwd") - bwd) == (2, 2)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
@@ -111,10 +112,10 @@ def test_other_dtype_pairs_raise_on_the_card(cuda_device, gates, state):
     """No plain fallback on the card: a dtype pair the kernel does not take
     is a TypeError, and nothing launches."""
     a, b, c, _, _ = inputs(8, 16, gates, state)
-    fwd = lc.lstm_cell_fwd.launches
+    fwd = total("kernel.lstm_cell_fwd")
     with pytest.raises(TypeError):
         lc.lstm_cell(a, b, c)
-    assert lc.lstm_cell_fwd.launches == fwd
+    assert total("kernel.lstm_cell_fwd") == fwd
 
 
 @pytest.mark.parametrize("pair", ["bf16_f32", "bf16_bf16"])
@@ -147,9 +148,9 @@ def grads(a, b, c, dh, dcn, fn, dtype=None):
 @pytest.mark.parametrize("pair", list(PAIRS))
 def test_backward_against_autograd_and_float64(cuda_device, pair, shape):
     a, b, c, dh, dcn = inputs(*SHAPES[shape], *PAIRS[pair], seed=1)
-    bwd = lc.lstm_cell_bwd.launches
+    bwd = total("kernel.lstm_cell_bwd")
     da, db, dc = grads(a, b, c, dh, dcn, lc.lstm_cell)
-    assert lc.lstm_cell_bwd.launches == bwd + 1
+    assert total("kernel.lstm_cell_bwd") == bwd + 1
     assert torch.equal(da, db)
     ea, eb, ec = grads(a, b, c, dh, dcn, lc.lstm_cell_reference)
     assert da.dtype == ea.dtype and dc.dtype == ec.dtype
@@ -189,8 +190,9 @@ def test_no_grad_forward_is_the_same_kernel(cuda_device):
 
 def test_one_cell_in_a_cuda_graph_replays_to_the_eager_result(cuda_device):
     """A cell's forward and backward captured by ``GraphedStep``: each replay
-    gives the eager kernels' bits, and ``.launches`` counts each replay's
-    forward and backward."""
+    gives the eager kernels' bits; the capture keeps the forward's launch
+    and the backward's (made on the autograd engine's thread, on the
+    capturing stream), and each replay adds both to the totals."""
 
     def step(inputs, key):
         leaves = [inputs[k].detach().requires_grad_() for k in ("a", "b", "c")]
@@ -201,7 +203,7 @@ def test_one_cell_in_a_cuda_graph_replays_to_the_eager_result(cuda_device):
     run = GraphedStep(step, name="test.lstm_cell")
     names = ("a", "b", "c", "dh", "dcn")
     run(dict(zip(names, inputs(256, 256, BF16, F32, seed=5))))  # eager first call, capture
-    fwd, bwd = lc.lstm_cell_fwd.launches, lc.lstm_cell_bwd.launches
+    fwd, bwd = total("kernel.lstm_cell_fwd"), total("kernel.lstm_cell_bwd")
     for seed in (6, 7, 8):
         batch = dict(zip(names, inputs(256, 256, BF16, F32, seed=seed)))
         got = [t.clone() for t in run(batch)]
@@ -210,5 +212,6 @@ def test_one_cell_in_a_cuda_graph_replays_to_the_eager_result(cuda_device):
             assert torch.equal(x, y)
     torch.cuda.synchronize()
     assert run.replays == 3
-    assert lc.lstm_cell_fwd.launches - fwd == 3 + 3  # three replays, three eager checks
-    assert lc.lstm_cell_bwd.launches - bwd == 3 + 3
+    assert run.replay_counts[None] == (("kernel.lstm_cell_fwd", 1), ("kernel.lstm_cell_bwd", 1))
+    assert total("kernel.lstm_cell_fwd") - fwd == 3 + 3  # three replays, three eager checks
+    assert total("kernel.lstm_cell_bwd") - bwd == 3 + 3

@@ -29,7 +29,6 @@ torch = pytest.importorskip("torch")
 
 from consistent__style_transfer_tpu.config import make_config as jax_make_config  # noqa: E402
 from consistent__style_transfer_tpu.train import optimize as jax_optimize  # noqa: E402
-from consistent__style_transfer_tpu.train.common import generator_call  # noqa: E402
 from consistent__style_transfer_tpu.train.state import TrainState, adam_with_clip  # noqa: E402
 from consistent__style_transfer_torch.config import make_config  # noqa: E402
 from consistent__style_transfer_torch.data.prefetch import to_device  # noqa: E402
@@ -148,10 +147,10 @@ def jax_ref():
                 # D's gradients on one fake decode that both packages get:
                 # the JAX package's st decode of its updated G, as its D step
                 # decodes it (time-major with time_major_probs)
-                fake = generator_call(case_models.generator, g_state.params, batch["x"],
-                                      batch["labels"], None, 1 - batch["labels"], mode="st",
-                                      tau=_jax_cfg(tm, fuse, max_len).tau, deterministic=False,
-                                      rngs={"dropout": key, "coin": key}, time_major_out=tm)
+                fake = case_models.generator.apply(
+                    g_state.params, batch["x"], batch["labels"], None, 1 - batch["labels"],
+                    mode="st", tau=_jax_cfg(tm, fuse, max_len).tau, deterministic=False,
+                    rngs={"dropout": key, "coin": key}, time_major_out=tm)
                 grads, loss = steps.d_grads_reuse(d_params, fake, batch, {"dropout": key})
                 out[name]["same_fake"] = {"fake": np.array(fake), "d_grads": _np(grads),
                                           "d_loss": float(loss)}

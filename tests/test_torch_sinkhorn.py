@@ -29,6 +29,7 @@ from consistent__style_transfer_torch.kernels.sinkhorn import (  # noqa: E402
     sinkhorn_pallas_cr,
 )
 from consistent__style_transfer_torch.ops.emd import exact_ot_cost, sinkhorn_ot_cost  # noqa: E402
+from consistent__style_transfer_torch.utils.profiling import total  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -100,9 +101,9 @@ def test_entries_match_pallas_interpret(entry, jax_entry, case):
     """On CPU tensors both names run the plain version and launch nothing."""
     arrays, iters = CASES[case]
     ref = np.asarray(jax_entry(*arrays, epsilon=0.05, n_iters=iters, interpret=True))
-    before = sinkhorn_cuda.launches
+    before = total("kernel.sinkhorn_cuda")
     got = entry(*_torch(arrays), epsilon=0.05, n_iters=iters).numpy()
-    assert sinkhorn_cuda.launches == before
+    assert total("kernel.sinkhorn_cuda") == before
     np.testing.assert_allclose(got, ref, **TOL)
 
 

@@ -3,7 +3,8 @@ a prefetcher pass over labelled pretrain batches records nothing; on
 (``TPUST_SPANS=1``, or while a ``torch.profiler`` records), the prefetcher
 thread's spans are kept with the batch ids of the consumer's takes; parents
 nest; the stamps are ``perf_counter`` nanoseconds; ``data.ready`` counts a
-queued batch; the device timings' arithmetic; the exit export."""
+queued batch; the device timings' arithmetic; where a count made during a
+capture goes; the exit export."""
 
 from __future__ import annotations
 
@@ -199,6 +200,69 @@ def test_device_times_read_only_what_is_done(recorder):
     profiling.read_device_times()
     assert recorder.counters[1:] == [("step.device_ms", 200, 4.5), ("step.gap_ms", 200, 1.5)]
     assert not recorder.pending
+
+
+def test_a_count_on_another_thread_during_a_capture_counts_at_once(recorder, monkeypatch):
+    """While the main thread captures on its stream (7, a ``kept_counts``
+    scope), a ``count_step`` on a second thread, on a stream of its own (the
+    prefetcher's Sinkhorn), is counted at once: in the total and, when
+    recording, as an event, and not in the scope's sums. A count on the
+    capturing stream from another thread (the autograd engine's, running a
+    captured backward) is kept with the capture; one on a stream captured
+    outside any scope (9) counts nothing. The streams are stand-ins: the
+    CPU has none."""
+    monkeypatch.setattr(recorder, "env", True)
+    on = threading.local()
+    monkeypatch.setattr(profiling, "capturing_stream", lambda: getattr(on, "stream", None))
+    before = {k: profiling.total(f"test.{k}") for k in ("fwd", "bwd", "sinkhorn", "other")}
+
+    def on_thread(stream, name):
+        def work():
+            on.stream = stream
+            profiling.count_step(f"test.{name}", 1)
+        t = threading.Thread(target=work)
+        t.start()
+        t.join(timeout=10)
+        assert not t.is_alive()
+
+    on.stream = 7
+    try:
+        with profiling.kept_counts(7) as kept:
+            profiling.count_step("test.fwd", 1)
+            on_thread(None, "sinkhorn")
+            on_thread(7, "bwd")
+            on_thread(9, "other")
+    finally:
+        on.stream = None
+    assert dict(kept) == {"test.fwd": 1, "test.bwd": 1}
+    assert [(n, v) for n, _, v in recorder.counters] == [("test.sinkhorn", 1)]
+    assert {k: profiling.total(f"test.{k}") - n for k, n in before.items()} == {
+        "fwd": 0, "bwd": 0, "sinkhorn": 1, "other": 0}
+    assert 7 not in recorder.kept
+
+
+def test_totals_lose_no_count_across_threads(recorder):
+    """Eight threads counting one name 5,000 times each, switching every
+    microsecond, leave a total of 40,000 (the prefetcher's thread and the
+    main thread count into the same totals)."""
+    before = profiling.total("test.threads")
+    interval = sys.getswitchinterval()
+
+    def work():
+        for _ in range(5000):
+            profiling.count_step("test.threads", 1)
+
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert profiling.total("test.threads") - before == 40_000
 
 
 def test_clock_and_throughput_off_the_card():
