@@ -68,7 +68,7 @@ from ..kernels.lstm_cell import lstm_cell
 from ..ops.sampling import hard_sample_st
 from . import initializers as init
 from .transformer import dropout
-from .weight_cast import Uses, WeightCast
+from .weight_cast import CastScope, Uses, WeightCast
 
 D_EMBED = 128
 D_ENC = 256
@@ -138,7 +138,7 @@ class LSTM(nn.Module):
         return torch.stack(outs, dim=1), (h, c)
 
 
-class DenoiseSeq2Seq(nn.Module):
+class DenoiseSeq2Seq(CastScope, nn.Module):
     time_major_soft = True  # its soft decode stacks steps (L, B, V) without a transpose
     draws_sched_coins = True  # its teacher-forced decode is sched sampling, a coin a step
 
@@ -158,7 +158,6 @@ class DenoiseSeq2Seq(nn.Module):
         self.transfer = nn.Linear(2 * D_ENC, D_DEC, bias=False)
         self.fn_1 = nn.Linear(D_DEC + 2 * D_ENC, D_DEC)
         self.fn_2 = nn.Linear(D_DEC, n_vocab, bias=False)
-        self._cast: WeightCast | None = None
         self.reset_parameters(torch.Generator().manual_seed(seed))
 
     @torch.no_grad()
@@ -183,26 +182,6 @@ class DenoiseSeq2Seq(nn.Module):
         return [*self.encoder.weights(), *self.encoder.weights(reverse=True),
                 *self.decoder.weights(), self.transfer.weight, self.fn_1.weight,
                 self.fn_1.bias, self.fn_2.weight, self.token_embedding.weight]
-
-    @contextlib.contextmanager
-    def one_cast(self):
-        """The calls inside share one cast of :meth:`product_weights` to the
-        caller's autocast dtype (:class:`~.weight_cast.WeightCast`, counted
-        as ``generator.weight_casts``), made here, so a CUDA graph that
-        captures the scope recasts the updated masters at each replay; each
-        weight's gradient is summed in float32. Engages only under autocast
-        in a dtype other than the parameters' (the training stages); else
-        the products read the weights themselves. The weights must not
-        change inside."""
-        table = self.token_embedding.weight
-        kind, outer = table.device.type, self._cast
-        if torch.is_autocast_enabled(kind) and torch.get_autocast_dtype(kind) != table.dtype:
-            self._cast = WeightCast(self.product_weights(), torch.get_autocast_dtype(kind),
-                                    "generator.weight_casts")
-        try:
-            yield
-        finally:
-            self._cast = outer
 
     def _uses(self, weight, bias=None, transposed: bool = False) -> Uses:
         return Uses(weight, bias, transposed, self._cast)
@@ -280,9 +259,7 @@ class DenoiseSeq2Seq(nn.Module):
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if mode == "teacher" and x is None:
             raise ValueError("mode 'teacher' needs a teacher x")
-        scope = (self.one_cast() if self._cast is None and mode != "greedy"
-                 else contextlib.nullcontext())
-        with scope:
+        with self.call_scope() if mode != "greedy" else contextlib.nullcontext():
             return self._decode(inp, label_i, x, label, mode, tau, time_major_out, generator,
                                 coins, noise)
 

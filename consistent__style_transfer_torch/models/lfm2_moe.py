@@ -51,18 +51,24 @@ product U(+-1/sqrt(fan_in)); the convolution U(+-1/sqrt(3)); norms 1).
 
 Precision: the model follows the configuration's dtype. Under the caller's
 autocast (training: float32 master parameters) every product runs in the
-autocast dtype, and each float32 weight is cast to it once per call
-(:class:`Cast`), not at every step: a decode's backward keeps one copy of
-the weights in that dtype (4.7 GB at the published widths in bfloat16)
-instead of one a step, and the gradient of that copy sums a decode's
-steps in its dtype, as autocast's own weight cache does in an eager step.
-Norms, RoPE, the residual stream and the softmaxes are float32. In serving
-the parameters themselves are in the compute dtype, as the LSTM's are.
+autocast dtype, and each weight a product reads is cast to it once a
+:meth:`~.weight_cast.CastScope.one_cast` scope (the optimize G step's
+decode and back-translation pass share one; a call outside a scope opens
+its own), not at every step (``models/weight_cast.py``; counted as
+``generator.weight_casts``). Each weight's dense products in the scope
+share one :class:`~.weight_cast.Uses`, whose gradient is one float32
+product over the scope's stacked rows; the expert weights' gradients are
+one grouped product each over the scope's stacked routed rows, rounded to
+bfloat16 once (``models/moe.py``). No weight gradient is summed across
+calls in bfloat16. The convolution's weights (3 taps a channel) are cast
+at each call, their gradients summed in float32. Norms, RoPE, the
+residual stream and the softmaxes are float32. In serving the parameters
+themselves are in the compute dtype, as the LSTM's are, and nothing is
+cast.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
@@ -74,6 +80,7 @@ from ..ops.sampling import hard_sample_st
 from .moe import SparseMoE, _uniform_
 from .seq2seq_transformer import batch_major_call
 from .transformer import dropout
+from .weight_cast import CastScope, product
 
 LAYER_TYPES = ("conv", "conv", "full_attention", "conv", "conv", "conv", "full_attention",
                "conv", "conv", "conv", "full_attention", "conv", "conv", "conv",
@@ -86,23 +93,6 @@ MASK_VALUE = -1e30
 GENERATE_MODES = ("st", "sched", "greedy")
 
 
-class Cast:
-    """The model's weights in ``dtype``, each cast once (kept for the
-    call that made this object)."""
-
-    def __init__(self, dtype: torch.dtype):
-        self.dtype = dtype
-        self.done: dict[int, torch.Tensor] = {}
-
-    def __call__(self, p: torch.Tensor) -> torch.Tensor:
-        if p.dtype == self.dtype:
-            return p
-        out = self.done.get(id(p))
-        if out is None:
-            out = self.done[id(p)] = p.to(self.dtype)
-        return out
-
-
 class RMSNorm(nn.Module):
     def __init__(self, d: int, eps: float):
         super().__init__()
@@ -112,10 +102,6 @@ class RMSNorm(nn.Module):
     def forward(self, x):
         x = x.float()
         return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps) * self.weight.float()
-
-
-def _linear(x, weight, cast):
-    return F.linear(x.to(cast.dtype), cast(weight))
 
 
 class ShortConv(nn.Module):
@@ -130,15 +116,15 @@ class ShortConv(nn.Module):
 
     def forward(self, x, cast, pos0: int, state=None):
         B, P, d = x.shape
-        b, c, xt = _linear(x, self.in_proj.weight, cast).chunk(3, dim=-1)
+        b, c, xt = product(x, self.in_proj.weight, cast).chunk(3, dim=-1)
         u = b * xt
         W = self.conv_weight.shape[1]
         if state is None:
             state = u.new_zeros(B, W - 1, d)
         window = torch.cat([state, u], dim=1)
-        w = cast(self.conv_weight)
+        w = self.conv_weight.to(u.dtype)
         v = sum(window[:, j:j + P] * w[:, j] for j in range(W))
-        return _linear(c * v, self.out_proj.weight, cast), window[:, P:]
+        return product(c * v, self.out_proj.weight, cast), window[:, P:]
 
 
 def rope(pos0: int, P: int, head_dim: int, theta: float, device):
@@ -173,12 +159,12 @@ class GQAttention(nn.Module):
 
     def forward(self, x, cast, pos0: int, state=None):
         B, P, _ = x.shape
-        H, KV, hd, dt = self.n_heads, self.n_kv, self.head_dim, cast.dtype
-        q = self.q_layernorm(_linear(x, self.q_proj.weight, cast).view(B, P, H, hd))
-        k = self.k_layernorm(_linear(x, self.k_proj.weight, cast).view(B, P, KV, hd))
-        v = _linear(x, self.v_proj.weight, cast).view(B, P, KV, hd)
+        H, KV, hd = self.n_heads, self.n_kv, self.head_dim
+        q = self.q_layernorm(product(x, self.q_proj.weight, cast).view(B, P, H, hd))
+        k = self.k_layernorm(product(x, self.k_proj.weight, cast).view(B, P, KV, hd))
+        v = product(x, self.v_proj.weight, cast).view(B, P, KV, hd)
         cos, sin = rope(pos0, P, hd, self.theta, x.device)
-        q, k = _rotate(q, cos, sin).to(dt), _rotate(k, cos, sin).to(dt)
+        q, k = _rotate(q, cos, sin).to(v.dtype), _rotate(k, cos, sin).to(v.dtype)
         if state is not None:
             k, v = torch.cat([state[0], k], dim=1), torch.cat([state[1], v], dim=1)
         S = k.shape[1]
@@ -189,7 +175,7 @@ class GQAttention(nn.Module):
             scores = scores.masked_fill(~causal, MASK_VALUE)
         attn = scores.float().softmax(dim=-1).to(vh.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(B, P, H * hd)
-        return _linear(out, self.out_proj.weight, cast), (k, v)
+        return product(out, self.out_proj.weight, cast), (k, v)
 
 
 class SwiGLU(nn.Module):
@@ -200,8 +186,8 @@ class SwiGLU(nn.Module):
         self.w2 = nn.Linear(d_ff, d, bias=False)
 
     def forward(self, x, cast):
-        h = F.silu(_linear(x, self.w1.weight, cast)) * _linear(x, self.w3.weight, cast)
-        return _linear(h, self.w2.weight, cast)
+        h = F.silu(product(x, self.w1.weight, cast)) * product(x, self.w3.weight, cast)
+        return product(h, self.w2.weight, cast)
 
 
 class Lfm2Layer(nn.Module):
@@ -227,7 +213,7 @@ class Lfm2Layer(nn.Module):
         return h + self.feed_forward(self.ffn_norm(h).reshape(B * P, d), cast).view(B, P, d), state
 
 
-class Lfm2MoeGenerator(nn.Module):
+class Lfm2MoeGenerator(CastScope, nn.Module):
     time_major_soft = False  # its soft decode is (B, L, V)
     draws_sched_coins = False  # its teacher pass is parallel
 
@@ -246,7 +232,6 @@ class Lfm2MoeGenerator(nn.Module):
         self.layers = nn.ModuleList(Lfm2Layer(kind, i < w["n_dense"], w)
                                     for i, kind in enumerate(LAYER_TYPES[:n_layers]))
         self.embedding_norm = RMSNorm(d, w["norm_eps"])
-        self._shared: Cast | None = None
         self.reset_parameters(torch.Generator().manual_seed(seed))
 
     @torch.no_grad()
@@ -265,30 +250,17 @@ class Lfm2MoeGenerator(nn.Module):
             elif isinstance(m, SparseMoE):
                 m.reset_parameters_from(generator)
 
-    def cast(self, device: torch.device) -> Cast:
-        """A :class:`Cast` to the dtype products run in: the caller's
-        autocast dtype, else the parameters' own; inside :meth:`one_cast`
-        the one it holds."""
-        if torch.is_autocast_enabled(device.type):
-            dtype = torch.get_autocast_dtype(device.type)
-        else:
-            dtype = self.token_embedding.weight.dtype
-        if self._shared is not None and self._shared.dtype == dtype:
-            return self._shared
-        return Cast(dtype)
-
-    @contextlib.contextmanager
-    def one_cast(self):
-        """The calls inside (under the caller's autocast) share one cast of
-        the weights: the optimize G step's decode and back-translation pass
-        keep one copy and sum one gradient, not two. The weights must not
-        change inside."""
-        self._shared = None
-        self._shared = self.cast(self.token_embedding.weight.device)
-        try:
-            yield
-        finally:
-            self._shared = None
+    def product_weights(self) -> list[nn.Parameter]:
+        """The weights that products read: the token table (the tied head's
+        and the soft inputs'), every projection, each router and each
+        layer's experts."""
+        weights = [self.token_embedding.weight]
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                weights.append(m.weight)
+            elif isinstance(m, SparseMoE):
+                weights += [m.router.weight, m.w1, m.w3, m.w2]
+        return weights
 
     def _drop(self, t, generator):
         return dropout(t, self.p_drop, self.training, generator)
@@ -298,7 +270,7 @@ class Lfm2MoeGenerator(nn.Module):
         ``label_i``, dropout applied: (B, L, d) float32."""
         table = self.token_embedding.weight
         if torch.is_floating_point(inp):
-            e = (hard_sample_st(inp.float()).to(cast.dtype) @ cast(table)).float()
+            e = product(hard_sample_st(inp.float()), table, cast, transposed=True).float()
         else:
             e = F.embedding(inp.long(), table).float()
         return self._drop(e + self.style_embedding(label_i.long()).float()[:, None, :],
@@ -324,7 +296,7 @@ class Lfm2MoeGenerator(nn.Module):
         return h, new
 
     def head(self, h, cast):
-        return _linear(self.embedding_norm(h), self.token_embedding.weight, cast)
+        return product(self.embedding_norm(h), self.token_embedding.weight, cast)
 
     def forward(self, inp, label_i, x, label, mode: str = "sched", tau: float = 1.0,
                 time_major_out: bool = False, generator: torch.Generator | None = None,
@@ -338,14 +310,17 @@ class Lfm2MoeGenerator(nn.Module):
     def teacher_pass(self, inp, label_i, x, label, generator: torch.Generator | None = None):
         """The teacher-forced ``sched`` pass: logits (B, L, V) of x (B, L)
         from ``inp`` in style ``label_i``, to style ``label``."""
-        cast = self.cast(x.device)
-        src = self.source(inp, label_i, cast, generator)
-        B = x.shape[0]
-        tgt = torch.cat([self.bos(B, x.device),
-                         F.embedding(x[:, :-1].long(), self.token_embedding.weight).float()], 1)
-        tgt = self._drop(tgt + self.style_embedding(label.long()).float()[:, None, :], generator)
-        h, _ = self.run(torch.cat([src, tgt], dim=1), cast, 0)
-        return self.head(h[:, src.shape[1]:], cast)
+        with self.call_scope():
+            cast = self._cast
+            src = self.source(inp, label_i, cast, generator)
+            B = x.shape[0]
+            tgt = torch.cat([self.bos(B, x.device),
+                             F.embedding(x[:, :-1].long(), self.token_embedding.weight).float()],
+                            1)
+            tgt = self._drop(tgt + self.style_embedding(label.long()).float()[:, None, :],
+                             generator)
+            h, _ = self.run(torch.cat([src, tgt], dim=1), cast, 0)
+            return self.head(h[:, src.shape[1]:], cast)
 
 
 def generate(model: Lfm2MoeGenerator, inp, label_i, label, mode: str = "greedy",
@@ -360,23 +335,24 @@ def generate(model: Lfm2MoeGenerator, inp, label_i, label, mode: str = "greedy",
     if mode not in GENERATE_MODES:
         raise ValueError(f"generate: mode must be one of {GENERATE_MODES}, got {mode!r}")
     L = model.max_len if L_out is None else L_out
-    cast = model.cast(inp.device)
-    src = model.source(inp, label_i, cast, generator)
-    _, states = model.run(src, cast, 0)
-    B, pos = src.shape[0], src.shape[1]
-    style = model.style_embedding(label.long()).float()[:, None, :]
-    table = model.token_embedding.weight
-    x_t = model.bos(B, inp.device)
-    outs = []
-    for t in range(L):
-        h, states = model.run(model._drop(x_t + style, generator), cast, pos + t, states)
-        logits_t = model.head(h, cast)[:, 0]
-        if mode == "st":
-            out_t = torch.softmax(logits_t / tau, dim=-1)
-            x_t = (hard_sample_st(out_t).to(cast.dtype) @ cast(table)).float()[:, None, :]
-        else:
-            ids_t = logits_t.argmax(dim=-1)
-            x_t = F.embedding(ids_t, table).float()[:, None, :]
-            out_t = ids_t.to(torch.int32) if mode == "greedy" else logits_t
-        outs.append(out_t)
-    return torch.stack(outs, dim=1)
+    with model.call_scope():
+        cast = model._cast
+        src = model.source(inp, label_i, cast, generator)
+        _, states = model.run(src, cast, 0)
+        B, pos = src.shape[0], src.shape[1]
+        style = model.style_embedding(label.long()).float()[:, None, :]
+        table = model.token_embedding.weight
+        x_t = model.bos(B, inp.device)
+        outs = []
+        for t in range(L):
+            h, states = model.run(model._drop(x_t + style, generator), cast, pos + t, states)
+            logits_t = model.head(h, cast)[:, 0]
+            if mode == "st":
+                out_t = torch.softmax(logits_t / tau, dim=-1)
+                x_t = product(hard_sample_st(out_t), table, cast, transposed=True).float()[:, None]
+            else:
+                ids_t = logits_t.argmax(dim=-1)
+                x_t = F.embedding(ids_t, table).float()[:, None, :]
+                out_t = ids_t.to(torch.int32) if mode == "greedy" else logits_t
+            outs.append(out_t)
+        return torch.stack(outs, dim=1)

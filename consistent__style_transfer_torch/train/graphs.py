@@ -42,7 +42,8 @@ while a stream captures invalidates that capture.
 
 A capture keeps what ``utils/profiling.py::count_step`` counts on its
 stream (the hand-written kernels' launches, ``kernel.<wrapper>``; the
-expert layer's ``moe.rows``; ``generator.weight_casts``), and every replay
+expert layer's ``moe.rows`` and ``moe.grad_gathers``;
+``generator.weight_casts``), and every replay
 counts that list again (``profiling.count_replay``): into the always-kept
 totals and, when spans record, as counter events inside the replay's span.
 

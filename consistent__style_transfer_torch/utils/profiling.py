@@ -34,7 +34,8 @@ gives its ``seconds``.
 **Work a CUDA graph replays.** ``count_step(name, n)`` counts work that a
 graph may capture: each hand-written kernel's launches
 (``kernel.<wrapper>``: ``kernel.lstm_cell_fwd``, ``kernel.sinkhorn_cuda``,
-...), the expert layer's routed rows (``moe.rows``), the generator's weight
+...), the expert layer's routed rows (``moe.rows``) and weight-gradient
+gathers (``moe.grad_gathers``, ``moe.grad_rows``), the generator's weight
 casts (``generator.weight_casts``). Work done now adds to an always-kept
 total (:func:`total`) and, when recording, is an event as ``count``'s. On a
 stream that a :func:`kept_counts` scope captures it is kept in the scope's

@@ -31,6 +31,7 @@ from consistent__style_transfer_torch.models.lfm2_moe import (  # noqa: E402
     Lfm2MoeGenerator,
     generate,
 )
+from consistent__style_transfer_torch.models.weight_cast import WeightCast  # noqa: E402
 from consistent__style_transfer_torch.train.common import (  # noqa: E402
     build_generator,
     get_tokenizer,
@@ -172,9 +173,11 @@ def test_static_dispatch_matches_the_per_expert_loop(dtype, monkeypatch):
             getattr(ffn, name).copy_(getattr(layer, name))
         ffn.router.weight.copy_(layer.router.weight)
     x = torch.randn(37, 64, generator=torch.Generator().manual_seed(1))
-    fixed = layer.router(x, lfm2_moe.Cast(torch.float32))
+    fixed = layer.router(x, None)
     monkeypatch.setattr(layer.router, "forward", lambda x, cast: fixed)
-    got = layer(x, lfm2_moe.Cast(dtype)).float()
+    cast = (None if dtype == torch.float32
+            else WeightCast(list(layer.parameters()), dtype, "test.weight_casts"))
+    got = layer(x, cast).float()
     want = ref.experts(ffn, x)
     _close(got, want, REL if dtype == torch.float32 else 2e-2)
     assert int(layer.load.sum()) == 37 * 4  # the routed rows, per expert
@@ -188,18 +191,18 @@ def test_the_combine_is_deterministic_and_keeps_every_slot():
     x = torch.randn(50, 64, generator=torch.Generator().manual_seed(2), requires_grad=True)
     runs = []
     for _ in range(2):
-        out = layer(x, lfm2_moe.Cast(torch.float32))
+        out = layer(x, None)
         grad, = torch.autograd.grad(out.square().sum(), x)
         runs.append((out, grad))
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
 
-    gates, experts = layer.router(x.detach(), lfm2_moe.Cast(torch.float32))
+    gates, experts = layer.router(x.detach(), None)
     original = moe.grouped_swiglu
     try:
         moe.grouped_swiglu = lambda xs, ends, *w: xs[:, :1].expand(-1, 64)
         mark = x.detach().clone()
         mark[:, 0] = torch.arange(50, dtype=torch.float32)
-        out = layer(mark, lfm2_moe.Cast(torch.float32))
+        out = layer(mark, None)
     finally:
         moe.grouped_swiglu = original
     assert torch.allclose(out[:, 0], torch.arange(50.0) * gates.sum(-1), atol=1e-5)
@@ -248,7 +251,7 @@ def test_spans_and_counters_of_an_eager_call(monkeypatch):
     monkeypatch.setattr(profiling.RECORDER, "env", True)
     profiling.RECORDER.clear()
     try:
-        _moe_layer()(torch.randn(6, 64), lfm2_moe.Cast(torch.float32))
+        _moe_layer()(torch.randn(6, 64), None)
         names = [s[0] for s in profiling.RECORDER.spans]
         rows = [(n, v) for n, _, v in profiling.RECORDER.counters]
     finally:

@@ -14,6 +14,9 @@ weight gradients differ in their last bits between the two). An eager step runs 
 ``torch.cuda.set_sync_debug_mode("error")``, so a host sync anywhere in it
 raises, and the captured step replays, adding its grouped products to
 ``kernel.grouped_swiglu`` and its routed rows to each layer's ``load``.
+The expert weights' gradients are one gather an expert layer a G step
+(``moe.grad_gathers``), inside the captured step, in replays as in eager
+steps.
 In float32 the expert layer raises on the card.
 """
 
@@ -32,7 +35,6 @@ from consistent__style_transfer_torch.models import (  # noqa: E402
     TextCNN,
     TransformerLM,
 )
-from consistent__style_transfer_torch.models.lfm2_moe import Cast  # noqa: E402
 from consistent__style_transfer_torch.models.moe import SparseMoE  # noqa: E402
 from consistent__style_transfer_torch.train.optimize import (  # noqa: E402
     GraphedFusedStep,
@@ -105,6 +107,7 @@ def test_bfloat16_replays_equal_eager_steps_bit_for_bit(cuda_device, apply):
     runner(batches[1], False)
     g_params = list(models.generator.parameters())
     d_params = list(models.disc.parameters())
+    n_moe = sum(isinstance(m, SparseMoE) for m in models.generator.modules())
     g_adam = [t for st in opts[0].adam.state.values() for t in st.values()
               if isinstance(t, torch.Tensor)]
     held = g_params + g_adam + ([] if any(apply) else d_params)
@@ -120,12 +123,15 @@ def test_bfloat16_replays_equal_eager_steps_bit_for_bit(cuda_device, apply):
                 t.copy_(s)
         for g, s in zip(gens, saved_gens):
             g.set_state(s)
+        gathers = total("moe.grad_gathers")
         losses = []
         for do_apply, b in zip(apply, batches[2:]):
             aux, d_loss = (runner(b, do_apply) if graphed
                            else steps.fused_step(b, acc, do_apply, *gens, scale))
             losses.append(torch.stack([aux["loss"], aux["BK"], d_loss]).clone())
         torch.cuda.synchronize()
+        # one gather of the expert weights' gradients an expert layer a G step
+        assert total("moe.grad_gathers") - gathers == n_moe * len(apply)
         return (torch.stack(losses), [t.detach().clone() for t in held],
                 [g.get_state() for g in gens])
 
@@ -171,4 +177,4 @@ def test_float32_expert_layer_raises_on_the_card(cuda_device):
     moe.reset_parameters_from(torch.Generator(cuda_device).manual_seed(0))
     x = torch.randn(5, G_SIZE["d_model"], device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
-        moe(x, Cast(torch.float32))
+        moe(x, None)  # float32 parameters: no cast
